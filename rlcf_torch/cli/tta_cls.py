@@ -1,0 +1,165 @@
+"""RLCF / TPT / KD prompt test-time adaptation for classification, on the card.
+
+The port of ``rlcf_tpu/cli/tta_cls.py`` for the patch-major token path: per
+group of ``--episode_group`` test images the C++ host pipeline builds
+``--batch_size`` views each (``--viewgen native``), and the classifier runs
+one batched episode group on the device.
+
+Example (random weights, no data):
+  python -m rlcf_torch.cli.tta_cls --test_sets synthetic --limit 8 \\
+      --arch ViT-B/16 --reward_arch ViT-L/14 --tta_steps 3 --lr 7e-3 \\
+      --sample_k 3 --ctx_init a_photo_of_a --loss rlcf --viewgen native
+Add ``--device cpu`` to run on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+from . import common
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="RLCF prompt TTA (PyTorch, CUDA)")
+    common.add_run_args(p)
+    common.add_model_args(p)
+    common.add_reward_args(p)
+    common.add_tta_args(p)
+    p.add_argument("--loss", default="rlcf", choices=["rlcf", "tpt", "kd", "dkd", "atkd"])
+    p.add_argument("--tpt", action="store_true", help="compat flag: TPT entropy loss")
+    p.add_argument("--cocoop", action="store_true", help="not ported yet (refused)")
+    p.add_argument("--resume", action="store_true", help="not ported yet (refused)")
+    p.add_argument("--bongard_split", default="unseen_obj_unseen_act")
+    p.add_argument("--learned_cls", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1, help="class-axis tensor parallelism; not ported yet (refused when > 1)")
+    p.add_argument(
+        "--viewgen", default="auto", choices=["auto", "fused", "device", "native"],
+        help="view generator: 'native' = the repo's C++ host pipeline emitting patch-major u8 "
+        "tokens; 'auto' = native. 'fused' and 'device' are not ported yet",
+    )
+    return p.parse_args(argv)
+
+
+def refuse_unported(args):
+    """Exit with a message for options this slice of the port does not run."""
+    waits = {
+        "--viewgen fused": (args.viewgen == "fused", "the CUDA AugMix kernel (ROADMAP B2 with A6)"),
+        "--viewgen device": (args.viewgen == "device", "the torch AugMix pipeline (ROADMAP A16)"),
+        "--cocoop": (args.cocoop, "CoCoOp (ROADMAP A10)"),
+        "--tp > 1": (args.tp > 1, "class-axis tensor parallelism (ROADMAP A14)"),
+        "bongard": ("bongard" in args.test_sets.split("/"), "Bongard-HOI (ROADMAP A10)"),
+        "--multiple_reward_models": (bool(args.multiple_reward_models), "reward ensembles (ROADMAP A8)"),
+        "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
+        "--resume": (args.resume, "the progress journal"),
+        "--download": (bool(args.download), "checkpoint download (a later slice of A2)"),
+        "--decode native": (args.decode == "native", "the native decoder binding"),
+    }
+    for flag, (used, item) in waits.items():
+        if used:
+            raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+
+
+def build(args):
+    """(classifier, policy config, device) for parsed args."""
+    from ..core.episode import EpisodeConfig
+    from ..core.prompt import load_coop_ctx
+    from ..tasks.classification import PromptTTAClassifier
+    from ..utils.runtime import resolve_device
+
+    device = resolve_device(args.device)
+    params, cfg = common.load_policy(args, device)
+    reward = common.build_reward(args, device)
+    loss = {"KD": "kd", "DKD": "dkd", "ATKD": "atkd"}[args.kd_loss] if args.loss == "kd" else args.loss
+    ecfg = EpisodeConfig(
+        tta_steps=args.tta_steps, selection_p=args.selection_p, lr=args.lr, weight_decay=args.weight_decay,
+        loss=loss, sample_k=args.sample_k, min_entropy_reg=bool(args.min_entropy_reg),
+        min_entropy_w=args.min_entropy_w,
+    )
+    ctx0 = load_coop_ctx(args.load).to(device) if args.load else None
+    clf = PromptTTAClassifier(params, cfg, reward, ecfg, ctx_init=args.ctx_init or "a photo of a",
+                              n_ctx=args.n_ctx, ctx0=ctx0)
+    return clf, cfg, device
+
+
+def main(argv=None):
+    args = get_args(argv)
+    if args.tpt and args.loss == "rlcf":
+        args.loss = "tpt"
+    if args.viewgen == "auto":
+        args.viewgen = "native"
+        print("viewgen: auto -> native")
+    refuse_unported(args)
+    if common.finish_dry_run(args):
+        return None
+
+    from ..data import native
+    from ..data.class_names import get_classnames
+    from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
+    from ..metrics.classification import AccuracyMeter, topk_correct
+    from ..utils.config import save_hparams
+    from ..utils.logging_utils import RunLogger
+
+    if not native.available():
+        raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
+    clf, cfg, _ = build(args)
+    logger = RunLogger(args.output)
+    save_hparams(args.output, vars(args))
+    if not cfg.is_vit or args.resolution % cfg.vision_patch_size:
+        raise SystemExit("the token path needs a ViT policy whose patch size tiles --resolution")
+
+    results = {}
+    for set_id in args.test_sets.split("/"):
+        if set_id != "synthetic":
+            classnames = get_classnames(set_id)
+        elif args.synthetic_classes.isdigit():
+            classnames = ["class_%d" % i for i in range(int(args.synthetic_classes))]
+        else:
+            classnames = get_classnames(args.synthetic_classes)
+        clf.setup(classnames)
+        dataset = build_dataset(set_id, args.data, corruption=args.corruption, level=args.level,
+                                n_classes=len(classnames))
+        meter = AccuracyMeter()
+        group_seconds = []
+        group_imgs, group_labels = [], []
+        counter = [0]
+
+        def flush():
+            if not group_imgs:
+                return
+            t0 = time.perf_counter()
+            views = native.generate_views_native_patch_u8(
+                np.stack(group_imgs), n_views=args.batch_size, p_policy=cfg.vision_patch_size,
+                resolution=args.resolution, augmix=bool(args.augmix), seed=args.seed * 100003 + counter[0],
+            )
+            counter[0] += 1
+            logits, _ = clf.adapt_tokens(views)
+            logits = logits.float().cpu().numpy()  # synchronizes with the device
+            group_seconds.append(time.perf_counter() - t0)
+            counts = topk_correct(logits, np.asarray(group_labels))
+            meter.update_counts(counts, len(group_labels))
+            group_imgs.clear()
+            group_labels.clear()
+
+        for img, label in PrefetchIterator(iter_canonical(dataset, 256, seed=args.seed, limit=args.limit)):
+            group_imgs.append(img)
+            group_labels.append(label)
+            if len(group_imgs) == args.episode_group:
+                flush()
+        flush()
+        results[set_id] = dict(meter.summary(), n=meter.count, group_seconds=group_seconds)
+        logger.text(
+            logger.elapsed_line(f"dataset {set_id}"),
+            f"=> Acc. on testset [{set_id}]: @1 {results[set_id]['top1']} / @5 {results[set_id]['top5']}",
+        )
+    logger.results_json(results)
+    print("======== Result Summary ========", json.dumps({k: {m: v[m] for m in ("top1", "top5", "n")}
+                                                       for k, v in results.items()}))
+    return results
+
+
+if __name__ == "__main__":
+    main()

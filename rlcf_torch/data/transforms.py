@@ -1,0 +1,42 @@
+"""Host image helpers and the CLIP normalization constants (the part of
+``rlcf_tpu/data/transforms.py`` the flagship stream needs)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
+
+
+def load_image(path: str) -> np.ndarray:
+    """Decode an image file to uint8 HWC RGB."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def resize_short_side_pil(img: np.ndarray, size: int) -> np.ndarray:
+    """Bicubic resize so the short side equals ``size`` (host, PIL).
+
+    An image already at the target size is returned as it is, which is what
+    PIL's ``resize`` does for an unchanged size (so synthetic streams need no
+    PIL)."""
+    h, w = img.shape[:2]
+    if h < w:
+        new_h, new_w = size, max(size, int(round(w * size / h)))
+    else:
+        new_h, new_w = max(size, int(round(h * size / w))), size
+    if (new_h, new_w) == (h, w):
+        return img
+    from PIL import Image
+
+    return np.asarray(Image.fromarray(img).resize((new_w, new_h), Image.BICUBIC))
+
+
+def center_crop(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    top = (h - size) // 2
+    left = (w - size) // 2
+    return img[top : top + size, left : left + size]

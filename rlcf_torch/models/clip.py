@@ -1,0 +1,239 @@
+"""CLIP ViT image tower and text tower as plain functions on a parameter
+dict (the counterpart of ``rlcf_tpu/models/clip.py``; the ResNet towers are
+not ported yet).
+
+Parameters keep the JAX package's pytree layout (``visual``/``text`` dicts,
+transformer blocks stacked on a leading layer axis, ``[in, out]`` linears,
+the patch-embedding conv as HWIO), so ``models/convert.py`` can carry JAX
+parameters across unchanged. Images are NHWC, patch tokens patch-major.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from . import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipConfig:
+    name: str
+    embed_dim: int
+    image_resolution: int
+    vision_layers: Union[int, Tuple[int, int, int, int]]
+    vision_width: int
+    vision_patch_size: Optional[int]
+    text_width: int
+    text_layers: int
+    context_length: int = 77
+    vocab_size: int = 49408
+    # Overrides for tiny test configs where width//64 would be 0.
+    vision_heads_override: Optional[int] = None
+    text_heads_override: Optional[int] = None
+
+    @property
+    def is_vit(self) -> bool:
+        return isinstance(self.vision_layers, int)
+
+    @property
+    def vision_heads(self) -> int:
+        if self.vision_heads_override:
+            return self.vision_heads_override
+        return self.vision_width // 64 if self.is_vit else self.vision_width * 32 // 64
+
+    @property
+    def text_heads(self) -> int:
+        return self.text_heads_override or self.text_width // 64
+
+    @property
+    def grid_size(self) -> int:
+        assert self.is_vit
+        return self.image_resolution // self.vision_patch_size
+
+
+def _cfg(name, embed_dim, res, vl, vw, patch, tw, tl, **kw):
+    return ClipConfig(name, embed_dim, res, vl, vw, patch, tw, tl, **kw)
+
+
+CLIP_ARCHS = {
+    "ViT-B/32": _cfg("ViT-B/32", 512, 224, 12, 768, 32, 512, 12),
+    "ViT-B/16": _cfg("ViT-B/16", 512, 224, 12, 768, 16, 512, 12),
+    "ViT-L/14": _cfg("ViT-L/14", 768, 224, 24, 1024, 14, 768, 12),
+    "ViT-L/14@336px": _cfg("ViT-L/14@336px", 768, 336, 24, 1024, 14, 768, 12),
+    # Tiny architectures for tests (same code paths).
+    "test-tiny-vit": _cfg("test-tiny-vit", 32, 32, 2, 64, 8, 64, 2, vocab_size=512),
+    "test-small": _cfg("test-small", 64, 64, 2, 64, 16, 64, 2),
+}
+
+
+def get_config(arch: str) -> ClipConfig:
+    if arch not in CLIP_ARCHS:
+        raise KeyError(f"architecture {arch!r} is not ported (ViT towers only); known: {sorted(CLIP_ARCHS)}")
+    return CLIP_ARCHS[arch]
+
+
+# ---------------------------------------------------------------------------
+# Random initialization (weights from a torch.Generator)
+# ---------------------------------------------------------------------------
+
+
+def init_clip_params(cfg: ClipConfig, seed: int = 0, dtype=torch.float32, device="cpu"):
+    """Random CLIP parameters (the CLIP init scheme) from ``seed``, made on
+    ``device`` with a generator of that device."""
+    if not cfg.is_vit:
+        raise NotImplementedError("ResNet towers are not ported yet")
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    normal = lambda shape, std: (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+    ones = lambda n: torch.ones(n, dtype=dtype, device=device)
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
+    W, P = cfg.vision_width, cfg.vision_patch_size
+    scale = W**-0.5
+    visual = {
+        "conv_w": normal((P, P, 3, W), scale),
+        "class_emb": normal((W,), scale),
+        "pos_emb": normal((cfg.grid_size**2 + 1, W), scale),
+        "ln_pre_w": ones(W), "ln_pre_b": zeros(W),
+        "blocks": L.init_transformer_blocks(gen, cfg.vision_layers, W, dtype, device),
+        "ln_post_w": ones(W), "ln_post_b": zeros(W),
+        "proj": normal((W, cfg.embed_dim), scale),
+    }
+    tw = cfg.text_width
+    text = {
+        "token_embedding": normal((cfg.vocab_size, tw), 0.02),
+        "positional_embedding": normal((cfg.context_length, tw), 0.01),
+        "blocks": L.init_transformer_blocks(gen, cfg.text_layers, tw, dtype, device),
+        "ln_final_w": ones(tw), "ln_final_b": zeros(tw),
+        "projection": normal((tw, cfg.embed_dim), tw**-0.5),
+    }
+    logit_scale = torch.tensor(math.log(1 / 0.07), dtype=torch.float32, device=device)
+    return {"visual": visual, "text": text, "logit_scale": logit_scale}
+
+
+# ---------------------------------------------------------------------------
+# Vision tower (ViT)
+# ---------------------------------------------------------------------------
+
+
+def _vit_post_patch(p, cfg: ClipConfig, x, pool=True, attn="dense"):
+    """Shared ViT trunk after patch embedding: x [B, T, W] patch activations."""
+    B, _, W = x.shape
+    cls_tok = p["class_emb"].to(x.dtype).expand(B, 1, W)
+    x = torch.cat([cls_tok, x], dim=1)
+    x = x + p["pos_emb"].to(x.dtype)
+    x = L.layer_norm(x, p["ln_pre_w"], p["ln_pre_b"])
+    x = L.transformer(x, p["blocks"], cfg.vision_heads, attn=attn)
+    x = L.layer_norm(x[:, 0, :] if pool else x, p["ln_post_w"], p["ln_post_b"])
+    return L.linear(x, p["proj"])
+
+
+def encode_image(params, cfg: ClipConfig, images, pool=True, attn="dense"):
+    """NHWC images (normalized) -> [B, embed_dim]; the patch embedding is a
+    strided convolution, as in the reference tower."""
+    if not cfg.is_vit:
+        raise NotImplementedError("ResNet towers are not ported yet")
+    p = params["visual"]
+    w = p["conv_w"]  # HWIO
+    x = F.conv2d(images.to(w.dtype).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=cfg.vision_patch_size)
+    B, W, gh, gw = x.shape
+    return _vit_post_patch(p, cfg, x.permute(0, 2, 3, 1).reshape(B, gh * gw, W), pool=pool, attn=attn)
+
+
+def patch_tokens_from_images(images, patch_size: int):
+    """NHWC images -> patch-major tokens [B, T, p*p*3], vector order (row,
+    col, channel): the contraction order of the HWIO patch conv."""
+    B, H, W, C = images.shape
+    gh, gw = H // patch_size, W // patch_size
+    x = images.reshape(B, gh, patch_size, gw, patch_size, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, gh * gw, patch_size * patch_size * C)
+
+
+def images_from_patch_tokens(tokens, patch_size: int):
+    """Inverse of ``patch_tokens_from_images``: [B, T, p*p*3] -> NHWC images."""
+    B, T, _ = tokens.shape
+    g = int(round(T**0.5))
+    p = patch_size
+    x = tokens.reshape(B, g, g, p, p, 3).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, g * p, g * p, 3)
+
+
+def encode_image_tokens(params, cfg: ClipConfig, tokens, pool=True, attn="dense"):
+    """Encode pre-patchified views: tokens [B, T, p*p*3] -> [B, embed_dim];
+    the patch embedding is one matmul against the conv kernel reshaped
+    [p*p*3, width]. ViT towers only."""
+    if not cfg.is_vit:
+        raise ValueError("encode_image_tokens requires a ViT tower")
+    p = params["visual"]
+    kmat = p["conv_w"].reshape(-1, p["conv_w"].shape[-1])  # HWIO row-major == (row, col, channel)
+    x = L.linear(tokens.to(kmat.dtype), kmat)
+    return _vit_post_patch(p, cfg, x, pool=pool, attn=attn)
+
+
+def best_attn(cfg: Optional[ClipConfig] = None, device="cpu") -> str:
+    """The attention implementation for a ViT or text tower on ``device``:
+    the fused CUDA kernel on the card, the dense plain math on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "dense"
+    if cfg is not None and not cfg.is_vit:
+        return "dense"
+    return "fused"
+
+
+# ---------------------------------------------------------------------------
+# Text tower
+# ---------------------------------------------------------------------------
+
+
+def encode_text_embeds(params, cfg: ClipConfig, embeds, eot_index, attn="dense"):
+    """Text features from pre-assembled token embeddings [B, T, D]; the
+    pooled position per row is ``eot_index`` [B] (argmax of the token ids)."""
+    t = params["text"]
+    B, T, _ = embeds.shape
+    x = embeds + t["positional_embedding"][:T].to(embeds.dtype)
+    x = L.transformer(x, t["blocks"], cfg.text_heads, mask=L.causal_mask(T, x.device), attn=attn)
+    x = L.layer_norm(x, t["ln_final_w"], t["ln_final_b"])
+    pooled = x[torch.arange(B, device=x.device), eot_index.to(x.device)]
+    return L.linear(pooled, t["projection"])
+
+
+def encode_text(params, cfg: ClipConfig, tokens, attn="dense"):
+    """Pooled text features from token ids [B, T] (T <= context_length)."""
+    embeds = params["text"]["token_embedding"][tokens]
+    return encode_text_embeds(params, cfg, embeds, tokens.argmax(dim=-1), attn=attn)
+
+
+def normalize(features, dim=-1):
+    return features / features.norm(dim=dim, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Architecture inference from a checkpoint's key/shape map
+# ---------------------------------------------------------------------------
+
+
+def infer_arch_from_state_dict(shapes: dict) -> ClipConfig:
+    """``build_model``'s shape sniffing (`TPT/clip/model.py:399-422`) for
+    ViT checkpoints; ``shapes`` maps state-dict keys to shapes."""
+    if "visual.proj" not in shapes:
+        raise NotImplementedError("ResNet CLIP checkpoints are not ported yet (ViT only)")
+    vision_width = shapes["visual.conv1.weight"][0]
+    vision_layers = len([k for k in shapes if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")])
+    vision_patch = shapes["visual.conv1.weight"][-1]
+    grid = round((shapes["visual.positional_embedding"][0] - 1) ** 0.5)
+    return ClipConfig(
+        name="from-checkpoint",
+        embed_dim=shapes["text_projection"][1],
+        image_resolution=vision_patch * grid,
+        vision_layers=vision_layers,
+        vision_width=vision_width,
+        vision_patch_size=vision_patch,
+        text_width=shapes["ln_final.weight"][0],
+        text_layers=len({k.split(".")[2] for k in shapes if k.startswith("transformer.resblocks")}),
+        context_length=shapes["positional_embedding"][0],
+        vocab_size=shapes["token_embedding.weight"][0],
+    )

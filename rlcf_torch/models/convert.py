@@ -1,0 +1,104 @@
+"""Parameters into the port: from the JAX package's pytree, and from an
+OpenAI-format CLIP state dict (the counterpart of
+``rlcf_tpu/models/convert.py``; ViT checkpoints only for now).
+
+Layout changes from an OpenAI state dict, as in the JAX package:
+- torch Linear weights [out, in] become [in, out];
+- the attention in_proj (q; k; v stacked rows) becomes a fused [D, 3D] ``qkv_w``;
+- the patch conv goes OIHW -> HWIO;
+- per-layer transformer tensors stack on a leading layer axis.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .clip import ClipConfig, infer_arch_from_state_dict
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def from_jax_params(tree, cfg: ClipConfig, dtype=None, device="cpu"):
+    """The JAX package's CLIP parameter pytree (numpy leaves, the layout of
+    ``init_clip_params``/``convert_clip_state_dict``) -> the port's params.
+
+    ``dtype`` casts floating leaves (``logit_scale`` stays fp32)."""
+    if not cfg.is_vit:
+        raise NotImplementedError("ResNet towers are not ported yet")
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has no torch.from_numpy path
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, copy=True))
+        if dtype is not None and t.is_floating_point() and t.dim() > 0:
+            t = t.to(dtype)
+        return t.to(device)
+
+    return _tree_map(leaf, tree)
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """Load a torch checkpoint (eager or TorchScript archive) as CPU tensors."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except Exception:
+        obj = torch.jit.load(path, map_location="cpu").state_dict()
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def _stack_blocks(sd, prefix: str, n_layers: int, cast):
+    get = lambda i, name: cast(sd[f"{prefix}.resblocks.{i}.{name}"])
+    stack = lambda name, tr=False: torch.stack([get(i, name).t() if tr else get(i, name) for i in range(n_layers)])
+    return {
+        "ln1_w": stack("ln_1.weight"), "ln1_b": stack("ln_1.bias"),
+        "qkv_w": stack("attn.in_proj_weight", True), "qkv_b": stack("attn.in_proj_bias"),
+        "out_w": stack("attn.out_proj.weight", True), "out_b": stack("attn.out_proj.bias"),
+        "ln2_w": stack("ln_2.weight"), "ln2_b": stack("ln_2.bias"),
+        "fc_w": stack("mlp.c_fc.weight", True), "fc_b": stack("mlp.c_fc.bias"),
+        "proj_w": stack("mlp.c_proj.weight", True), "proj_b": stack("mlp.c_proj.bias"),
+    }
+
+
+def convert_clip_state_dict(sd: Dict, dtype=torch.float32, device="cpu"):
+    """OpenAI CLIP state dict (ViT) -> (params, inferred ClipConfig)."""
+    sd = {k: torch.as_tensor(v) for k, v in sd.items() if k not in ("input_resolution", "context_length", "vocab_size")}
+    cfg = infer_arch_from_state_dict({k: tuple(v.shape) for k, v in sd.items()})
+    cast = lambda t: t.detach().to(device=device, dtype=dtype).contiguous()
+    visual = {
+        "conv_w": cast(sd["visual.conv1.weight"]).permute(2, 3, 1, 0).contiguous(),
+        "class_emb": cast(sd["visual.class_embedding"]),
+        "pos_emb": cast(sd["visual.positional_embedding"]),
+        "ln_pre_w": cast(sd["visual.ln_pre.weight"]), "ln_pre_b": cast(sd["visual.ln_pre.bias"]),
+        "blocks": _stack_blocks(sd, "visual.transformer", cfg.vision_layers, cast),
+        "ln_post_w": cast(sd["visual.ln_post.weight"]), "ln_post_b": cast(sd["visual.ln_post.bias"]),
+        "proj": cast(sd["visual.proj"]),
+    }
+    text = {
+        "token_embedding": cast(sd["token_embedding.weight"]),
+        "positional_embedding": cast(sd["positional_embedding"]),
+        "blocks": _stack_blocks(sd, "transformer", cfg.text_layers, cast),
+        "ln_final_w": cast(sd["ln_final.weight"]), "ln_final_b": cast(sd["ln_final.bias"]),
+        "projection": cast(sd["text_projection"]),
+    }
+    logit_scale = sd["logit_scale"].detach().to(device=device, dtype=torch.float32)
+    return {"visual": visual, "text": text, "logit_scale": logit_scale}, cfg
+
+
+def load_clip_checkpoint(path: str, dtype=torch.float32, device="cpu"):
+    """Load an OpenAI CLIP .pt checkpoint (ViT) into (params, config)."""
+    return convert_clip_state_dict(load_torch_file(path), dtype=dtype, device=device)

@@ -1,0 +1,241 @@
+"""Fused multi-head attention from the unsplit QKV projection, forward and
+backward: a hand-written CUDA kernel for Hopper (``csrc/attention.cu``) and
+its plain PyTorch version.
+
+Replaces the TPU kernels ``_mha_fwd_kernel`` / ``_mha_bwd_kernel`` of
+``rlcf_tpu/ops/pallas_attention.py`` (``fused_attention``, a custom VJP).
+Function: ``qkv [B, T, 3*H*D]`` (+ an optional additive ``[T, T]`` mask, -inf
+clamped to -1e9) -> ``[B, T, H*D]``. Scores ``q.k * scale`` in fp32, a
+max-subtracted fp32 softmax, probabilities rounded to the input dtype before
+``P.V``, fp32 accumulation. The backward recomputes P in fp32 and returns
+``dqkv`` in the fused layout: ``dv = P^T g``, ``dp = g v^T``,
+``ds = P * (dp - rowsum(dp * P))``, ``dq = ds k * scale``,
+``dk = ds^T q * scale``.
+
+``fused_attention`` is a ``torch.autograd.Function``: a CUDA tensor runs the
+CUDA kernels (or raises), a CPU tensor runs the plain version. ``LAUNCHES``
+counts kernel launches, so a run can show that it went through the kernel.
+
+The kernel is built at first use with ``nvcc`` for ``sm_90a`` into the
+package's git-ignored ``_build/`` directory as a plain-C shared library and
+bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+NEG_BIG = -1e9  # finite stand-in for the causal mask's -inf
+HEAD_DIM = 64   # the kernel's head dimension
+MAX_T = 257     # the kernel's longest sequence (ViT-L/14 at 224 px)
+
+# kernel launches by the wrapper, per direction (plain integers), and per
+# (direction, B, T, H, dtype)
+LAUNCHES = {"fwd": 0, "bwd": 0}
+LAUNCH_SHAPES = collections.Counter()
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def prep_mask(mask):
+    """Clamp -inf to a finite floor (exp after max-subtraction gives exact 0)."""
+    return None if mask is None else torch.clamp(mask.to(torch.float32), min=NEG_BIG).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path; the kernel is held to it on the card)
+# ---------------------------------------------------------------------------
+
+
+def _split_heads(qkv, n_heads: int):
+    B, T, threeHD = qkv.shape
+    D = threeHD // 3 // n_heads
+    q, k, v = qkv.float().split(threeHD // 3, dim=-1)
+    sh = lambda t: t.reshape(B, T, n_heads, D).transpose(1, 2)  # [B, H, T, D]
+    return sh(q), sh(k), sh(v)
+
+
+def _probs(q, k, mask, scale: float):
+    s = (q @ k.transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + mask
+    return torch.softmax(s, dim=-1)
+
+
+def fused_attention_reference(qkv, mask, n_heads: int, scale: float):
+    """Forward: the dense math of ``_dense_reference`` (``pallas_attention.py:185``)."""
+    B, T, threeHD = qkv.shape
+    q, k, v = _split_heads(qkv, n_heads)
+    p = _probs(q, k, prep_mask(mask), scale).to(qkv.dtype).float()
+    out = (p @ v).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(B, T, threeHD // 3)
+
+
+def fused_attention_reference_bwd(qkv, g, mask, n_heads: int, scale: float):
+    """Backward: the explicit fp32 formula of ``_mha_bwd_kernel``."""
+    B, T, threeHD = qkv.shape
+    q, k, v = _split_heads(qkv, n_heads)
+    g = g.float().reshape(B, T, n_heads, -1).transpose(1, 2)
+    p = _probs(q, k, prep_mask(mask), scale)
+    dv = p.transpose(-1, -2) @ g
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = (ds @ k) * scale
+    dk = (ds.transpose(-1, -2) @ q) * scale
+    merge = lambda t: t.transpose(1, 2).reshape(B, T, threeHD // 3)
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(qkv.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, "csrc", "attention.cu")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "librlcf_attention.so")
+_BUILD_LOCK = threading.Lock()
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BUILD_LOG = {"ptxas": ""}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the attention kernel cannot be built")
+
+
+def build(force: bool = False) -> str:
+    """Compile ``csrc/attention.cu`` for sm_90a; returns the library path.
+    The ptxas report (registers, shared memory, spills) lands in ``BUILD_LOG``."""
+    with _BUILD_LOCK:
+        if not force and os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
+            return _LIB_PATH
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{_LIB_PATH}.build.{os.getpid()}"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {_SRC}:\n{res.stderr[-6000:]}")
+            BUILD_LOG["ptxas"] = res.stderr
+            os.replace(tmp, _LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return _LIB_PATH
+
+
+@functools.lru_cache()
+def _lib():
+    lib = ctypes.CDLL(build())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rlcf_mha_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, vp]
+    lib.rlcf_mha_fwd.restype = ci
+    lib.rlcf_mha_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, vp]
+    lib.rlcf_mha_bwd.restype = ci
+    return lib
+
+
+def _check_cuda_inputs(qkv, n_heads: int, mask):
+    if not qkv.is_cuda:
+        raise ValueError(f"the CUDA attention kernel needs a CUDA tensor; got one on {qkv.device}")
+    if qkv.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {qkv.dtype}")
+    if qkv.dim() != 3 or qkv.shape[-1] != 3 * n_heads * HEAD_DIM:
+        raise ValueError(f"fused_attention kernel needs qkv [B, T, 3*H*{HEAD_DIM}]; got {tuple(qkv.shape)} "
+                         f"with {n_heads} heads")
+    B, T, _ = qkv.shape
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"fused_attention kernel takes 1 <= T <= {MAX_T}; got T={T}")
+    if mask is not None and (tuple(mask.shape) != (T, T) or mask.device != qkv.device):
+        raise ValueError(f"mask must be [{T}, {T}] on {qkv.device}; got {tuple(mask.shape)} on {mask.device}")
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"CUDA attention {what} kernel failed to launch (error code {rc})")
+
+
+def _aligned(t):
+    """Contiguous, with the 16-byte alignment the kernel's vector loads need."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
+
+
+def launch_fwd(qkv, mask, n_heads: int, scale: float):
+    """Forward kernel on a CUDA tensor: qkv [B, T, 3HD] -> out [B, T, HD]."""
+    _check_cuda_inputs(qkv, n_heads, mask)
+    qkv = _aligned(qkv)
+    mask = prep_mask(mask)
+    B, T, threeHD = qkv.shape
+    out = torch.empty((B, T, threeHD // 3), dtype=qkv.dtype, device=qkv.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream)
+    rc = _lib().rlcf_mha_fwd(_ptr(qkv), _ptr(mask), _ptr(out), B, T, n_heads, float(scale),
+                             _DTYPE_CODE[qkv.dtype], stream)
+    _raise_on(rc, "forward")
+    LAUNCHES["fwd"] += 1
+    LAUNCH_SHAPES[("fwd", B, T, n_heads, str(qkv.dtype))] += 1
+    return out
+
+
+def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
+    """Backward kernel on CUDA tensors: (qkv, g [B, T, HD]) -> dqkv [B, T, 3HD]."""
+    _check_cuda_inputs(qkv, n_heads, mask)
+    qkv = _aligned(qkv)
+    g = _aligned(g.to(qkv.dtype))
+    if g.shape != (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3):
+        raise ValueError(f"cotangent shape {tuple(g.shape)} does not match qkv {tuple(qkv.shape)}")
+    mask = prep_mask(mask)
+    B, T, _ = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream)
+    rc = _lib().rlcf_mha_bwd(_ptr(qkv), _ptr(g), _ptr(mask), _ptr(dqkv), B, T, n_heads, float(scale),
+                             _DTYPE_CODE[qkv.dtype], stream)
+    _raise_on(rc, "backward")
+    LAUNCHES["bwd"] += 1
+    LAUNCH_SHAPES[("bwd", B, T, n_heads, str(qkv.dtype))] += 1
+    return dqkv
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, mask, n_heads, scale):
+        ctx.save_for_backward(qkv, mask)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        if qkv.is_cuda:
+            return launch_fwd(qkv, mask, n_heads, scale)
+        return fused_attention_reference(qkv, mask, n_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, mask = ctx.saved_tensors
+        if qkv.is_cuda:
+            dqkv = launch_bwd(qkv, g, mask, ctx.n_heads, ctx.scale)
+        else:
+            dqkv = fused_attention_reference_bwd(qkv, g, mask, ctx.n_heads, ctx.scale)
+        return dqkv, None, None, None
+
+
+def fused_attention(qkv, mask, n_heads: int, scale: float):
+    """MHA from the fused projection: [B, T, 3*H*D] (+ optional additive
+    [T, T] mask) -> [B, T, H*D]; differentiable in ``qkv``."""
+    return _FusedAttention.apply(qkv, mask, n_heads, float(scale))

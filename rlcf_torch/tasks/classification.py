@@ -1,0 +1,181 @@
+"""Classification prompt-TTA (RLCF / TPT / KD episodes) on patch-major u8
+views (the counterpart of ``rlcf_tpu/tasks/classification.py``; the NHWC
+``adapt``, the single-dispatch ``adapt_sources_fn`` paths, serving and the
+device mesh are not ported yet).
+
+Per group of N test images: the frozen policy ViT encodes all views of
+each image, the lowest-entropy views are selected against the initial text
+features, the frozen reward CLIP scores only those, and N episodes of
+REINFORCE + AdamW on the CoOp context run as one batch: the text tower
+sees all N*C prompts at once, forward and backward.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..core import losses as Lo
+from ..core import prompt as P
+from ..core.episode import make_optimizer, step_loss
+from ..data.class_names import assemble_prompts
+from ..data.transforms import CLIP_MEAN, CLIP_STD
+from ..models import clip as clip_model
+from ..tokenizer import tokenize
+
+
+def maybe_normalize_u8(views):
+    """CLIP-normalize raw uint8 NHWC views; float views pass through."""
+    if views.dtype == torch.uint8:
+        mean = torch.as_tensor(CLIP_MEAN, device=views.device)
+        std = torch.as_tensor(CLIP_STD, device=views.device)
+        return (views.float() / 255.0 - mean) / std
+    return views
+
+
+def patch_norm_constants(patch_dim: int, device="cpu"):
+    """Per-column CLIP mean/std for patch-major u8 tokens [.., T, patch_dim]:
+    column j is channel ``j % 3`` (patch pixels flatten (row, col, channel))."""
+    reps = patch_dim // 3
+    return (torch.as_tensor(np.tile(CLIP_MEAN, reps), device=device),
+            torch.as_tensor(np.tile(CLIP_STD, reps), device=device))
+
+
+def normalize_u8_patch_tokens(tokens):
+    """u8 patch-major tokens [..., T, D] -> CLIP-normalized float32."""
+    mean, std = patch_norm_constants(tokens.shape[-1], tokens.device)
+    return (tokens.float() / 255.0 - mean) / std
+
+
+def truncate_tokens(tokens: np.ndarray) -> np.ndarray:
+    """Drop the all-padding tail: causal attention + EOT pooling make
+    positions past max(eot) dead compute (exact, not approximate)."""
+    t_max = int(tokens.argmax(axis=-1).max()) + 1
+    t_max = min(tokens.shape[1], -(-t_max // 8) * 8)
+    return tokens[:, :t_max]
+
+
+@torch.no_grad()
+def compute_class_features(params, cfg, classnames: Sequence[str], prompt_prefix: str = "a photo of a",
+                           batch_size: int = 256):
+    """Normalized class text features [C, E], computed in batches."""
+    tokens = truncate_tokens(tokenize(assemble_prompts(classnames, prompt_prefix))).astype(np.int64)
+    device = params["logit_scale"].device
+    feats = [clip_model.encode_text(params, cfg, torch.as_tensor(tokens[s : s + batch_size], device=device))
+             for s in range(0, tokens.shape[0], batch_size)]
+    return clip_model.normalize(torch.cat(feats).float())
+
+
+class PromptTTAClassifier:
+    """CoOp-prompt test-time adaptation with a frozen CLIP reward (ViT policy,
+    single ViT reward).
+
+    ``setup`` builds the prompt template for a class set (the reference's
+    ``reset_classnames``) and caches the reward's class features from the
+    same tokenized prompts; ``adapt_tokens`` runs N episodes at once from
+    the shared initial context.
+    """
+
+    def __init__(self, clip_params, clip_cfg, reward, ecfg, ctx_init="a photo of a", n_ctx=4, ctx0=None):
+        if not clip_cfg.is_vit or not reward.cfg.is_vit:
+            raise NotImplementedError("the port runs ViT policy and reward towers only")
+        self.clip_params = clip_params
+        self.clip_cfg = clip_cfg
+        self.reward = reward
+        self.ecfg = ecfg
+        self.ctx_init = ctx_init
+        self.n_ctx = n_ctx
+        self.ctx0_override = ctx0
+        self.prompt_state = None
+        self.device = clip_params["logit_scale"].device
+        self.attn = clip_model.best_attn(clip_cfg, self.device)
+        self.reward_attn = clip_model.best_attn(reward.cfg, self.device)
+
+    def setup(self, classnames: Sequence[str]):
+        self.prompt_state = P.build_prompt_state(
+            self.clip_params, classnames, ctx_init=self.ctx_init, n_ctx=self.n_ctx, ctx0=self.ctx0_override,
+        )
+        self.reward.set_class_features(self.prompt_state.tokenized)
+        with torch.no_grad():
+            # initial text features: a per-dataset constant that confidence
+            # selection reuses (one setup-time text forward)
+            self._tf0 = self.text_features(self.prompt_state.ctx0[None])[0]
+        return self
+
+    # -- pieces ---------------------------------------------------------
+
+    def _logit_scale(self):
+        return self.clip_params["logit_scale"].exp().float()
+
+    def text_features(self, ctx):
+        """Normalized class text features [N, C, E] for contexts [N, n_ctx, D]."""
+        pt = self.prompt_state
+        prompts = P.splice_arrays(ctx, pt.fixed_embed, pt.ctx_map)  # [N, C, T, D]
+        N, C, T, D = prompts.shape
+        feats = clip_model.encode_text_embeds(
+            self.clip_params, self.clip_cfg, prompts.reshape(N * C, T, D), pt.eot_idx.repeat(N), attn=self.attn,
+        )
+        return clip_model.normalize(feats.float()).reshape(N, C, -1)
+
+    @torch.no_grad()
+    def prepare_tokens(self, ptoks):
+        """u8 policy tokens [N, B, Tp, p*p*3] -> (img_feats [N, B, E],
+        sel [N, S], reward_sim [N, S, C])."""
+        cfg, rcfg = self.clip_cfg, self.reward.cfg
+        N, B, Tp, Dp = ptoks.shape
+        n_keep = max(1, int(B * self.ecfg.selection_p))
+        x = normalize_u8_patch_tokens(ptoks).reshape(N * B, Tp, Dp)
+        img = clip_model.encode_image_tokens(self.clip_params, cfg, x, attn=self.attn)
+        img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
+        logits0 = self._logit_scale() * torch.einsum("nbe,ce->nbc", img_feats, self._tf0)
+        sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
+        # depatchify ONLY the selected views back to NHWC for the reward tower
+        sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
+        sel_views = clip_model.images_from_patch_tokens(
+            normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
+        if sel_views.shape[1] != rcfg.image_resolution:
+            raise NotImplementedError(
+                f"reward input resize ({sel_views.shape[1]} -> {rcfg.image_resolution} px) is not ported yet")
+        feats = clip_model.normalize(
+            clip_model.encode_image(self.reward.params, rcfg, sel_views, attn=self.reward_attn).float())
+        r_sim = (feats @ self.reward.class_features.T).reshape(N, n_keep, -1)
+        return img_feats, sel, r_sim
+
+    def episodes(self, img_feats, sel, reward_sim):
+        """N batched episodes -> (final logits [N, C], per-step losses [N, steps])."""
+        ecfg = self.ecfg
+        N, _, E = img_feats.shape
+        scale = self._logit_scale()
+        teacher_scale = self.reward.params["logit_scale"].exp().float()
+        sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, E))  # [N, S, E]
+        ctx0 = self.prompt_state.ctx0
+        ctx = ctx0.detach()[None].expand(N, *ctx0.shape).clone().requires_grad_(True)
+        opt = make_optimizer([ctx], ecfg)  # fresh state per group: the per-sample reset
+        losses = []
+        for _ in range(ecfg.tta_steps):
+            opt.zero_grad(set_to_none=True)
+            logits = scale * torch.einsum("nse,nce->nsc", sel_feats, self.text_features(ctx))
+            loss = step_loss(logits, reward_sim, ecfg, self.reward.score_samples, teacher_scale)  # [N]
+            loss.sum().backward()
+            opt.step()
+            losses.append(loss.detach())
+        with torch.no_grad():
+            tf = self.text_features(ctx) if ecfg.tta_steps > 0 else self._tf0.expand(N, -1, -1)
+            final = scale * torch.einsum("ne,nce->nc", img_feats[:, 0], tf)
+        stacked = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
+        return final, stacked
+
+    # -- entry point ----------------------------------------------------
+
+    def adapt_tokens(self, policy_tokens):
+        """TTA from pre-patchified u8 views [N, B, (res/p)^2, p*p*3]
+        (numpy or tensor) -> (final logits [N, C], {"losses", "selected"})."""
+        pd = self.clip_cfg.vision_patch_size ** 2 * 3
+        if policy_tokens.shape[-1] != pd:
+            raise ValueError(f"policy patch dim {policy_tokens.shape[-1]} doesn't match the tower (expect {pd})")
+        ptoks = torch.as_tensor(policy_tokens).to(self.device)
+        img_feats, sel, r_sim = self.prepare_tokens(ptoks)
+        logits, losses = self.episodes(img_feats, sel, r_sim)
+        return logits, {"losses": losses, "selected": sel}

@@ -1,0 +1,29 @@
+"""Run logs: append-only ``log.txt`` and ``results.json`` (`TPT/tpt_cls_rl.py:199-207`)."""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+
+class RunLogger:
+    def __init__(self, output_dir: str):
+        self.dir = output_dir
+        os.makedirs(output_dir, exist_ok=True)
+        self._t0 = time.time()
+
+    def text(self, *lines: str):
+        with open(os.path.join(self.dir, "log.txt"), "a") as fh:
+            for line in lines:
+                fh.write(line.rstrip("\n") + "\n")
+        for line in lines:
+            print(line, flush=True)
+
+    def results_json(self, results: dict, name: str = "results.json"):
+        with open(os.path.join(self.dir, name), "a+") as fh:
+            json.dump(results, fh, indent=4)
+
+    def elapsed_line(self, label: str) -> str:
+        dt = time.time() - self._t0
+        return f"The running time for {label} is {dt // 3600:.1f} Hour {dt % 3600 / 60:.1f} Minute"

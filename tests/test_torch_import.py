@@ -1,0 +1,36 @@
+"""The port stands alone: no module of ``rlcf_torch`` (nor ``chip_smoke.py``)
+imports JAX, optax or the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "optax", "rlcf_tpu")
+SOURCES = sorted((ROOT / "rlcf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert not _imported_roots(path) & set(FORBIDDEN), f"{path} imports {_imported_roots(path) & set(FORBIDDEN)}"
+
+
+def test_cli_import_leaves_jax_unloaded():
+    code = ("import sys, rlcf_torch.cli.tta_cls, rlcf_torch.tasks.classification, rlcf_torch.ops.attention; "
+            "bad = [m for m in ('jax', 'optax', 'rlcf_tpu') if m in sys.modules]; "
+            "assert not bad, bad; print('ok')")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
