@@ -5,17 +5,22 @@
 
 Phases, each fatal:
   1. the card's name and power limit (nvidia-smi);
-  2. build the hand-written kernels from the checkout (nvcc, sm_90a) and the
-     host view pipeline (g++);
+  2. build the hand-written kernels from the checkout (one nvcc per source,
+     sm_90a, all started together) and the host view pipeline (g++);
   3. hold each kernel against its plain PyTorch version at the main path's
-     shapes, bf16 and fp32, and time kernel, plain version and the PyTorch
-     library call (scaled_dot_product_attention) with CUDA events;
+     shapes and time kernel, plain version and, where one exists, the PyTorch
+     library call with CUDA events: the attention kernels in bf16 and fp32
+     (against scaled_dot_product_attention); the AugMix kernel at a flagship
+     group (4 images x 64 views, 256 -> 224 px) with augmix on and off, on a
+     second seed, and op by op at the identity crop at severities 1 and 2;
   4. drive the flagship RLCF prompt TTA through the port's CLI at full width
      (ViT-B/16 policy, ViT-L/14 reward, random weights from a seed, ImageNet-A's
-     200 class names on synthetic images, 64 views, group 4, 3 steps), with the
-     launch counters set to 0 just before and read just after; then time the
-     episode with views pre-built and hold the fused-attention episode to the
-     dense one in fp32 on one group;
+     200 class names on synthetic images, 64 views, group 4, 3 steps): first
+     with --viewgen fused (every view built on the card), then with --viewgen
+     native (views built on the host) at a smaller depth, the launch counters
+     set to 0 just before each run and read just after; then time device
+     views, host views and the episode on one group, and hold the
+     fused-attention episode to the dense one in fp32;
   5. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -24,6 +29,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -42,7 +48,15 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|: fp32 = summation order; bf
     (torch.float32, "fwd"): (1e-5, 1e-5), (torch.float32, "bwd"): (1e-4, 1e-4),
     (torch.bfloat16, "fwd"): (1e-2, 2**-7), (torch.bfloat16, "bwd"): (1e-2, 2**-7),
 }
-REPLACES = {"fwd": "rlcf_tpu/ops/pallas_attention.py:65", "bwd": "rlcf_tpu/ops/pallas_attention.py:89"}
+REPLACES = {"fwd": "rlcf_tpu/ops/pallas_attention.py:65", "bwd": "rlcf_tpu/ops/pallas_attention.py:89",
+            "augmix": "rlcf_tpu/ops/pallas_augmix.py:284"}
+SRC_SIZE, RES = 256, 224
+FLAGSHIP_IMAGES, NATIVE_IMAGES = 16, 8
+# fp32 operations per pixel of one plane, read off csrc/augmix.cu: each op's
+# arithmetic, compares and rounding (rotate: three two-tap passes), the mix
+# per chain and the final blend
+AUGMIX_OP_COST = {0: 7, 1: 2, 2: 1, 3: 12, 4: 2, 5: 4, 6: 4, 7: 4, 8: 4}
+AUGMIX_MIX_COST, AUGMIX_FINAL_COST = 2, 4
 
 
 def log(msg):
@@ -138,55 +152,153 @@ def check_kernel(direction, B, T, H, dtype, masked, label):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
-def flagship_argv(out_dir, precision="bf16", limit=16):
+def augmix_ops(params, R, S):
+    """fp32 operations this run's views need in the AugMix kernel: the crop's
+    taps over the rows and columns each view's weights cover, then, where
+    m < 1, each sampled op, the mix and the final blend, per pixel of each of
+    the 3 planes."""
+    from rlcf_torch.ops import augmix as X
+
+    host = {k: v.cpu() for k, v in params.items()}
+    V = host["m"].shape[0]
+    basew = X.bicubic_matrix(S, R)
+    total = 0
+    for i in range(V):
+        box = host["rrc"][i]
+        base = i % VIEWS == 0
+        wy = basew if base else X.resize_weights(box[0], box[2], 0, R, S)
+        wx = basew if base else X.resize_weights(box[1], box[3], int(host["flip"][i]), R, S)
+        cols = torch.nonzero(wx.abs().sum(0)).flatten()
+        width = int(cols.max() - cols.min() + 1) if cols.numel() else 0
+        total += 2 * int((wy != 0).sum()) * width + 2 * int((wx != 0).sum()) * R
+        if float(host["m"][i]) != 1.0:
+            steps = [int(host["ops"][i, c * 3 + t]) for c in range(3) for t in range(int(host["depth"][i, c]))]
+            total += R * R * (sum(AUGMIX_OP_COST.get(op, 0) for op in steps) + 3 * AUGMIX_MIX_COST + AUGMIX_FINAL_COST)
+    return 3 * total
+
+
+def check_augmix():
+    """Phase 3, AugMix: the kernel against its plain version on the same
+    sampled parameters. Both sum the crop exactly and round every step alike
+    (the plain version's float64 stand-in for a fused multiply-add can still
+    round twice in rare cases): augmix off at most 1 gray, augmix on >= 99.9%
+    of pixels equal, the share printed; single ops exact. Returns the
+    kernels-line entry of the flagship shape."""
+    from rlcf_torch.ops import augmix as X
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    imgs = torch.randint(0, 256, (GROUP, 3, SRC_SIZE, SRC_SIZE), generator=g, device=dev, dtype=torch.uint8)
+    basew = X.bicubic_matrix(SRC_SIZE, RES, device=dev)
+    shifts = X.op_shift_bounds(1.0, RES)
+
+    def sample(seed, augmix):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return X.flatten_params(X.sample_view_params(gen, GROUP, VIEWS, SRC_SIZE, RES, augmix=augmix, device=dev))
+
+    def compare(label, got, want, exact_share=None, max_gray=None):
+        d = (got.int() - want.int()).abs()
+        share, worst = float((d == 0).float().mean()), int(d.max())
+        log(f"AUGMIX {label}: equal pixels {share:.6f}, max |d| {worst} gray")
+        if (exact_share is not None and share < exact_share) or (max_gray is not None and worst > max_gray):
+            raise AssertionError(f"AugMix kernel disagrees with its plain version: {label}")
+        return worst
+
+    entry = None
+    for label, seed, augmix in (("flagship augmix on", 0, True), ("flagship augmix off", 0, False),
+                                ("flagship augmix on, seed 1", 1, True)):
+        params = sample(seed, augmix)
+        kernel = lambda: X.launch_views(imgs, params, basew, RES, SRC_SIZE, VIEWS, shifts)
+        plain = lambda: X.augmix_views_reference(imgs, params, basew, RES, SRC_SIZE, VIEWS, shifts)
+        got = kernel()
+        torch.cuda.synchronize()
+        worst = compare(label, got, plain(), exact_share=0.999 if augmix else None, max_gray=None if augmix else 1)
+        if entry is None:
+            ms, plain_ms = time_ms(kernel, reps=20), time_ms(plain, reps=2, warmup=1)
+            nbytes = GROUP * 3 * SRC_SIZE ** 2 + GROUP * VIEWS * 3 * RES ** 2
+            flops = augmix_ops(params, RES, SRC_SIZE)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+            log(f"KERNEL augmix[group N={GROUP} V={VIEWS} S={SRC_SIZE} R={RES}]: max_abs_err={worst} gray "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call computes AugMix views) "
+                f"bound_ms={max(t_bytes, t_ops):.4f} (bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
+                f"ops {flops / 1e9:.3f} GFLOP fp32 -> {t_ops:.4f} ms)")
+            entry = {"name": f"augmix[group N={GROUP} V={VIEWS} S={SRC_SIZE} R={RES}]", "route": "cuda",
+                     "source": "rlcf_torch/csrc/augmix.cu", "replaces": REPLACES["augmix"],
+                     "shape": ["augmix", GROUP, VIEWS, SRC_SIZE, RES], "max_abs_err": float(worst), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+    # one view per op at the identity crop (source = view size), severities 1 and 2
+    src = torch.nn.functional.interpolate(imgs[:1].float(), size=(RES, RES), mode="area").round().to(torch.uint8)
+    ops = [op for op in range(9) for _ in range(4)]
+    for severity in (1.0, 2.0):
+        gen = torch.Generator(device=dev).manual_seed(int(severity))
+        params = X.single_op_params(gen, ops, RES, severity, device=dev)
+        eye, sh = X.bicubic_matrix(RES, RES, device=dev), X.op_shift_bounds(severity, RES)
+        got = X.launch_views(src, params, eye, RES, RES, len(ops) + 1, sh)
+        torch.cuda.synchronize()
+        compare(f"single ops at severity {severity:g} (36 views, 4 per op)", got,
+                X.augmix_views_reference(src, params, eye, RES, RES, len(ops) + 1, sh), exact_share=1.0)
+    return entry
+
+
+def flagship_argv(out_dir, precision="bf16", limit=FLAGSHIP_IMAGES, viewgen="fused"):
     return [".", "--test_sets", "synthetic", "--synthetic_classes", "A", "--limit", str(limit),
             "--arch", POLICY, "--reward_arch", REWARD, "--precision", precision, "--device", "cuda",
-            "--viewgen", "native", "--batch_size", str(VIEWS), "--selection_p", "0.1", "--sample_k", "3",
+            "--viewgen", viewgen, "--batch_size", str(VIEWS), "--selection_p", "0.1", "--sample_k", "3",
             "--tta_steps", str(STEPS), "--lr", "7e-3", "--ctx_init", "a_photo_of_a",
             "--episode_group", str(GROUP), "--seed", "0", "--output", out_dir]
 
 
-def run_flagship(out_dir):
-    """Phase 4a: the main path through the CLI; returns its numbers."""
+def run_flagship(out_dir, viewgen, limit):
+    """Phase 4a: one path through the CLI; returns its numbers."""
     from rlcf_torch.cli import tta_cls
     from rlcf_torch.ops import attention as A
+    from rlcf_torch.ops import augmix as X
     from rlcf_torch.tasks.classification import PromptTTAClassifier
 
     seen = []
     adapt = PromptTTAClassifier.adapt_tokens
 
-    def recording(self, tokens):
-        logits, aux = adapt(self, tokens)
+    def recording(self, *tokens):
+        logits, aux = adapt(self, *tokens)
         seen.append((logits.detach(), aux["losses"].detach()))
         return logits, aux
 
     PromptTTAClassifier.adapt_tokens = recording
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()                 # counts start at 0 just before the main path
+    A.reset_launch_counts()                 # counts start at 0 just before the path
+    X.reset_launch_counts()
     try:
         t0 = time.perf_counter()
-        results = tta_cls.main(flagship_argv(out_dir))
+        results = tta_cls.main(flagship_argv(out_dir, limit=limit, viewgen=viewgen))
         wall = time.perf_counter() - t0
     finally:
         PromptTTAClassifier.adapt_tokens = adapt
-    launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES)  # read just after
+    launches = {**A.LAUNCHES, **X.LAUNCHES}     # read just after
+    by_shape = {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}
     for logits, losses in seen:
         if tuple(logits.shape) != (GROUP, 200) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"flagship logits {tuple(logits.shape)} not finite [{GROUP}, 200]")
         if tuple(losses.shape) != (GROUP, STEPS) or not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"flagship losses {tuple(losses.shape)} not finite [{GROUP}, {STEPS}]")
-    if len(seen) < 2 or launches["fwd"] == 0 or launches["bwd"] == 0:
-        raise AssertionError(f"main path did not go through the kernels: groups={len(seen)} launches={launches}")
+    groups = limit // GROUP
+    kernels = ("fwd", "bwd", "augmix") if viewgen == "fused" else ("fwd", "bwd")
+    if len(seen) != groups or any(launches[k] == 0 for k in kernels) or \
+            (viewgen == "fused" and launches["augmix"] != groups):
+        raise AssertionError(f"--viewgen {viewgen} did not go through the kernels: groups={len(seen)} "
+                             f"launches={launches}")
     secs = results["synthetic"]["group_seconds"]
     timed = secs[1:]  # the first group warms up
-    return {"groups": len(secs), "group_seconds": secs, "img_per_s": GROUP * len(timed) / sum(timed),
-            "wall_s": wall, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": launches, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
+    return {"viewgen": viewgen, "groups": len(secs), "group_seconds": secs,
+            "img_per_s": GROUP * len(timed) / sum(timed), "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+            "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
             "top1": results["synthetic"]["top1"]}
 
 
 def profile_episode(ep):
-    """Device busy share of one episode group and its costliest kernels
+    """Device busy share of one group and its costliest kernels
     (torch.profiler; CUPTI sees the ctypes-launched kernels too)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -202,48 +314,58 @@ def profile_episode(ep):
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"PROFILE {t:9.3f} ms {n:5d} launches  {name[:110]}")
-    log(f"PROFILE episode group: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+    log(f"PROFILE fused group (views + episode): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
         f"{len(kernels)} kernels, idle share {1 - busy_ms / wall_ms:.3f}")
     return {"profile_wall_ms": wall_ms, "profile_device_busy_ms": busy_ms, "profile_kernels": len(kernels),
             "profile_idle_share": 1 - busy_ms / wall_ms}
 
 
 def episode_timing_and_reference(out_dir):
-    """Phase 4b: episode ms/img with views pre-built (bf16), and the fused
-    episode held to the dense one in fp32 at full width on one group."""
+    """Phase 4b: on one group, views built on the card (the AugMix kernel,
+    sampling and patchify) against the host pipeline; the episode ms/img on
+    the card-built tokens (bf16) and the device's busy share over a whole
+    fused group; the fused-attention episode held to the dense one in fp32."""
     from rlcf_torch.cli import tta_cls
     from rlcf_torch.data import native
     from rlcf_torch.data.class_names import get_classnames
     from rlcf_torch.data.datasets import SyntheticDataset
+    from rlcf_torch.ops.augmix import fused_views
 
     names = get_classnames("A")
     imgs = np.stack([SyntheticDataset(n=GROUP, n_classes=200)[i][0] for i in range(GROUP)])
-    make_views = lambda: native.generate_views_native_patch_u8(imgs, n_views=VIEWS, p_policy=16, resolution=224,
+    make_views = lambda: native.generate_views_native_patch_u8(imgs, n_views=VIEWS, p_policy=16, resolution=RES,
                                                                 seed=0)
-    views = make_views()
+    make_views()
     t0 = time.perf_counter()
     for _ in range(3):
         make_views()
     out = {"host_views_ms_per_group": (time.perf_counter() - t0) / 3 * 1e3}
+    planar = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()).cuda()
+    device_views = lambda: fused_views(planar, torch.Generator(device="cuda").manual_seed(0), n_views=VIEWS,
+                                       resolution=RES, src_size=SRC_SIZE, p_policy=16, p_reward=14)
+    out["device_views_ms_per_group"] = time_ms(device_views, reps=10)
+    log(f"VIEWS per group of {GROUP}x{VIEWS}: on the card {out['device_views_ms_per_group']:.3f} ms "
+        f"(sampling + AugMix kernel + patchify), on the host {out['host_views_ms_per_group']:.1f} ms")
+    toks = device_views()
     clf, _, _ = tta_cls.build(tta_cls.get_args(flagship_argv(out_dir)))
     clf.setup(names)
-    ep = lambda: clf.adapt_tokens(views)[0].float().cpu()
+    ep = lambda: clf.adapt_tokens(*toks)[0].float().cpu()
     ep()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
         ep()
     out["episode_ms_per_img"] = (time.perf_counter() - t0) / 3 / GROUP * 1e3
-    out.update(profile_episode(ep))
+    out.update(profile_episode(lambda: clf.adapt_tokens(*device_views())[0].float().cpu()))
     del clf
     torch.cuda.empty_cache()
 
     clf, _, _ = tta_cls.build(tta_cls.get_args(flagship_argv(out_dir, precision="fp32")))
     clf.setup(names)
-    fused_logits, fused_aux = clf.adapt_tokens(views)
+    fused_logits, fused_aux = clf.adapt_tokens(*toks)
     clf.attn = clf.reward_attn = "dense"
     clf.setup(names)
-    dense_logits, dense_aux = clf.adapt_tokens(views)
+    dense_logits, dense_aux = clf.adapt_tokens(*toks)
     same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
     d_logits = float((fused_logits - dense_logits).abs().max())
     d_losses = float((fused_aux["losses"] - dense_aux["losses"]).abs().max())
@@ -268,6 +390,8 @@ def main():
     from rlcf_torch.data import native
     from rlcf_torch.data.class_names import get_classnames
     from rlcf_torch.ops import attention as A
+    from rlcf_torch.ops import augmix as X
+    from rlcf_torch.ops import cuda_build
 
     # phase 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -277,16 +401,18 @@ def main():
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # phase 2
+    # phase 2: one nvcc per source, all started together, beside the host pipeline's g++
     t0 = time.perf_counter()
-    A.build(force=True)
-    t_nvcc = time.perf_counter() - t0
-    for line in A.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("PTXAS " + line.strip())
-    if not native.available():
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(A.build, force=True), pool.submit(X.build, force=True), pool.submit(native.available)]
+        results = [b.result() for b in builds]
+    for name in ("rlcf_attention", "rlcf_augmix"):
+        for line in cuda_build.PTXAS[name].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"PTXAS {name}: " + line.strip())
+    if not results[2]:
         raise RuntimeError("the host view pipeline (native/rlcf_host.cpp) did not build")
-    log(f"BUILD nvcc {t_nvcc:.1f} s, host pipeline {time.perf_counter() - t0 - t_nvcc:.1f} s")
+    log(f"BUILD nvcc x2 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path's shapes (group 4: 256 policy views, 24 selected
     # reward views, 4 x 200 text prompts), plus a backward at T=257
@@ -299,25 +425,31 @@ def main():
         for direction, B, T, H, masked, what in shapes:
             tag = "bf16" if dtype == torch.bfloat16 else "fp32"
             entries.append(check_kernel(direction, B, T, H, dtype, masked, f"{what} B={B} T={T} H={H} {tag}"))
-    # phase 4
+    entries.append(check_augmix())
+
+    # phase 4: each path with its counters set to 0 just before and read just after
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
-    flag = run_flagship(out_dir)
-    log("FLAGSHIP " + json.dumps(flag))
+    paths = [run_flagship(out_dir, "fused", FLAGSHIP_IMAGES), run_flagship(out_dir, "native", NATIVE_IMAGES)]
+    for flag in paths:
+        log("FLAGSHIP " + json.dumps(flag))
     ep = episode_timing_and_reference(out_dir)
     log("EPISODE " + json.dumps(ep))
 
-    # phase 5: every shape the main path launched was checked in phase 3; the
-    # kernels line lists those checks with their main-path launch counts
+    # phase 5: every shape a path launched was checked in phase 3; the
+    # kernels line lists those checks with the paths' launch counts
     checked = {" ".join(map(str, e.pop("shape"))): e for e in entries}
-    missing = sorted(set(flag["launches_by_shape"]) - set(checked))
+    launched = {}
+    for flag in paths:
+        for key, count in flag["launches_by_shape"].items():
+            launched.setdefault(key, {})[flag["viewgen"]] = count
+    missing = sorted(set(launched) - set(checked))
     if missing:
         raise AssertionError(f"main-path kernel shapes without a check: {missing}")
-    line = []
-    for key, count in sorted(flag["launches_by_shape"].items()):
-        line.append(dict(checked[key], launches=count))
-    for direction in ("fwd", "bwd"):
-        if not any(e["name"].startswith(f"mha_{direction}") for e in line):
-            raise AssertionError(f"mha_{direction} was launched no time on the main path")
+    line = [dict(checked[key], launches=sum(by_path.values()), launches_by_path=by_path)
+            for key, by_path in sorted(launched.items())]
+    for kind in ("mha_fwd", "mha_bwd", "augmix"):
+        if not any(e["name"].startswith(kind) for e in line):
+            raise AssertionError(f"{kind} was launched no time on the main path")
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

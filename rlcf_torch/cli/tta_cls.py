@@ -1,14 +1,16 @@
 """RLCF / TPT / KD prompt test-time adaptation for classification, on the card.
 
 The port of ``rlcf_tpu/cli/tta_cls.py`` for the patch-major token path: per
-group of ``--episode_group`` test images the C++ host pipeline builds
-``--batch_size`` views each (``--viewgen native``), and the classifier runs
-one batched episode group on the device.
+group of ``--episode_group`` test images, ``--batch_size`` views each are
+built either on the device by the CUDA AugMix kernel (``--viewgen fused``,
+the default on the card) or on the host by the C++ pipeline (``--viewgen
+native``, the default on the CPU), and the classifier runs one batched
+episode group on the device.
 
 Example (random weights, no data):
   python -m rlcf_torch.cli.tta_cls --test_sets synthetic --limit 8 \\
       --arch ViT-B/16 --reward_arch ViT-L/14 --tta_steps 3 --lr 7e-3 \\
-      --sample_k 3 --ctx_init a_photo_of_a --loss rlcf --viewgen native
+      --sample_k 3 --ctx_init a_photo_of_a --loss rlcf --viewgen fused
 Add ``--device cpu`` to run on the CPU.
 """
 
@@ -38,8 +40,10 @@ def get_args(argv=None):
     p.add_argument("--tp", type=int, default=1, help="class-axis tensor parallelism; not ported yet (refused when > 1)")
     p.add_argument(
         "--viewgen", default="auto", choices=["auto", "fused", "device", "native"],
-        help="view generator: 'native' = the repo's C++ host pipeline emitting patch-major u8 "
-        "tokens; 'auto' = native. 'fused' and 'device' are not ported yet",
+        help="view generator: 'fused' = the CUDA AugMix kernel builds every view on the device "
+        "(its plain version on the CPU); 'native' = the repo's C++ host pipeline emitting patch-major u8 "
+        "tokens; 'auto' = fused on cuda with a ViT policy in token mode, else native. 'device' is not "
+        "ported yet",
     )
     return p.parse_args(argv)
 
@@ -47,7 +51,6 @@ def get_args(argv=None):
 def refuse_unported(args):
     """Exit with a message for options this slice of the port does not run."""
     waits = {
-        "--viewgen fused": (args.viewgen == "fused", "the CUDA AugMix kernel (ROADMAP B2 with A6)"),
         "--viewgen device": (args.viewgen == "device", "the torch AugMix pipeline (ROADMAP A16)"),
         "--cocoop": (args.cocoop, "CoCoOp (ROADMAP A10)"),
         "--tp > 1": (args.tp > 1, "class-axis tensor parallelism (ROADMAP A14)"),
@@ -89,27 +92,41 @@ def main(argv=None):
     args = get_args(argv)
     if args.tpt and args.loss == "rlcf":
         args.loss = "tpt"
-    if args.viewgen == "auto":
-        args.viewgen = "native"
-        print("viewgen: auto -> native")
+    if args.viewgen == "fused" and args.hard_aug:
+        raise SystemExit("--viewgen fused does not implement --hard_aug (BYOL); use --viewgen device")
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
+
+    import torch
 
     from ..data import native
     from ..data.class_names import get_classnames
     from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
     from ..metrics.classification import AccuracyMeter, topk_correct
+    from ..ops.augmix import fused_views
     from ..utils.config import save_hparams
     from ..utils.logging_utils import RunLogger
 
-    if not native.available():
-        raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
-    clf, cfg, _ = build(args)
+    clf, cfg, device = build(args)
+    # token mode: a ViT policy whose patch size tiles the views (the port's
+    # classifier takes single ViT rewards only)
+    token_ok = cfg.is_vit and args.resolution % cfg.vision_patch_size == 0
+    if args.viewgen == "auto":
+        args.viewgen = "fused" if device.type == "cuda" and token_ok else "native"
+        print(f"viewgen: auto -> {args.viewgen}")
+    if args.viewgen == "fused" and not token_ok:
+        raise SystemExit("--viewgen fused needs a ViT policy in token mode; use --viewgen device")
+    if args.viewgen == "native":
+        if not native.available():
+            raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
+        if not token_ok:
+            raise SystemExit("the token path needs a ViT policy whose patch size tiles --resolution")
     logger = RunLogger(args.output)
     save_hparams(args.output, vars(args))
-    if not cfg.is_vit or args.resolution % cfg.vision_patch_size:
-        raise SystemExit("the token path needs a ViT policy whose patch size tiles --resolution")
+    # the fused kernel also patchifies for a ViT reward at the view resolution
+    rcfg = clf.reward.cfg
+    p_reward = rcfg.vision_patch_size if rcfg.is_vit and rcfg.image_resolution == args.resolution else 0
 
     results = {}
     for set_id in args.test_sets.split("/"):
@@ -131,12 +148,20 @@ def main(argv=None):
             if not group_imgs:
                 return
             t0 = time.perf_counter()
-            views = native.generate_views_native_patch_u8(
-                np.stack(group_imgs), n_views=args.batch_size, p_policy=cfg.vision_patch_size,
-                resolution=args.resolution, augmix=bool(args.augmix), seed=args.seed * 100003 + counter[0],
-            )
+            seed = args.seed * 100003 + counter[0]
+            imgs = np.stack(group_imgs)  # canonical [N, 256, 256, 3] u8
+            if args.viewgen == "fused":  # every view built on the device, one kernel launch
+                planar = torch.from_numpy(imgs.transpose(0, 3, 1, 2)).to(device).contiguous()
+                views = fused_views(planar, torch.Generator(device=device).manual_seed(seed),
+                                    n_views=args.batch_size, resolution=args.resolution, src_size=256,
+                                    augmix=bool(args.augmix), p_policy=cfg.vision_patch_size, p_reward=p_reward)
+            else:
+                views = native.generate_views_native_patch_u8(
+                    imgs, n_views=args.batch_size, p_policy=cfg.vision_patch_size,
+                    resolution=args.resolution, augmix=bool(args.augmix), seed=seed,
+                )
             counter[0] += 1
-            logits, _ = clf.adapt_tokens(views)
+            logits, _ = clf.adapt_tokens(*views) if isinstance(views, tuple) else clf.adapt_tokens(views)
             logits = logits.float().cpu().numpy()  # synchronizes with the device
             group_seconds.append(time.perf_counter() - t0)
             counts = topk_correct(logits, np.asarray(group_labels))

@@ -26,12 +26,10 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
+
+from . import cuda_build
 
 NEG_BIG = -1e9  # finite stand-in for the causal mask's -inf
 HEAD_DIM = 64   # the kernel's head dimension
@@ -102,42 +100,14 @@ def fused_attention_reference_bwd(qkv, g, mask, n_heads: int, scale: float):
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "attention.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "librlcf_attention.so")
-_BUILD_LOCK = threading.Lock()
+_LIB_NAME = "rlcf_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-BUILD_LOG = {"ptxas": ""}
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the attention kernel cannot be built")
 
 
 def build(force: bool = False) -> str:
     """Compile ``csrc/attention.cu`` for sm_90a; returns the library path.
-    The ptxas report (registers, shared memory, spills) lands in ``BUILD_LOG``."""
-    with _BUILD_LOCK:
-        if not force and os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
-            return _LIB_PATH
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{_LIB_PATH}.build.{os.getpid()}"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC]
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {_SRC}:\n{res.stderr[-6000:]}")
-            BUILD_LOG["ptxas"] = res.stderr
-            os.replace(tmp, _LIB_PATH)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return _LIB_PATH
+    The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention"]``."""
+    return cuda_build.build("attention.cu", _LIB_NAME, force=force)
 
 
 @functools.lru_cache()

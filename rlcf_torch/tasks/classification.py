@@ -1,7 +1,6 @@
 """Classification prompt-TTA (RLCF / TPT / KD episodes) on patch-major u8
 views (the counterpart of ``rlcf_tpu/tasks/classification.py``; the NHWC
-``adapt``, the single-dispatch ``adapt_sources_fn`` paths, serving and the
-device mesh are not ported yet).
+``adapt``, serving and the device mesh are not ported yet).
 
 Per group of N test images: the frozen policy ViT encodes all views of
 each image, the lowest-entropy views are selected against the initial text
@@ -120,8 +119,9 @@ class PromptTTAClassifier:
         return clip_model.normalize(feats.float()).reshape(N, C, -1)
 
     @torch.no_grad()
-    def prepare_tokens(self, ptoks):
-        """u8 policy tokens [N, B, Tp, p*p*3] -> (img_feats [N, B, E],
+    def prepare_tokens(self, ptoks, rtoks=None):
+        """u8 policy tokens [N, B, Tp, p*p*3] (and optionally the same views
+        as reward tokens [N, B, Tr, q*q*3]) -> (img_feats [N, B, E],
         sel [N, S], reward_sim [N, S, C])."""
         cfg, rcfg = self.clip_cfg, self.reward.cfg
         N, B, Tp, Dp = ptoks.shape
@@ -131,15 +131,24 @@ class PromptTTAClassifier:
         img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
         logits0 = self._logit_scale() * torch.einsum("nbe,ce->nbc", img_feats, self._tf0)
         sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
-        # depatchify ONLY the selected views back to NHWC for the reward tower
-        sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
-        sel_views = clip_model.images_from_patch_tokens(
-            normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
-        if sel_views.shape[1] != rcfg.image_resolution:
-            raise NotImplementedError(
-                f"reward input resize ({sel_views.shape[1]} -> {rcfg.image_resolution} px) is not ported yet")
-        feats = clip_model.normalize(
-            clip_model.encode_image(self.reward.params, rcfg, sel_views, attn=self.reward_attn).float())
+        if rtoks is not None:
+            # the reward's own tokens of the selected views (ViT reward at the
+            # view resolution)
+            Tr, Dr = rtoks.shape[2], rtoks.shape[3]
+            sel_r = torch.gather(rtoks, 1, sel[:, :, None, None].expand(N, n_keep, Tr, Dr))
+            rx = normalize_u8_patch_tokens(sel_r).reshape(N * n_keep, Tr, Dr)
+            feats = clip_model.normalize(
+                clip_model.encode_image_tokens(self.reward.params, rcfg, rx, attn=self.reward_attn).float())
+        else:
+            # depatchify ONLY the selected views back to NHWC for the reward tower
+            sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
+            sel_views = clip_model.images_from_patch_tokens(
+                normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
+            if sel_views.shape[1] != rcfg.image_resolution:
+                raise NotImplementedError(
+                    f"reward input resize ({sel_views.shape[1]} -> {rcfg.image_resolution} px) is not ported yet")
+            feats = clip_model.normalize(
+                clip_model.encode_image(self.reward.params, rcfg, sel_views, attn=self.reward_attn).float())
         r_sim = (feats @ self.reward.class_features.T).reshape(N, n_keep, -1)
         return img_feats, sel, r_sim
 
@@ -169,13 +178,72 @@ class PromptTTAClassifier:
 
     # -- entry point ----------------------------------------------------
 
-    def adapt_tokens(self, policy_tokens):
-        """TTA from pre-patchified u8 views [N, B, (res/p)^2, p*p*3]
-        (numpy or tensor) -> (final logits [N, C], {"losses", "selected"})."""
+    def adapt_tokens(self, policy_tokens, reward_tokens=None):
+        """TTA from pre-patchified u8 views [N, B, (res/p)^2, p*p*3] (numpy
+        or tensor) -> (final logits [N, C], {"losses", "selected"}). With
+        ``reward_tokens`` (the same views at the reward's patch size) the
+        reward tower consumes tokens too; that needs a ViT reward at the view
+        resolution."""
         pd = self.clip_cfg.vision_patch_size ** 2 * 3
         if policy_tokens.shape[-1] != pd:
             raise ValueError(f"policy patch dim {policy_tokens.shape[-1]} doesn't match the tower (expect {pd})")
+        rtoks = None
+        if reward_tokens is not None:
+            rcfg = self.reward.cfg
+            if not rcfg.is_vit:
+                raise ValueError("reward_tokens require a ViT reward; omit them to use depatchify")
+            rd = rcfg.vision_patch_size ** 2 * 3
+            if reward_tokens.shape[-1] != rd:
+                raise ValueError(f"reward patch dim {reward_tokens.shape[-1]} doesn't match the tower (expect {rd})")
+            n_tok_r = (rcfg.image_resolution // rcfg.vision_patch_size) ** 2
+            if reward_tokens.shape[2] != n_tok_r:
+                raise ValueError(
+                    f"reward tokens carry {reward_tokens.shape[2]} patches but the reward tower "
+                    f"expects {n_tok_r}: views must be generated at the reward resolution "
+                    f"({rcfg.image_resolution}px)"
+                )
+            rtoks = torch.as_tensor(reward_tokens).to(self.device)
         ptoks = torch.as_tensor(policy_tokens).to(self.device)
-        img_feats, sel, r_sim = self.prepare_tokens(ptoks)
+        img_feats, sel, r_sim = self.prepare_tokens(ptoks, rtoks)
         logits, losses = self.episodes(img_feats, sel, r_sim)
         return logits, {"losses": losses, "selected": sel}
+
+    def adapt_sources_fn(self, *, n_views: int, src_size: int = 256, resolution: int = 224, augmix: bool = True):
+        """The flagship from u8 sources: ``adapt(images_planar_u8 [N, 3, S, S],
+        seed) -> (logits [N, C], losses [N, steps], next_seed)``. All views of
+        the group are built on the classifier's device by one AugMix kernel
+        launch (``ops.augmix.fused_views``), from a ``torch.Generator`` there
+        seeded with ``seed``; the reward takes its own tokens when it is a ViT
+        at the view resolution, else the selected views depatchified."""
+        from ..ops.augmix import fused_views
+
+        pcfg, rcfg = self.clip_cfg, self.reward.cfg
+        reward_same = rcfg.is_vit and rcfg.image_resolution == resolution
+        fkw = dict(n_views=n_views, resolution=resolution, src_size=src_size, augmix=augmix,
+                   p_policy=pcfg.vision_patch_size, p_reward=rcfg.vision_patch_size if reward_same else 0)
+
+        def adapt(images_planar, seed):
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            toks = fused_views(torch.as_tensor(images_planar).to(self.device), gen, **fkw)
+            logits, aux = self.adapt_tokens(*toks) if isinstance(toks, tuple) else self.adapt_tokens(toks)
+            return logits, aux["losses"], int(seed) + 1
+
+        return adapt
+
+    def adapt_sources_scan_fn(self, *, n_views: int, src_size: int = 256, resolution: int = 224,
+                              augmix: bool = True):
+        """``adapt(images_planar_u8 [G, N, 3, S, S], seed) -> (logits [G, N, C],
+        losses [G, N, steps], next_seed)``: the body of ``adapt_sources_fn``
+        over G groups, group g with ``seed + g``, so that it equals G chained
+        calls; ``next_seed = seed + G``. A Python loop over the groups."""
+        one = self.adapt_sources_fn(n_views=n_views, src_size=src_size, resolution=resolution, augmix=augmix)
+
+        def adapt(images_planar, seed):
+            logits, losses = [], []
+            for group in images_planar:
+                lg, ls, seed = one(group, seed)
+                logits.append(lg)
+                losses.append(ls)
+            return torch.stack(logits), torch.stack(losses), seed
+
+        return adapt

@@ -1,10 +1,11 @@
-"""The CUDA attention kernels against their plain PyTorch version, on the
-card (marked ``cuda``; they skip where there is no card).
+"""The CUDA kernels (attention and AugMix) against their plain PyTorch
+versions, on the card (marked ``cuda``; they skip where there is no card).
 
 Run on a machine with an H100 (which has no JAX, hence no conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q``.
 Tolerances: fp32 forward 1e-5 and backward 1e-4 (summation order); bf16 one
 rounding step of the output on top of that (2**-7 relative, 1e-2 absolute).
+AugMix: each test states its own.
 """
 
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from rlcf_torch.models.layers import causal_mask
 from rlcf_torch.ops import attention as A
+from rlcf_torch.ops import augmix as X
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +62,81 @@ def test_kernel_refuses_unsupported_shapes(dev):
         A.launch_fwd(torch.randn(1, 258, 3 * 64, device=dev), None, 1, 0.125)  # T > 257
     with pytest.raises(TypeError):
         A.launch_fwd(torch.randn(1, 8, 3 * 64, device=dev).half(), None, 1, 0.125)
+
+
+# ---------------------------------------------------------------------------
+# the AugMix kernel (csrc/augmix.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+def _sources(dev, n, size, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (n, 3, size, size), generator=g, device=dev, dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("severity", [1.0, 2.0])
+def test_augmix_single_ops_match_plain(dev, severity):
+    """Every op alone at the identity crop (R = S = 64): exact. Both sides
+    round each product and sum alike (the kernel is built with -fmad=false);
+    the warp's fused multiply-adds are fmaf in the kernel and one float64
+    sum in the plain version."""
+    R = 64
+    ops = [op for op in range(9) for _ in range(4)]
+    params = X.single_op_params(torch.Generator(device=dev).manual_seed(int(severity)), ops, R, severity, device=dev)
+    shifts = X.op_shift_bounds(severity, R)
+    imgs = _sources(dev, 1, R)
+    basew = X.bicubic_matrix(R, R, device=dev)
+    got = X.launch_views(imgs, params, basew, R, R, len(ops) + 1, shifts)
+    torch.cuda.synchronize()
+    want = X.augmix_views_reference(imgs, params, basew, R, R, len(ops) + 1, shifts)
+    bad = [(ops[v - 1], int((got[0, v] != want[0, v]).sum())) for v in range(1, len(ops) + 1)
+           if not torch.equal(got[0, v], want[0, v])]
+    assert torch.equal(got[0, 0], want[0, 0]) and not bad, bad
+
+
+@pytest.mark.parametrize("augmix", [True, False])
+def test_augmix_pipeline_matches_plain(dev, augmix):
+    """N=1, V=8, S=256, R=224. Both versions sum the crop exactly and round
+    every step alike; the plain version's float64 stand-in for a fused
+    multiply-add can still round twice in rare cases, so: augmix off, at most
+    1 gray; augmix on (a pixel's difference travels along its chain), at
+    least 99.9% of pixels equal."""
+    S, R, V = 256, 224, 8
+    imgs = _sources(dev, 1, S, seed=3)
+    params = X.flatten_params(X.sample_view_params(torch.Generator(device=dev).manual_seed(7), 1, V, S, R,
+                                                   augmix=augmix, device=dev))
+    basew = X.bicubic_matrix(S, R, device=dev)
+    shifts = X.op_shift_bounds(1.0, R)
+    got = X.launch_views(imgs, params, basew, R, S, V, shifts)
+    torch.cuda.synchronize()
+    want = X.augmix_views_reference(imgs, params, basew, R, S, V, shifts)
+    d = (got.int() - want.int()).abs()
+    if augmix:
+        assert (d == 0).float().mean().item() >= 0.999
+    else:
+        assert d.max().item() <= 1
+
+
+def test_augmix_kernel_refuses_bad_inputs(dev):
+    S, R, V = 64, 32, 2
+    params = X.flatten_params(X.sample_view_params(torch.Generator(device=dev).manual_seed(0), 1, V, S, R,
+                                                   device=dev))
+    basew = X.bicubic_matrix(S, R, device=dev)
+    shifts = X.op_shift_bounds(1.0, R)
+    imgs = _sources(dev, 1, S)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        X.launch_views(imgs.cpu(), params, basew, R, S, V, shifts)
+    with pytest.raises(TypeError, match="uint8"):
+        X.launch_views(imgs.float(), params, basew, R, S, V, shifts)
+    with pytest.raises(ValueError, match="source images"):
+        X.launch_views(imgs[:, :, :48], params, basew, R, S, V, shifts)
+    with pytest.raises(ValueError, match="param 'ops'"):
+        X.launch_views(imgs, dict(params, ops=params["ops"][:, :8].contiguous()), basew, R, S, V, shifts)
+
+
+def test_augmix_views_counts_one_launch(dev):
+    S, R, V = 64, 32, 4
+    imgs = _sources(dev, 2, S)
+    X.reset_launch_counts()
+    out = X.fused_views(imgs, torch.Generator(device=dev).manual_seed(0), n_views=V, resolution=R, src_size=S)
+    torch.cuda.synchronize()
+    assert out.shape == (2, V, 3, R, R) and out.is_cuda and X.LAUNCHES["augmix"] == 1

@@ -77,7 +77,7 @@ def test_cli_runs_on_cpu(tmp_path):
 def test_cli_refuses_unported_options():
     from rlcf_torch.cli import tta_cls
 
-    for extra in (["--viewgen", "fused"], ["--cocoop"], ["--tp", "2"], ["--test_sets", "bongard"]):
+    for extra in (["--viewgen", "device"], ["--cocoop"], ["--tp", "2"], ["--test_sets", "bongard"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             tta_cls.main(["--device", "cpu"] + extra)
 
