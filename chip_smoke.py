@@ -10,7 +10,10 @@ Phases, each fatal:
   3. hold each kernel against its plain PyTorch version at the main path's
      shapes and time kernel, plain version and, where one exists, the PyTorch
      library call with CUDA events: the attention kernels in bf16 and fp32
-     (against scaled_dot_product_attention); the AugMix kernel at a flagship
+     (against scaled_dot_product_attention); the bf16 tensor-core forward over
+     the edges of both its regimes (T from 1 to 257, 8/12/16 heads, masked
+     and not) and for bit-identical repeats; the ATTN_IMPL="flash" switch of
+     models/layers.py at T=128 and 256; the AugMix kernel at a flagship
      group (4 images x 64 views, 256 -> 224 px) with augmix on and off, on a
      second seed, and op by op at the identity crop at severities 1 and 2;
   4. drive the flagship RLCF prompt TTA through the port's CLI at full width
@@ -24,6 +27,8 @@ Phases, each fatal:
   5. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
+
+    python3 chip_smoke.py --kernels-only   # phases 1-3, then exit 3 (no device line)
 """
 
 from __future__ import annotations
@@ -49,7 +54,12 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|: fp32 = summation order; bf
     (torch.bfloat16, "fwd"): (1e-2, 2**-7), (torch.bfloat16, "bwd"): (1e-2, 2**-7),
 }
 REPLACES = {"fwd": "rlcf_tpu/ops/pallas_attention.py:65", "bwd": "rlcf_tpu/ops/pallas_attention.py:89",
-            "augmix": "rlcf_tpu/ops/pallas_augmix.py:284"}
+            "augmix": "rlcf_tpu/ops/pallas_augmix.py:284", "flash": "rlcf_tpu/models/layers.py:48"}
+ATTENTION_SOURCE = {"cuda_core": "rlcf_torch/csrc/attention.cu", "mma_short": "rlcf_torch/csrc/attention_mma.cu",
+                    "mma_long": "rlcf_torch/csrc/attention_mma.cu"}
+SWEEP_T = (1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 77, 128, 196, 197, 256, 257)
+SWEEP_H = (8, 12, 16)
+FLASH_SHAPE = (24, 256, 16)   # B, T, H at which the ATTN_IMPL="flash" route is timed
 SRC_SIZE, RES = 256, 224
 FLAGSHIP_IMAGES, NATIVE_IMAGES = 16, 8
 # fp32 operations per pixel of one plane, read off csrc/augmix.cu: each op's
@@ -64,11 +74,15 @@ def log(msg):
 
 
 def time_ms(fn, reps=20, warmup=3):
-    """Mean ms per call by CUDA events over ``reps`` calls after warm-up."""
+    """Mean ms per call by CUDA events over ``reps`` calls after warm-up. The
+    card is first held busy for ~2 ms while the host queues the calls, so that
+    a call shorter than the host's enqueue (~0.03 ms through a wrapper) is
+    timed on the device and not on the host."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -86,8 +100,23 @@ def text_seq_len(classnames):
     return min(77, -(-(int(eot.max()) + 1) // 8) * 8)
 
 
-def check_kernel(direction, B, T, H, dtype, masked, label):
-    """Kernel vs plain version on one shape; returns the kernels-line entry."""
+def assert_close(got, want, dtype, direction, label):
+    """|got - want| <= atol + rtol * |want| with TOL's numbers; returns the
+    largest absolute and relative difference."""
+    err = (got.float() - want.float()).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.float().abs().clamp_min(1e-6)).max())
+    atol, rtol = TOL[(dtype, direction)]
+    if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * want.float().abs()).any()):
+        raise AssertionError(f"{label}: kernel disagrees with its plain version (max abs {max_abs:.3e}, "
+                             f"tolerance {atol} + {rtol}*|plain|)")
+    return max_abs, max_rel
+
+
+def check_kernel(direction, B, T, H, dtype, masked, label, kind=None):
+    """Kernel vs plain version on one shape; returns the kernels-line entry
+    (``kind``: the entry's name and REPLACES key where it is not the
+    direction's)."""
     from rlcf_torch.models.layers import causal_mask
     from rlcf_torch.ops import attention as A
 
@@ -103,16 +132,13 @@ def check_kernel(direction, B, T, H, dtype, masked, label):
     else:
         kernel = lambda: A.launch_bwd(qkv, g, mask, H, scale)
         plain = lambda: A.fused_attention_reference_bwd(qkv, g, mask, H, scale)
+    before = dict(A.LAUNCH_VARIANTS)
     got = kernel()
     torch.cuda.synchronize()
-    want = plain()
-    err = (got.float() - want.float()).abs()
-    max_abs = float(err.max())
-    max_rel = float((err / want.float().abs().clamp_min(1e-6)).max())
+    ran = [v for v, n in A.LAUNCH_VARIANTS.items() if n != before.get(v, 0)]   # the forward variant that ran
+    variant = ran[0] if direction == "fwd" else "cuda_core"
+    max_abs, max_rel = assert_close(got, plain(), dtype, direction, label)
     atol, rtol = TOL[(dtype, direction)]
-    if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * want.float().abs()).any()):
-        raise AssertionError(f"{label}: kernel disagrees with its plain version (max abs {max_abs:.3e}, "
-                             f"tolerance {atol} + {rtol}*|plain|)")
 
     # the library yardstick: one scaled_dot_product_attention call (backward:
     # one autograd call through it) on the same q, k, v and mask
@@ -142,14 +168,96 @@ def check_kernel(direction, B, T, H, dtype, masked, label):
         nbytes = B * T * 3 * H * D * size * 2 + B * T * H * D * size + mask_bytes
         flops = 10 * B * H * D * kept           # S, dP, dV, dQ, dK
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    log(f"KERNEL mha_{direction}[{label}]: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+    name = f"{kind or 'mha_' + direction}[{label}]"
+    log(f"KERNEL {name}: variant={variant} max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
         f"(tolerance {atol} + {rtol:.3g}*|plain|) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
         f"(bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, ops {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms)")
-    return {"name": f"mha_{direction}[{label}]", "route": "cuda", "source": "rlcf_torch/csrc/attention.cu",
-            "replaces": REPLACES[direction], "shape": [direction, B, T, H, str(dtype)], "max_abs_err": max_abs,
+    return {"name": name, "route": "cuda", "source": ATTENTION_SOURCE[variant], "variant": variant,
+            "replaces": REPLACES[kind or direction], "shape": [direction, B, T, H, str(dtype)],
+            "max_abs_err": max_abs,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+
+
+def check_forward_sweep():
+    """Phase 3, correctness only: the bf16 forward against its plain version
+    over the edges of both regimes (small B), and two launches on the same
+    input bit for bit."""
+    from rlcf_torch.models.layers import causal_mask
+    from rlcf_torch.ops import attention as A
+
+    dev, dtype, scale = torch.device("cuda"), torch.bfloat16, 1.0 / math.sqrt(64)
+    worst, cases = 0.0, 0
+    for T in SWEEP_T:
+        for H in SWEEP_H:
+            gen = torch.Generator(device=dev).manual_seed(T * 100 + H)
+            qkv = torch.randn(3, T, 3 * H * 64, device=dev, generator=gen).to(dtype)
+            for masked in (False, True):
+                mask = causal_mask(T, dev) if masked else None
+                want = A.fused_attention_reference(qkv, mask, H, scale)
+                got, again = A.launch_fwd(qkv, mask, H, scale), A.launch_fwd(qkv, mask, H, scale)
+                torch.cuda.synchronize()
+                label = f"sweep T={T} H={H} masked={masked} variant={A.forward_variant(T, dtype)}"
+                worst = max(worst, assert_close(got, want, dtype, "fwd", label)[0])
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{label}: two launches on the same input differ")
+                cases += 1
+    # a general (not causal) additive mask with a fully masked-out key column
+    T, H = 197, 12
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(2, T, 3 * H * 64, device=dev, generator=gen).to(dtype)
+    mask = torch.randn(T, T, device=dev, generator=gen)
+    mask[:, 3] = float("-inf")
+    worst = max(worst, assert_close(A.launch_fwd(qkv, mask, H, scale), A.fused_attention_reference(qkv, mask, H, scale),
+                                    dtype, "fwd", "sweep general mask")[0])
+    log(f"SWEEP mha_fwd bf16: {cases + 1} cases (T in {list(SWEEP_T)}, H in {list(SWEEP_H)}, masked and not, "
+        f"one general mask) within tolerance, worst max_abs_err "
+        f"{worst:.3e}; repeats bit-identical")
+
+
+def check_flash_switch():
+    """Phase 3, ATTN_IMPL="flash": ``layers.multi_head_attention`` at T=128
+    and 256, masked and not, bf16 and fp32, against its dense branch, the
+    launch counter showing that the kernel ran; T=384 raises; the switch is
+    set back. Returns the kernels-line entries of the timed shape."""
+    from rlcf_torch.models import layers as L
+    from rlcf_torch.ops import attention as A
+
+    dev, H = torch.device("cuda"), 4
+    D = H * 64
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            for T in (128, 256):
+                gen = torch.Generator(device=dev).manual_seed(T)
+                x = torch.randn(2, T, D, device=dev, generator=gen).to(dtype)
+                w = [(torch.randn(s, device=dev, generator=gen) * D ** -0.5).to(dtype)
+                     for s in ((D, 3 * D), (3 * D,), (D, D), (D,))]
+                for masked in (False, True):
+                    mask = L.causal_mask(T, dev) if masked else None
+                    L.ATTN_IMPL = "dense"
+                    want = L.multi_head_attention(x, *w, H, mask)
+                    L.ATTN_IMPL = "flash"
+                    before = A.LAUNCHES["fwd"]
+                    got = L.multi_head_attention(x, *w, H, mask)
+                    torch.cuda.synchronize()
+                    if A.LAUNCHES["fwd"] != before + 1:
+                        raise AssertionError('ATTN_IMPL="flash" did not launch the attention kernel')
+                    label = f"flash switch T={T} {dtype} masked={masked}"
+                    max_abs, _ = assert_close(got, want, dtype, "fwd", label)
+                    log(f"FLASH {label}: equals the dense branch, max_abs_err={max_abs:.3e}")
+        try:
+            L.multi_head_attention(torch.zeros(1, 384, D, device=dev), *[t.float() for t in w], H)
+        except ValueError as e:
+            log(f"FLASH T=384 raises: {e}")
+        else:
+            raise AssertionError('ATTN_IMPL="flash" took T=384')
+    finally:
+        L.ATTN_IMPL = "dense"
+    B, T, H = FLASH_SHAPE
+    return [check_kernel("fwd", B, T, H, torch.bfloat16, masked,
+                         f"B={B} T={T} H={H} bf16 {'causal' if masked else 'unmasked'}", kind="flash")
+            for masked in (True, False)]
 
 
 def augmix_ops(params, R, S):
@@ -381,7 +489,10 @@ def episode_timing_and_reference(out_dir):
 
 
 def main():
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 3 (kernel checks) with exit code 3 and no device line")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -403,16 +514,17 @@ def main():
 
     # phase 2: one nvcc per source, all started together, beside the host pipeline's g++
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(A.build, force=True), pool.submit(X.build, force=True), pool.submit(native.available)]
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(A.build, force=True), pool.submit(A.build_mma, force=True),
+                  pool.submit(X.build, force=True), pool.submit(native.available)]
         results = [b.result() for b in builds]
-    for name in ("rlcf_attention", "rlcf_augmix"):
+    for name in ("rlcf_attention", "rlcf_attention_mma", "rlcf_augmix"):
         for line in cuda_build.PTXAS[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"PTXAS {name}: " + line.strip())
-    if not results[2]:
+    if not results[3]:
         raise RuntimeError("the host view pipeline (native/rlcf_host.cpp) did not build")
-    log(f"BUILD nvcc x2 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
+    log(f"BUILD nvcc x3 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path's shapes (group 4: 256 policy views, 24 selected
     # reward views, 4 x 200 text prompts), plus a backward at T=257
@@ -425,7 +537,11 @@ def main():
         for direction, B, T, H, masked, what in shapes:
             tag = "bf16" if dtype == torch.bfloat16 else "fp32"
             entries.append(check_kernel(direction, B, T, H, dtype, masked, f"{what} B={B} T={T} H={H} {tag}"))
+    check_forward_sweep()
+    flash_entries = check_flash_switch()
     entries.append(check_augmix())
+    if args.kernels_only:
+        return 3
 
     # phase 4: each path with its counters set to 0 just before and read just after
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
@@ -450,6 +566,11 @@ def main():
     for kind in ("mha_fwd", "mha_bwd", "augmix"):
         if not any(e["name"].startswith(kind) for e in line):
             raise AssertionError(f"{kind} was launched no time on the main path")
+    # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
+    # length that is a multiple of 128, so its launches there are 0
+    for e in flash_entries:
+        key = " ".join(map(str, e.pop("shape")))
+        line.append(dict(e, launches=sum(launched.get(key, {}).values()), launches_by_path=launched.get(key, {})))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

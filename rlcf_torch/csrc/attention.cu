@@ -1,5 +1,6 @@
-// Fused multi-head attention from the unsplit QKV projection, forward and
-// backward, for Hopper (sm_90a).
+// Fused multi-head attention from the unsplit QKV projection for Hopper
+// (sm_90a) on the CUDA cores: the forward in fp32 and the backward in fp32
+// and bf16. The bf16 forward runs on the tensor cores (attention_mma.cu).
 //
 // Replaces the TPU kernels `_mha_fwd_kernel` and `_mha_bwd_kernel` of
 // rlcf_tpu/ops/pallas_attention.py (the custom-VJP `fused_attention`).
@@ -29,8 +30,9 @@
 // ~295 FLOP/byte; at the text tower's T=16 it is ~8 FLOP/byte. The design
 // reads every qkv element once from device memory and writes every output
 // once; nothing of size [T, T] goes to device memory. The products run on
-// the fp32 CUDA cores (no wgmma yet), which makes this first version
-// compute-bound in practice at T=197/257; tensor-core tiles are later work.
+// the fp32 CUDA cores, which makes these kernels compute-bound in practice at
+// T=197/257: the fp32 forward stays here because TF32 would not hold its
+// 1e-5 tolerance; tensor-core tiles for the backward are later work.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after the launch, or kBadArgs for shapes it refuses.
@@ -336,9 +338,10 @@ mha_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g, const float* 
 template <typename T>
 int launch_fwd(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
                cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mha_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(fwd_smem_bytes<T>(kMaxT)));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static const cudaError_t attr =  // once per kernel and process
+      cudaFuncSetAttribute(mha_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(fwd_smem_bytes<T>(kMaxT)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   mha_fwd_kernel<T><<<batch * heads, kThreads, fwd_smem_bytes<T>(t), stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(mask), static_cast<T*>(out), t, heads, scale);
   return static_cast<int>(cudaGetLastError());
@@ -347,9 +350,10 @@ int launch_fwd(const void* qkv, const void* mask, void* out, int batch, int t, i
 template <typename T>
 int launch_bwd(const void* qkv, const void* g, const void* mask, void* dqkv, int batch, int t, int heads,
                float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mha_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bwd_smem_bytes<T>(kMaxT)));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static const cudaError_t attr =  // once per kernel and process
+      cudaFuncSetAttribute(mha_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bwd_smem_bytes<T>(kMaxT)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   mha_bwd_kernel<T><<<batch * heads, kThreads, bwd_smem_bytes<T>(t), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<const float*>(mask),
       static_cast<T*>(dqkv), t, heads, scale);
@@ -364,16 +368,16 @@ bool bad_args(int batch, int t, int heads) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. mask may be null.
+// dtype: 0 = float32 only (the bf16 forward is attention_mma.cu's). mask may be null.
 int rlcf_mha_fwd(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
                  int dtype, void* stream) {
   if (bad_args(batch, t, heads)) return kBadArgs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd<float>(qkv, mask, out, batch, t, heads, scale, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(qkv, mask, out, batch, t, heads, scale, s);
   return kBadArgs;
 }
 
+// dtype: 0 = float32, 1 = bfloat16. mask may be null.
 int rlcf_mha_bwd(const void* qkv, const void* g, const void* mask, void* dqkv, int batch, int t, int heads,
                  float scale, int dtype, void* stream) {
   if (bad_args(batch, t, heads)) return kBadArgs;

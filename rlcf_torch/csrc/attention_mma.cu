@@ -1,0 +1,526 @@
+// Fused multi-head attention forward from the unsplit QKV projection in bf16,
+// on Hopper's tensor cores (sm_90a).
+//
+// Replaces the TPU kernel `_mha_fwd_kernel` of
+// rlcf_tpu/ops/pallas_attention.py:65 for bf16 inputs (fp32 inputs stay on the
+// CUDA-core kernel of attention.cu, whose 1e-5 tolerance TF32 would break),
+// and serves the `ATTN_IMPL = "flash"` switch of rlcf_tpu/models/layers.py:48.
+//
+//   qkv [B, T, 3*H*64] bf16 (+ additive mask [T, T] fp32) -> out [B, T, H*64]
+//   s = q.k * scale (+ mask) in fp32; p = exp(s - rowmax) / rowsum in fp32,
+//   rounded to bf16; out = P.V accumulated in fp32 and rounded once.
+//
+// What bounds it, and what the design does about it.
+//
+// Long sequences (17 <= T <= 257, the vision towers): bytes. At the policy
+// tower's shape (B=256, T=197, H=12) qkv and out are ~310 MB, 0.09 ms of
+// device memory time, against 0.03 ms of tensor-core time for the 30 GFLOP.
+// So the kernel reads every qkv element from device memory once and keeps
+// everything else on the SM:
+//   * one CTA of one warpgroup per (sequence, head, block of 64 query rows);
+//     a warp owns 16 of the rows. The blocks of one (sequence, head) have
+//     neighbouring CTA indices, so they run together and all but the first
+//     find K and V in L2. Two or three CTAs share an SM, so that one's loads
+//     and softmax overlap another's matrix products;
+//   * Q, K and V head slices go from the unsplit layout to shared memory by
+//     cp.async in 16-byte pieces, Q and K as one group and V as a second, so
+//     that V arrives while the scores are computed. Rows are 128 bytes; the
+//     16-byte chunk c of row r is stored at chunk c ^ (r & 7): the 128-byte
+//     swizzle of wgmma's shared-memory operands, which also makes every
+//     ldmatrix and every staging store conflict-free without padding;
+//   * S = Q.K^T and O = P.V run as wgmma (m64n64k16 and m64n16k16, bf16 in,
+//     fp32 out) with A from registers (Q by ldmatrix, P straight from the
+//     softmax) and B read from shared memory by the tensor cores: K as it
+//     lies, V through the transpose flag. A first version on mma.sync with 16
+//     query rows a warp was bound by its ldmatrix traffic (every K and V
+//     fragment fetched from shared memory fed one 16-row product: 0.31 ms at
+//     the policy shape on an H100 80GB HBM3 at 700 W); wgmma shares each fetch
+//     among 64 rows (0.17 ms);
+//   * the function rounds the NORMALISED P to bf16 before P.V, which an online
+//     softmax cannot reproduce. A warp therefore holds its whole score row
+//     block in registers (at most 17 blocks of 16 keys: 136 fp32 a thread),
+//     takes the exact row max and sum with two shuffles each (in base 2:
+//     scale * log2(e) and the max folded into one fused multiply-add a score,
+//     ex2.approx), and packs P = exp(s - max) / sum straight into the
+//     A-operand layout of P.V (the accumulator layout of S is that layout).
+//     Q.K^T is computed once. The kernel is instantiated for 2, 5, 9, 13 and
+//     17 key blocks so that each sequence length pays only for the registers
+//     it needs; an instance multiplies all its key blocks;
+//   * the ragged edge: key columns >= T get -inf before the max, the padding
+//     rows of Q, K and V in shared memory are zero-filled (never read from
+//     device memory), query rows >= T are not stored;
+//   * the output tile goes through the warp's Q tile in shared memory and
+//     leaves as 16-byte pieces, 128 contiguous bytes a row.
+//
+// Short sequences (T <= 16, the text tower's prompts): per-CTA and per-launch
+// overhead, not arithmetic: a head's whole attention is one m16 tile, 8
+// mma.sync for S and 8 for P.V. One CTA per sequence (per 16 heads of it), one warp
+// per head; a warp stages its own head's three [T, 64] slices (whole 128-byte
+// rows), needs no CTA-wide barrier, and keeps softmax in the accumulator
+// registers.
+//
+// The mask is a general additive [T, T] fp32 tensor (already clamped to a
+// finite floor by the wrapper); no key tile is skipped.
+//
+// Plain C interface (bound with ctypes); each entry point returns
+// cudaGetLastError() after the launch, or kBadArgs for shapes it refuses.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 64;             // head dimension
+constexpr int kRowBytes = 128;     // one head row in bf16
+constexpr int kTileBytes = 2048;   // 16 rows
+constexpr int kMaxT = 257;
+constexpr int kShortT = 16;        // longest sequence of the short regime
+constexpr int kShortWarps = 16;    // heads per CTA in the short regime
+constexpr int kBadArgs = 9001;
+constexpr unsigned kFull = 0xffffffffu;
+
+// byte offset of 16-byte chunk c of row r in a swizzled tile of 128-byte rows
+__device__ __forceinline__ int tile_off(int r, int c) { return r * kRowBytes + ((c ^ (r & 7)) << 4); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16x16, row-major) . b (16x8, column-major), bf16 in, fp32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The first n_rows rows of a swizzled tile of 128-byte rows from a row-major
+// global matrix (64 columns from `src`, row stride `stride` elements); rows
+// >= n_valid are zero-filled and never read from device memory.
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const bf16* src, int n_rows, int n_valid,
+                                           size_t stride, int tid, int nthreads) {
+  for (int idx = tid; idx < n_rows * 8; idx += nthreads) {
+    const int r = idx >> 3, c = idx & 7;
+    unsigned char* d = dst + tile_off(r, c);
+    if (r < n_valid) {
+      cp_async16(smem_u32(d), src + static_cast<size_t>(r) * stride + c * 8);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// The warp's 16 query rows as the A operands of Q.K^T (4 steps of 16 dims).
+__device__ __forceinline__ void load_q(uint32_t (&qa)[4][4], const unsigned char* qs, int lane) {
+  const uint32_t qaddr = smem_u32(qs);
+  const int r = (lane & 7) + ((lane >> 3) & 1) * 8, c = lane >> 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) ldmatrix_x4(qa[k], qaddr + tile_off(r, 2 * k + c));
+}
+
+// Exact fp32 softmax over the warp's whole score rows in registers (global
+// query rows row0 .., KB blocks of 16 keys), P normalised and rounded to bf16,
+// left in `p` as the A operands of P.V, one per key block. Works in base 2:
+// p = 2^(v - max) / sum with v = s * scale * log2(e) (+ mask * log2(e));
+// without a mask the multiply and the subtraction are one fused multiply-add
+// per score. A thread holds rows ra = row0 + lane / 4 and rb = ra + 8 and, in
+// each 8-key tile, the columns 2 * (lane % 4) and the next. Columns >= t get
+// -inf, hence probability exactly 0.
+template <int KB>
+__device__ __forceinline__ void softmax_pack(float (&s)[KB][2][4], uint32_t (&p)[KB][4],
+                                             const float* __restrict__ mask, int t, int row0, float scale,
+                                             int lane) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float c = scale * kLog2e;
+  const int ra = row0 + (lane >> 2), rb = ra + 8, c0 = 2 * (lane & 3);
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    if (16 * kb + 16 > t) {  // uniform: a block that holds columns >= t
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (16 * kb + 8 * nt + c0 + e >= t) s[kb][nt][e] = s[kb][nt][2 + e] = -INFINITY;
+        }
+      }
+    }
+  }
+
+  if (mask == nullptr) {
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        ma = fmaxf(ma, fmaxf(s[kb][nt][0], s[kb][nt][1]));
+        mb = fmaxf(mb, fmaxf(s[kb][nt][2], s[kb][nt][3]));
+      }
+    }
+    ma = -quad_max(ma) * c;
+    mb = -quad_max(mb) * c;
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          la += s[kb][nt][e] = fast_exp2(fmaf(s[kb][nt][e], c, ma));
+          lb += s[kb][nt][2 + e] = fast_exp2(fmaf(s[kb][nt][2 + e], c, mb));
+        }
+      }
+    }
+  } else {
+    // a thread's two columns of a tile are neighbours: one 8-byte load where
+    // the mask's rows keep them aligned (t even), else two 4-byte loads
+    const bool in_a = ra < t, in_b = rb < t, pairs = (t & 1) == 0;
+    const float* mrow_a = mask + static_cast<size_t>(ra) * t;
+    const float* mrow_b = mask + static_cast<size_t>(rb) * t;
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = 16 * kb + 8 * nt + c0;
+        float2 xa = make_float2(0.f, 0.f), xb = xa;
+        if (pairs) {
+          if (col < t) {
+            if (in_a) xa = __ldg(reinterpret_cast<const float2*>(mrow_a + col));
+            if (in_b) xb = __ldg(reinterpret_cast<const float2*>(mrow_b + col));
+          }
+        } else {
+          if (in_a && col < t) xa.x = __ldg(mrow_a + col);
+          if (in_a && col + 1 < t) xa.y = __ldg(mrow_a + col + 1);
+          if (in_b && col < t) xb.x = __ldg(mrow_b + col);
+          if (in_b && col + 1 < t) xb.y = __ldg(mrow_b + col + 1);
+        }
+        s[kb][nt][0] = fmaf(xa.x, kLog2e, s[kb][nt][0] * c);
+        s[kb][nt][1] = fmaf(xa.y, kLog2e, s[kb][nt][1] * c);
+        s[kb][nt][2] = fmaf(xb.x, kLog2e, s[kb][nt][2] * c);
+        s[kb][nt][3] = fmaf(xb.y, kLog2e, s[kb][nt][3] * c);
+        ma = fmaxf(ma, fmaxf(s[kb][nt][0], s[kb][nt][1]));
+        mb = fmaxf(mb, fmaxf(s[kb][nt][2], s[kb][nt][3]));
+      }
+    }
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          la += s[kb][nt][e] = fast_exp2(s[kb][nt][e] - ma);
+          lb += s[kb][nt][2 + e] = fast_exp2(s[kb][nt][2 + e] - mb);
+        }
+      }
+    }
+  }
+  const float ia = 1.f / quad_sum(la), ib = 1.f / quad_sum(lb);
+
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    p[kb][0] = pack_bf16(s[kb][0][0] * ia, s[kb][0][1] * ia);
+    p[kb][1] = pack_bf16(s[kb][0][2] * ib, s[kb][0][3] * ib);
+    p[kb][2] = pack_bf16(s[kb][1][0] * ia, s[kb][1][1] * ia);
+    p[kb][3] = pack_bf16(s[kb][1][2] * ib, s[kb][1][3] * ib);
+  }
+}
+
+// The warp's 16 x 64 output tile leaves through `otile` (the warp's own, no
+// longer needed Q tile) as whole 16-byte pieces. `orow` points at the output
+// row of tile row 0, `rows` is how many of the 16 rows exist.
+__device__ __forceinline__ void store_tile(const float (&o)[8][4], unsigned char* otile, bf16* __restrict__ orow,
+                                           int rows, int hd, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(otile + tile_off(g, nt) + tq * 4) = pack_bf16(o[nt][0], o[nt][1]);
+    *reinterpret_cast<uint32_t*>(otile + tile_off(g + 8, nt) + tq * 4) = pack_bf16(o[nt][2], o[nt][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = lane + 32 * i, row = idx >> 3, ch = idx & 7;
+    if (row < rows) {
+      *reinterpret_cast<uint4*>(orow + static_cast<size_t>(row) * hd + ch * 8) =
+          *reinterpret_cast<const uint4*>(otile + tile_off(row, ch));
+    }
+  }
+}
+
+// ---- warpgroup matrix multiply (wgmma), A from registers, B from shared memory
+
+// Descriptor of a B operand in a tile of 128-byte rows with the 128-byte
+// swizzle (chunk c of row r at c ^ (r & 7); the tile is 1024-byte aligned):
+// 8-row groups are 1024 bytes apart in both roles the operand takes here.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) | (uint64_t{64} << 16) | (uint64_t{64} << 32) |
+         (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// writes of the generic proxy (cp.async, st.shared) made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_proxy() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+#define RLCF_ACC8(d, o)                                                                           \
+  "+f"((d)[(o)]), "+f"((d)[(o) + 1]), "+f"((d)[(o) + 2]), "+f"((d)[(o) + 3]), "+f"((d)[(o) + 4]), \
+      "+f"((d)[(o) + 5]), "+f"((d)[(o) + 6]), "+f"((d)[(o) + 7])
+
+// d[64 x 64] (+)= a[64 x 16] . b[16 x 64]; a thread's 32 accumulators are 8
+// tiles of 8 columns in the layout of mma.sync's. TRANS: b's 64 columns are
+// contiguous in shared memory (V), else its 16 rows of the product are (K).
+template <int TRANS>
+__device__ __forceinline__ void wgmma_n64(float* d, const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : RLCF_ACC8(d, 0), RLCF_ACC8(d, 8), RLCF_ACC8(d, 16), RLCF_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TRANS), "r"(accumulate));
+}
+
+// d[64 x 16] (+)= a[64 x 16] . b[16 x 16], b's rows of the product contiguous (K).
+__device__ __forceinline__ void wgmma_n16(float* d, const uint32_t (&a)[4], uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : RLCF_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// Long regime: CTA = one warpgroup = (sequence, head, block of 64 query rows),
+// a warp owns 16 of the rows. All KB * 16 key rows of the shared-memory tiles
+// take part: rows >= T are zero and get probability 0.
+template <int KB, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+mha_fwd_mma_long(const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out, int t,
+                 int heads, int nqb, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x / nqb, qrow0 = (blockIdx.x % nqb) * 64;
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD;
+  const size_t stride = 3 * static_cast<size_t>(hd);
+
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + 4 * kTileBytes;
+  unsigned char* vs = ks + KB * kTileBytes;
+
+  // two cp.async groups: V arrives while the scores and the softmax run
+  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  stage_rows(qs, base + static_cast<size_t>(qrow0) * stride, 64, t - qrow0, stride, threadIdx.x, 128);
+  stage_rows(ks, base + hd, KB * 16, t, stride, threadIdx.x, 128);
+  cp_async_commit();
+  stage_rows(vs, base + 2 * hd, KB * 16, t, stride, threadIdx.x, 128);
+  cp_async_commit();
+
+  const int row0 = qrow0 + warp * 16;
+  const bool active = row0 < t;  // uniform over the warp; the wgmma are the whole warpgroup's
+  unsigned char* qtile = qs + warp * kTileBytes;
+  uint32_t qa[4][4];
+  float s[KB][2][4];
+  uint32_t p[KB][4];
+  float o[8][4];
+
+  cp_async_wait<1>();
+  fence_async_proxy();
+  __syncthreads();  // Q and K are in
+  load_q(qa, qtile, lane);
+  const uint32_t kaddr = smem_u32(ks);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // 16 head dimensions a step: 32 bytes along the rows
+#pragma unroll
+    for (int g = 0; g < KB / 4; ++g) {
+      wgmma_n64<0>(&s[4 * g][0][0], qa[k], wgmma_desc(kaddr + g * 4 * kTileBytes + k * 32), k > 0);
+    }
+#pragma unroll
+    for (int kb = KB / 4 * 4; kb < KB; ++kb) {
+      wgmma_n16(&s[kb][0][0], qa[k], wgmma_desc(kaddr + kb * kTileBytes + k * 32), k > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait();
+  if (active) softmax_pack<KB>(s, p, mask, t, row0, scale, lane);
+
+  cp_async_wait<0>();
+  fence_async_proxy();
+  __syncthreads();  // V is in
+  const uint32_t vaddr = smem_u32(vs);
+  wgmma_fence();
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) wgmma_n64<1>(&o[0][0], p[kb], wgmma_desc(vaddr + kb * kTileBytes), kb > 0);
+  wgmma_commit();
+  wgmma_wait();
+  if (active) store_tile(o, qtile, out + (static_cast<size_t>(b) * t + row0) * hd + h * kD, t - row0, hd, lane);
+}
+
+// Short regime (T <= 16): CTA = (sequence, group of 16 heads), warp = head;
+// one m16 tile a head on mma.sync.
+__global__ void __launch_bounds__(kShortWarps * 32)
+mha_fwd_mma_short(const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out, int t,
+                  int heads, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x, h = blockIdx.y * kShortWarps + warp;
+  if (h >= heads) return;  // no CTA-wide barrier below
+  const int hd = heads * kD;
+  const size_t stride = 3 * static_cast<size_t>(hd);
+
+  unsigned char* qs = smem + warp * 3 * kTileBytes;
+  unsigned char* ks = qs + kTileBytes;
+  unsigned char* vs = ks + kTileBytes;
+  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  stage_rows(qs, base, 16, t, stride, lane, 32);
+  stage_rows(ks, base + hd, 16, t, stride, lane, 32);
+  stage_rows(vs, base + 2 * hd, 16, t, stride, lane, 32);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  uint32_t qa[4][4];
+  float s[1][2][4] = {};
+  uint32_t p[1][4];
+  float o[8][4] = {};
+  load_q(qa, qs, lane);
+  {  // S = Q.K^T: the 16 keys as two tiles of 8, 4 steps of 16 dims
+    const uint32_t kaddr = smem_u32(ks);
+    const int r = (lane & 7) + (lane >> 4) * 8, c = (lane >> 3) & 1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, kaddr + tile_off(r, 2 * k + c));
+      mma_bf16(s[0][0], qa[k], kf[0], kf[1]);
+      mma_bf16(s[0][1], qa[k], kf[2], kf[3]);
+    }
+  }
+  softmax_pack<1>(s, p, mask, t, 0, scale, lane);
+  {  // O = P.V: the 64 dims as 4 pairs of tiles of 8, V transposed on the way in
+    const uint32_t vaddr = smem_u32(vs);
+    const int r = (lane & 7) + ((lane >> 3) & 1) * 8, c = lane >> 4;
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, vaddr + tile_off(r, 2 * dp + c));
+      mma_bf16(o[2 * dp], p[0], vf[0], vf[1]);
+      mma_bf16(o[2 * dp + 1], p[0], vf[2], vf[3]);
+    }
+  }
+  store_tile(o, qs, out + static_cast<size_t>(b) * t * hd + h * kD, t, hd, lane);
+}
+
+template <int KB, int MINB>
+int launch_long(const bf16* qkv, const float* mask, bf16* out, int batch, int t, int heads, float scale,
+                cudaStream_t stream) {
+  constexpr int kSmem = (4 + 2 * KB) * kTileBytes + 1024;  // + room to align the tiles to 1024 bytes
+  static const cudaError_t attr =  // once per kernel and process
+      cudaFuncSetAttribute(mha_fwd_mma_long<KB, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int nqb = (t + 63) / 64;
+  const long long ctas = static_cast<long long>(batch) * heads * nqb;
+  if (ctas > 0x7fffffffLL) return kBadArgs;
+  mha_fwd_mma_long<KB, MINB><<<static_cast<unsigned>(ctas), 128, kSmem, stream>>>(qkv, mask, out, t, heads, nqb,
+                                                                                    scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_args(int batch, int t, int heads) {
+  return batch < 1 || heads < 1 || t < 1 || t > kMaxT || static_cast<long long>(batch) * heads > 0x7fffffffLL;
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 only. mask may be null. 1 <= T <= 257 (the wrapper sends T <= 16 to the short kernel).
+int rlcf_mha_fwd_mma_long(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
+                          void* stream) {
+  if (bad_args(batch, t, heads)) return kBadArgs;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const float* m = static_cast<const float*>(mask);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nkb = (t + 15) / 16;  // the smallest instance that holds the keys; MINB: CTAs an SM should hold
+  if (nkb <= 2) return launch_long<2, 6>(x, m, o, batch, t, heads, scale, s);
+  if (nkb <= 5) return launch_long<5, 4>(x, m, o, batch, t, heads, scale, s);
+  if (nkb <= 9) return launch_long<9, 3>(x, m, o, batch, t, heads, scale, s);
+  if (nkb <= 13) return launch_long<13, 3>(x, m, o, batch, t, heads, scale, s);
+  return launch_long<17, 2>(x, m, o, batch, t, heads, scale, s);
+}
+
+// bf16 only. mask may be null. 1 <= T <= 16.
+int rlcf_mha_fwd_mma_short(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
+                           void* stream) {
+  if (bad_args(batch, t, heads) || t > kShortT) return kBadArgs;
+  static const cudaError_t attr =  // once per kernel and process
+      cudaFuncSetAttribute(mha_fwd_mma_short, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kShortWarps * 3 * kTileBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int warps = heads < kShortWarps ? heads : kShortWarps;
+  const dim3 grid(batch, (heads + kShortWarps - 1) / kShortWarps);
+  if (grid.y > 65535u) return kBadArgs;
+  mha_fwd_mma_short<<<grid, warps * 32, warps * 3 * kTileBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out), t, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

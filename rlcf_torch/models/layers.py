@@ -43,20 +43,38 @@ def causal_mask(length: int, device=None):
     return torch.full((length, length), float("-inf"), device=device).triu(1)
 
 
+# Module-wide switch for the dense branch of ``multi_head_attention``:
+# "dense" (default) or "flash". The JAX package's "flash" is the upstream
+# Pallas flash-attention kernel (``rlcf_tpu/models/layers.py:48``), taken when
+# T is a multiple of 128; here the same switch is served by the port's own
+# hand-written kernel (``ops/attention.py``), which takes T <= 257, so T = 128
+# and 256.
+ATTN_IMPL = "dense"
+
+
 def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, n_heads: int, mask=None, attn: str = "dense"):
     """Self-attention over [B, T, D] with the fused QKV projection.
 
     ``attn="fused"`` hands the unsplit projection to the fused kernel
     (``ops/attention.py``: the CUDA kernel on the card, its plain version on
-    the CPU), masked or not; ``"dense"`` is the plain head-split math.
+    the CPU), masked or not; ``"dense"`` is the plain head-split math, unless
+    ``ATTN_IMPL == "flash"`` and ``T % 128 == 0``: then the dense branch goes
+    through the same kernel too. The kernel takes the unsplit projection and
+    the additive mask itself (the JAX package maps any mask to its kernel's
+    causal flag), so the head split is skipped.
     """
     B, T, D = x.shape
     head_dim = D // n_heads
     qkv = linear(x, qkv_w, qkv_b)  # [B, T, 3D]
     scale = 1.0 / math.sqrt(head_dim)
-    if attn == "fused":
-        from ..ops.attention import fused_attention
+    if ATTN_IMPL not in ("dense", "flash"):
+        raise ValueError(f"unknown ATTN_IMPL {ATTN_IMPL!r} (\"dense\" or \"flash\")")
+    if attn == "fused" or (attn == "dense" and ATTN_IMPL == "flash" and T % 128 == 0):
+        from ..ops.attention import MAX_T, fused_attention
 
+        if attn == "dense" and T > MAX_T:
+            raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernel, which takes "
+                             f"T <= {MAX_T} (so T = 128 or 256); got T={T}")
         return linear(fused_attention(qkv, mask, n_heads, scale), out_w, out_b)
     if attn != "dense":
         raise ValueError(f"unknown attention implementation {attn!r}")

@@ -1,6 +1,7 @@
 """Fused multi-head attention from the unsplit QKV projection, forward and
-backward: a hand-written CUDA kernel for Hopper (``csrc/attention.cu``) and
-its plain PyTorch version.
+backward: hand-written CUDA kernels for Hopper (``csrc/attention_mma.cu``:
+the bf16 forward on the tensor cores; ``csrc/attention.cu``: the fp32 forward
+and the backward on the CUDA cores) and their plain PyTorch version.
 
 Replaces the TPU kernels ``_mha_fwd_kernel`` / ``_mha_bwd_kernel`` of
 ``rlcf_tpu/ops/pallas_attention.py`` (``fused_attention``, a custom VJP).
@@ -15,8 +16,13 @@ max-subtracted fp32 softmax, probabilities rounded to the input dtype before
 ``fused_attention`` is a ``torch.autograd.Function``: a CUDA tensor runs the
 CUDA kernels (or raises), a CPU tensor runs the plain version. ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the kernel.
+Which forward kernel a CUDA tensor runs is a rule of ``(T, dtype)``
+(``forward_variant``), not a fallback: bf16 goes to the tensor-core kernel
+(one warp per head on ``mma.sync`` for ``T <= 16``, one warpgroup per 64
+query rows on ``wgmma`` above), fp32 to the CUDA-core kernel, because TF32
+would not hold fp32's 1e-5 tolerance.
 
-The kernel is built at first use with ``nvcc`` for ``sm_90a`` into the
+Each source is built at first use with ``nvcc`` for ``sm_90a`` into the
 package's git-ignored ``_build/`` directory as a plain-C shared library and
 bound with ``ctypes``.
 """
@@ -34,17 +40,20 @@ from . import cuda_build
 NEG_BIG = -1e9  # finite stand-in for the causal mask's -inf
 HEAD_DIM = 64   # the kernel's head dimension
 MAX_T = 257     # the kernel's longest sequence (ViT-L/14 at 224 px)
+SHORT_T = 16    # longest sequence of the tensor-core forward's one-warp-per-head regime
 
-# kernel launches by the wrapper, per direction (plain integers), and per
-# (direction, B, T, H, dtype)
+# kernel launches by the wrapper, per direction (plain integers), per
+# (direction, B, T, H, dtype), and per forward variant
 LAUNCHES = {"fwd": 0, "bwd": 0}
 LAUNCH_SHAPES = collections.Counter()
+LAUNCH_VARIANTS = collections.Counter()
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCH_SHAPES.clear()
+    LAUNCH_VARIANTS.clear()
 
 
 def prep_mask(mask):
@@ -101,13 +110,33 @@ def fused_attention_reference_bwd(qkv, g, mask, n_heads: int, scale: float):
 # ---------------------------------------------------------------------------
 
 _LIB_NAME = "rlcf_attention"
+_MMA_LIB_NAME = "rlcf_attention_mma"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def forward_variant(T: int, dtype) -> str:
+    """The forward kernel a CUDA tensor of this sequence length and dtype
+    runs: ``"mma_short"`` / ``"mma_long"`` (bf16, ``csrc/attention_mma.cu``)
+    or ``"cuda_core"`` (fp32, ``csrc/attention.cu``)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {dtype}")
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"fused_attention kernel takes 1 <= T <= {MAX_T}; got T={T}")
+    if dtype == torch.float32:
+        return "cuda_core"
+    return "mma_short" if T <= SHORT_T else "mma_long"
 
 
 def build(force: bool = False) -> str:
     """Compile ``csrc/attention.cu`` for sm_90a; returns the library path.
     The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention"]``."""
     return cuda_build.build("attention.cu", _LIB_NAME, force=force)
+
+
+def build_mma(force: bool = False) -> str:
+    """Compile ``csrc/attention_mma.cu`` for sm_90a; returns the library path.
+    The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention_mma"]``."""
+    return cuda_build.build("attention_mma.cu", _MMA_LIB_NAME, force=force)
 
 
 @functools.lru_cache()
@@ -118,6 +147,16 @@ def _lib():
     lib.rlcf_mha_fwd.restype = ci
     lib.rlcf_mha_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, vp]
     lib.rlcf_mha_bwd.restype = ci
+    return lib
+
+
+@functools.lru_cache()
+def _mma_lib():
+    lib = ctypes.CDLL(build_mma())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.rlcf_mha_fwd_mma_short, lib.rlcf_mha_fwd_mma_long):
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
+        fn.restype = ci
     return lib
 
 
@@ -152,18 +191,29 @@ def _ptr(t):
 
 
 def launch_fwd(qkv, mask, n_heads: int, scale: float):
-    """Forward kernel on a CUDA tensor: qkv [B, T, 3HD] -> out [B, T, HD]."""
+    """Forward kernel on a CUDA tensor: qkv [B, T, 3HD] -> out [B, T, HD].
+
+    The kernel is ``forward_variant(T, dtype)``: bf16 runs the tensor-core
+    kernel, fp32 the CUDA-core kernel (a routing rule by dtype; TF32 would not
+    hold fp32's tolerance). The chosen kernel runs or this raises."""
     _check_cuda_inputs(qkv, n_heads, mask)
+    variant = forward_variant(qkv.shape[1], qkv.dtype)
     qkv = _aligned(qkv)
     mask = prep_mask(mask)
     B, T, threeHD = qkv.shape
     out = torch.empty((B, T, threeHD // 3), dtype=qkv.dtype, device=qkv.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream)
-    rc = _lib().rlcf_mha_fwd(_ptr(qkv), _ptr(mask), _ptr(out), B, T, n_heads, float(scale),
-                             _DTYPE_CODE[qkv.dtype], stream)
-    _raise_on(rc, "forward")
+    args = (_ptr(qkv), _ptr(mask), _ptr(out), B, T, n_heads, float(scale))
+    if variant == "cuda_core":
+        rc = _lib().rlcf_mha_fwd(*args, _DTYPE_CODE[qkv.dtype], stream)
+    elif variant == "mma_short":
+        rc = _mma_lib().rlcf_mha_fwd_mma_short(*args, stream)
+    else:
+        rc = _mma_lib().rlcf_mha_fwd_mma_long(*args, stream)
+    _raise_on(rc, f"forward ({variant})")
     LAUNCHES["fwd"] += 1
     LAUNCH_SHAPES[("fwd", B, T, n_heads, str(qkv.dtype))] += 1
+    LAUNCH_VARIANTS[variant] += 1
     return out
 
 

@@ -47,6 +47,79 @@ def test_kernel_matches_plain(dev, dtype, B, T, H, masked):
                                **_tol(dtype, bwd=True))
 
 
+SWEEP_T = [1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 77, 128, 196, 197, 256, 257]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("H", [8, 12, 16])
+@pytest.mark.parametrize("T", SWEEP_T)
+def test_bf16_forward_sweep(dev, T, H, masked):
+    """The tensor-core forward over the edges of both regimes."""
+    g = torch.Generator(device=dev).manual_seed(T * 100 + H)
+    qkv = torch.randn(3, T, 3 * H * 64, device=dev, generator=g).to(torch.bfloat16)
+    mask = causal_mask(T, dev) if masked else None
+    want = A.fused_attention_reference(qkv, mask, H, 0.125).float()
+    A.reset_launch_counts()
+    got = A.launch_fwd(qkv, mask, H, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"mma_short" if T <= 16 else "mma_long": 1}
+    torch.testing.assert_close(got.float(), want, **_tol(torch.bfloat16))
+
+
+def test_bf16_forward_general_mask(dev):
+    """An additive mask that is not causal, with one key masked out for every query."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(2, 197, 3 * 12 * 64, device=dev, generator=g).to(torch.bfloat16)
+    mask = torch.randn(197, 197, device=dev, generator=g)
+    mask[:, 3] = float("-inf")
+    got = A.launch_fwd(qkv, mask, 12, 0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), A.fused_attention_reference(qkv, mask, 12, 0.125).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,T,H,masked", [(7, 16, 8, True), (3, 197, 12, False), (2, 257, 16, True)])
+def test_bf16_forward_is_bit_identical_between_launches(dev, B, T, H, masked):
+    qkv = torch.randn(B, T, 3 * H * 64, device=dev).to(torch.bfloat16)
+    mask = causal_mask(T, dev) if masked else None
+    a, b = A.launch_fwd(qkv, mask, H, 0.125), A.launch_fwd(qkv, mask, H, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T", [16, 197])
+def test_fp32_forward_stays_on_the_cuda_core_kernel(dev, T):
+    A.reset_launch_counts()
+    qkv = torch.randn(2, T, 3 * 2 * 64, device=dev)
+    got = A.launch_fwd(qkv, None, 2, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"cuda_core": 1}
+    torch.testing.assert_close(got, A.fused_attention_reference(qkv, None, 2, 0.125), **_tol(torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,masked", [(128, False), (128, True), (256, True)])
+def test_flash_switch_launches_the_kernel(dev, monkeypatch, T, masked, dtype):
+    """ATTN_IMPL="flash" sends the dense branch through the kernel at
+    T % 128 == 0 and equals the dense math; T=384 raises."""
+    from rlcf_torch.models import layers as L
+
+    D, H = 256, 4
+    g = torch.Generator(device=dev).manual_seed(T)
+    x = torch.randn(2, T, D, device=dev, generator=g).to(dtype)
+    w = [(torch.randn(s, device=dev, generator=g) * D ** -0.5).to(dtype) for s in ((D, 3 * D), (3 * D,), (D, D), (D,))]
+    mask = causal_mask(T, dev) if masked else None
+    want = L.multi_head_attention(x, *w, H, mask)
+    monkeypatch.setattr(L, "ATTN_IMPL", "flash")
+    A.reset_launch_counts()
+    got = L.multi_head_attention(x, *w, H, mask)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fwd"] == 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    with pytest.raises(ValueError, match="257"):
+        L.multi_head_attention(torch.zeros(1, 384, D, device=dev, dtype=dtype), *w, H)
+
+
 def test_autograd_function_launches_kernels(dev):
     A.reset_launch_counts()
     x = torch.randn(4, 16, 3 * 8 * 64, device=dev, requires_grad=True)
