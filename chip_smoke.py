@@ -10,10 +10,12 @@ Phases, each fatal:
   3. hold each kernel against its plain PyTorch version at the main path's
      shapes and time kernel, plain version and, where one exists, the PyTorch
      library call with CUDA events: the attention kernels in bf16 and fp32
-     (against scaled_dot_product_attention); the bf16 tensor-core forward over
-     the edges of both its regimes (T from 1 to 257, 8/12/16 heads, masked
-     and not) and for bit-identical repeats; the ATTN_IMPL="flash" switch of
-     models/layers.py at T=128 and 256; the AugMix kernel at a flagship
+     (against scaled_dot_product_attention, forward and backward, the
+     library's own kernels named); the bf16 tensor-core forward and backward
+     over the edges of both their regimes (T from 1 to 257, 8/12/16 heads,
+     masked and not) and for bit-identical repeats; the ATTN_IMPL="flash"
+     switch of models/layers.py at T=128 and 256, with the backward it
+     takes; the AugMix kernel at a flagship
      group (4 images x 64 views, 256 -> 224 px) with augmix on and off, on a
      second seed, and op by op at the identity crop at severities 1 and 2;
   4. drive the flagship RLCF prompt TTA through the port's CLI at full width
@@ -22,8 +24,10 @@ Phases, each fatal:
      with --viewgen fused (every view built on the card), then with --viewgen
      native (views built on the host) at a smaller depth, the launch counters
      set to 0 just before each run and read just after; then time device
-     views, host views and the episode on one group, and hold the
-     fused-attention episode to the dense one in fp32;
+     views, host views and the episode on one group, hold the gradient of one
+     step's loss in the context through the kernel backward to the one through
+     the plain backward (bf16, same forward), and hold the fused-attention
+     episode to the dense one in fp32;
   5. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -55,9 +59,18 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|: fp32 = summation order; bf
 }
 REPLACES = {"fwd": "rlcf_tpu/ops/pallas_attention.py:65", "bwd": "rlcf_tpu/ops/pallas_attention.py:89",
             "augmix": "rlcf_tpu/ops/pallas_augmix.py:284", "flash": "rlcf_tpu/models/layers.py:48"}
-ATTENTION_SOURCE = {"cuda_core": "rlcf_torch/csrc/attention.cu", "mma_short": "rlcf_torch/csrc/attention_mma.cu",
-                    "mma_long": "rlcf_torch/csrc/attention_mma.cu"}
-SWEEP_T = (1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 77, 128, 196, 197, 256, 257)
+ATTENTION_SOURCE = {  # by the key of ops/attention.py::LAUNCH_VARIANTS that a launch counts under
+    "cuda_core": "rlcf_torch/csrc/attention.cu", "mma_short": "rlcf_torch/csrc/attention_mma.cu",
+    "mma_long": "rlcf_torch/csrc/attention_mma.cu", "bwd_cuda_core": "rlcf_torch/csrc/attention.cu",
+    "bwd_mma_short": "rlcf_torch/csrc/attention_bwd_mma.cu", "bwd_mma_long": "rlcf_torch/csrc/attention_bwd_mma.cu"}
+# Relative L2 errors of the full-width bf16 gradient check, kernel against plain backward. What the check can
+# resolve is each launch on its own inputs: there the two differ by the bf16 steps that different fp32 sums leave,
+# and GRAD_LAUNCH_LIMIT holds every launch. Down the 12 layers any such difference flips roundings in every later
+# bf16 operation, and the two gradients end a noise floor apart that hardly depends on its size. The run measures
+# that floor itself (the plain backward against itself with its fp32 result moved by 2^-12 at random before the
+# rounding) and holds the gradients in the prompts and in the context to GRAD_FLOOR_RATIO times it.
+GRAD_LAUNCH_LIMIT, GRAD_FLOOR_RATIO = 1e-3, 2.0
+SWEEP_T = (1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 65, 77, 80, 81, 128, 196, 197, 256, 257)
 SWEEP_H = (8, 12, 16)
 FLASH_SHAPE = (24, 256, 16)   # B, T, H at which the ATTN_IMPL="flash" route is timed
 SRC_SIZE, RES = 256, 224
@@ -73,22 +86,48 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Mean ms per call by CUDA events over ``reps`` calls after warm-up. The
-    card is first held busy for ~2 ms while the host queues the calls, so that
-    a call shorter than the host's enqueue (~0.03 ms through a wrapper) is
-    timed on the device and not on the host."""
+def time_ms(fn, reps=20, warmup=3, rounds=1):
+    """Mean ms per call by CUDA events over ``reps`` calls after warm-up; the
+    median of ``rounds`` such means. In each round the card is first held busy
+    while the host queues the calls, for half again as long as the host took
+    to queue them in a first, untimed round (at least ~2 ms), so that a call
+    shorter than the host's enqueue (~0.03 ms through a wrapper, ~0.5 ms for
+    an autograd call into a library on a slow host) is timed on the device and
+    not on the host."""
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(4_000_000)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    means = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(max(4_000_000, int(1.5 * host_s * 2e9)))   # cycles; the clock stays below 2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / reps)
+    return sorted(means)[rounds // 2]
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs, costliest first
+    (torch.profiler): tells which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = {}
+    for e in kernels:
+        names[e.name] = names.get(e.name, 0.0) + e.device_time
+    return [n for n, _ in sorted(names.items(), key=lambda kv: -kv[1])]
 
 
 def text_seq_len(classnames):
@@ -135,9 +174,10 @@ def check_kernel(direction, B, T, H, dtype, masked, label, kind=None):
     before = dict(A.LAUNCH_VARIANTS)
     got = kernel()
     torch.cuda.synchronize()
-    ran = [v for v, n in A.LAUNCH_VARIANTS.items() if n != before.get(v, 0)]   # the forward variant that ran
-    variant = ran[0] if direction == "fwd" else "cuda_core"
-    max_abs, max_rel = assert_close(got, plain(), dtype, direction, label)
+    (ran,) = [v for v, n in A.LAUNCH_VARIANTS.items() if n != before.get(v, 0)]   # the variant that ran
+    want = plain()
+    max_abs, max_rel = assert_close(got, want, dtype, direction, label)
+    rel_l2 = float((got.float() - want.float()).norm() / want.float().norm())
     atol, rtol = TOL[(dtype, direction)]
 
     # the library yardstick: one scaled_dot_product_attention call (backward:
@@ -154,7 +194,8 @@ def check_kernel(direction, B, T, H, dtype, masked, label, kind=None):
         gh = split(g)
         library = lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True)
     reps = 5 if B * T * T > 5_000_000 else 20
-    ms, plain_ms, library_ms = time_ms(kernel, reps), time_ms(plain, reps), time_ms(library, reps)
+    ms, plain_ms, library_ms = time_ms(kernel, reps, rounds=3), time_ms(plain, reps), time_ms(library, reps, rounds=3)
+    library_kernels = device_kernels(library)
 
     # least time for the same work: each input read once, each output written
     # once; the operations this data needs (score entries the mask keeps)
@@ -169,58 +210,120 @@ def check_kernel(direction, B, T, H, dtype, masked, label, kind=None):
         flops = 10 * B * H * D * kept           # S, dP, dV, dQ, dK
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     name = f"{kind or 'mha_' + direction}[{label}]"
-    log(f"KERNEL {name}: variant={variant} max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+    variant = ran.removeprefix("bwd_")
+    log(f"KERNEL {name}: variant={variant} max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} rel_l2_err={rel_l2:.3e} "
         f"(tolerance {atol} + {rtol:.3g}*|plain|) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
-        f"(bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, ops {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms)")
-    return {"name": name, "route": "cuda", "source": ATTENTION_SOURCE[variant], "variant": variant,
+        f"(bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, ops {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms) "
+        f"library kernels: {' + '.join(n[:48] for n in library_kernels[:3])}")
+    return {"name": name, "route": "cuda", "source": ATTENTION_SOURCE[ran], "variant": variant,
             "replaces": REPLACES[kind or direction], "shape": [direction, B, T, H, str(dtype)],
             "max_abs_err": max_abs,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
-def check_forward_sweep():
-    """Phase 3, correctness only: the bf16 forward against its plain version
-    over the edges of both regimes (small B), and two launches on the same
-    input bit for bit."""
+GENERAL_MASKS = (("key_out", (16, 197)), ("dead_row", (16, 197, 257)), ("block_diagonal", (197, 257)),
+                 ("block_diagonal_dead_row", (197, 257)), ("dead_tail", (197, 257)))
+
+
+def general_mask(kind, T, dev, gen):
+    """An additive [T, T] mask that is not causal: random, with -inf on one key
+    for every query (``key_out``), on two whole query rows, one of them the
+    last (``dead_row``: their softmax is uniform), on every 64 x 64 tile off
+    the diagonal (``block_diagonal``: a row's live keys lie in one tile), on
+    both, or on the keys behind the last whole 64 (``dead_tail``)."""
+    mask = torch.randn(T, T, device=dev, generator=gen)
+    block = torch.arange(T, device=dev) // 64
+    if kind == "key_out":
+        mask[:, 3] = float("-inf")
+    if kind.startswith("block_diagonal"):
+        mask[block[:, None] != block[None, :]] = float("-inf")
+    if kind.endswith("dead_row"):
+        mask[[T // 3, T - 1]] = float("-inf")
+    if kind == "dead_tail":
+        mask[:, T // 64 * 64:] = float("-inf")
+    return mask
+
+
+def rounded_operand_bwd(qkv, g, mask, H, scale, split):
+    """The plain backward with P and dS rounded to bf16 where a tensor core
+    takes them as operands (fp32 products of the rounded values): once, or
+    ``split`` into a bf16 value plus the bf16 value of what that lost."""
+    from rlcf_torch.ops import attention as A
+
+    B, T, W = qkv.shape
+    heads = lambda t: t.float().reshape(B, T, -1, A.HEAD_DIM).transpose(1, 2)
+    (q, k, v), gh = (heads(t) for t in qkv.split(W // 3, dim=-1)), heads(g)
+    s = q @ k.transpose(-1, -2) * scale
+    p = torch.softmax(s if mask is None else s + A.prep_mask(mask), dim=-1)
+    dp = gh @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+
+    def operand(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+
+    dq, dk, dv = operand(ds) @ k * scale, operand(ds).transpose(-1, -2) @ q * scale, operand(p).transpose(-1, -2) @ gh
+    return torch.cat([t.transpose(1, 2).reshape(B, T, W // 3) for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
+
+
+def check_sweep(direction):
+    """Phase 3, correctness only: the bf16 forward or backward against its
+    plain version over the edges of both regimes (small B), and two launches
+    on the same input bit for bit. For the backward also the worst error as a
+    share of the tolerance, per regime, of the kernel and of the two operand
+    precisions it could have (``rounded_operand_bwd``)."""
     from rlcf_torch.models.layers import causal_mask
     from rlcf_torch.ops import attention as A
 
     dev, dtype, scale = torch.device("cuda"), torch.bfloat16, 1.0 / math.sqrt(64)
-    worst, cases = 0.0, 0
-    for T in SWEEP_T:
-        for H in SWEEP_H:
-            gen = torch.Generator(device=dev).manual_seed(T * 100 + H)
-            qkv = torch.randn(3, T, 3 * H * 64, device=dev, generator=gen).to(dtype)
-            for masked in (False, True):
-                mask = causal_mask(T, dev) if masked else None
-                want = A.fused_attention_reference(qkv, mask, H, scale)
-                got, again = A.launch_fwd(qkv, mask, H, scale), A.launch_fwd(qkv, mask, H, scale)
-                torch.cuda.synchronize()
-                label = f"sweep T={T} H={H} masked={masked} variant={A.forward_variant(T, dtype)}"
-                worst = max(worst, assert_close(got, want, dtype, "fwd", label)[0])
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{label}: two launches on the same input differ")
-                cases += 1
-    # a general (not causal) additive mask with a fully masked-out key column
-    T, H = 197, 12
-    gen = torch.Generator(device=dev).manual_seed(5)
-    qkv = torch.randn(2, T, 3 * H * 64, device=dev, generator=gen).to(dtype)
-    mask = torch.randn(T, T, device=dev, generator=gen)
-    mask[:, 3] = float("-inf")
-    worst = max(worst, assert_close(A.launch_fwd(qkv, mask, H, scale), A.fused_attention_reference(qkv, mask, H, scale),
-                                    dtype, "fwd", "sweep general mask")[0])
-    log(f"SWEEP mha_fwd bf16: {cases + 1} cases (T in {list(SWEEP_T)}, H in {list(SWEEP_H)}, masked and not, "
-        f"one general mask) within tolerance, worst max_abs_err "
-        f"{worst:.3e}; repeats bit-identical")
+    atol, rtol = TOL[(dtype, direction)]
+    shares = {}   # (what, variant) -> worst |x - plain| / (atol + rtol * |plain|)
+
+    def case(T, H, mask, seed, label):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        qkv = torch.randn(3, T, 3 * H * 64, device=dev, generator=gen).to(dtype)
+        g = torch.randn(3, T, H * 64, device=dev, generator=gen).to(dtype)
+        if isinstance(mask, str):
+            mask = general_mask(mask, T, dev, gen)
+        if direction == "fwd":
+            want = A.fused_attention_reference(qkv, mask, H, scale)
+            got, again = A.launch_fwd(qkv, mask, H, scale), A.launch_fwd(qkv, mask, H, scale)
+            variant, others = A.forward_variant(T, dtype), {}
+        else:
+            want = A.fused_attention_reference_bwd(qkv, g, mask, H, scale)
+            got, again = A.launch_bwd(qkv, g, mask, H, scale), A.launch_bwd(qkv, g, mask, H, scale)
+            variant = A.backward_variant(T, dtype)
+            others = {"one rounding": rounded_operand_bwd(qkv, g, mask, H, scale, split=False),
+                      "hi + lo split": rounded_operand_bwd(qkv, g, mask, H, scale, split=True)}
+        torch.cuda.synchronize()
+        label = f"sweep {direction} {label} variant={variant}"
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two launches on the same input differ")
+        for what, x in {"kernel": got, **others}.items():
+            share = float(((x.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
+            shares[(what, variant)] = max(shares.get((what, variant), 0.0), share)
+        return assert_close(got, want, dtype, direction, label)[0]
+
+    errs = [case(T, H, causal_mask(T, dev) if masked else None, T * 100 + H, f"T={T} H={H} masked={masked}")
+            for T in SWEEP_T for H in SWEEP_H for masked in (False, True)]
+    errs += [case(T, 12, kind, 5, f"T={T} H=12 general mask {kind}")
+             for kind, lengths in GENERAL_MASKS for T in lengths]
+    log(f"SWEEP mha_{direction} bf16: {len(errs)} cases (T in {list(SWEEP_T)}, H in {list(SWEEP_H)}, masked and not, "
+        f"general masks {dict(GENERAL_MASKS)}) within tolerance, worst max_abs_err {max(errs):.3e}; "
+        f"repeats bit-identical")
+    if direction == "bwd":
+        log("PRECISION mha_bwd bf16, worst error / tolerance over the sweep: "
+            + "; ".join(f"{what} {variant} {share:.3f}" for (what, variant), share in sorted(shares.items())))
 
 
 def check_flash_switch():
     """Phase 3, ATTN_IMPL="flash": ``layers.multi_head_attention`` at T=128
     and 256, masked and not, bf16 and fp32, against its dense branch, the
     launch counter showing that the kernel ran; T=384 raises; the switch is
-    set back. Returns the kernels-line entries of the timed shape."""
+    set back. Returns the kernels-line entries of the timed shape, forward
+    and the backward that the switch's autograd function takes."""
     from rlcf_torch.models import layers as L
     from rlcf_torch.ops import attention as A
 
@@ -255,9 +358,12 @@ def check_flash_switch():
     finally:
         L.ATTN_IMPL = "dense"
     B, T, H = FLASH_SHAPE
-    return [check_kernel("fwd", B, T, H, torch.bfloat16, masked,
-                         f"B={B} T={T} H={H} bf16 {'causal' if masked else 'unmasked'}", kind="flash")
-            for masked in (True, False)]
+    entries = [check_kernel("fwd", B, T, H, torch.bfloat16, masked,
+                            f"B={B} T={T} H={H} bf16 {'causal' if masked else 'unmasked'}", kind="flash")
+               for masked in (True, False)]
+    return entries + [check_kernel("bwd", B, T, H, dtype, True, f"backward B={B} T={T} H={H} {tag} causal",
+                                   kind="flash")
+                      for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))]
 
 
 def augmix_ops(params, R, S):
@@ -428,6 +534,73 @@ def profile_episode(ep):
             "profile_idle_share": 1 - busy_ms / wall_ms}
 
 
+def gradient_check(clf, toks):
+    """Phase 4b, bf16 at full width: the gradient of the first episode step's
+    loss through the whole text tower, once with the kernel backward and once
+    with the plain backward on the same forward: in the prompts' embeddings
+    (what the tower hands back) and in the context (their sum over classes
+    and positions, which cancels most of it); a third pass, with the plain
+    backward's result moved within its rounding, measures the noise floor
+    that the two are held to (see GRAD_LAUNCH_LIMIT)."""
+    from rlcf_torch.core import prompt as P
+    from rlcf_torch.core.episode import step_loss
+    from rlcf_torch.models import clip as clip_model
+    from rlcf_torch.ops import attention as A
+
+    img_feats, sel, r_sim = clf.prepare_tokens(*toks)
+    sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, img_feats.shape[-1]))
+    pt = clf.prompt_state
+    ctx = pt.ctx0.detach()[None].expand(GROUP, *pt.ctx0.shape).clone().requires_grad_(True)
+    prompts = P.splice_arrays(ctx, pt.fixed_embed, pt.ctx_map)   # [N, C, T, D], as text_features builds them
+    N, C, T, D = prompts.shape
+    feats = clip_model.encode_text_embeds(clf.clip_params, clf.clip_cfg, prompts.reshape(N * C, T, D),
+                                          pt.eot_idx.repeat(N), attn=clf.attn)
+    text = clip_model.normalize(feats.float()).reshape(N, C, -1)
+    logits = clf._logit_scale() * torch.einsum("nse,nce->nsc", sel_feats, text)
+    loss = step_loss(logits, r_sim, clf.ecfg, clf.reward.score_samples,
+                     clf.reward.params["logit_scale"].exp().float()).sum()
+    launch, per_launch = A.launch_bwd, []
+    plain_bwd = lambda qkv, g, mask, heads, scale: A.fused_attention_reference_bwd(qkv, g.to(qkv.dtype), mask, heads,
+                                                                                   scale)
+
+    def kernel_bwd(*args):   # the kernel's result, held to the plain version on this layer's own inputs
+        got, want = launch(*args), plain_bwd(*args).float()
+        per_launch.append(float((got.float() - want).norm() / want.norm()))
+        return got
+
+    def jittered_bwd(qkv, g, mask, heads, scale):   # another rounding of the same fp32 result: the noise floor
+        out = A.fused_attention_reference_bwd(qkv.float(), g.float(), mask, heads, scale)
+        return (out * (1 + 2**-12 * (2 * torch.rand_like(out) - 1))).to(qkv.dtype)
+
+    grads = {}
+    A.reset_launch_counts()
+    try:
+        for name, bwd in (("kernel", kernel_bwd), ("plain", plain_bwd), ("jittered", jittered_bwd)):
+            A.launch_bwd = bwd
+            grads[name] = torch.autograd.grad(loss, (ctx, prompts), retain_graph=True)
+    finally:
+        A.launch_bwd = launch
+    launched = dict(A.LAUNCH_VARIANTS)
+    rel_l2 = lambda a, b: float((a - b).float().norm() / b.float().norm())
+    (rel_ctx, rel_prompts), (floor_ctx, floor_prompts) = ([rel_l2(x, p) for x, p in zip(grads[name], grads["plain"])]
+                                                          for name in ("kernel", "jittered"))
+    max_abs = float((grads["kernel"][0] - grads["plain"][0]).abs().max())
+    log(f"GRAD bf16 full width through the text tower ([{N * C}, {T}, {D}], {launched}), kernel backward against "
+        f"plain backward: per launch on its own inputs, relative L2 error {min(per_launch):.3e} to "
+        f"{max(per_launch):.3e} (limit {GRAD_LAUNCH_LIMIT}); d loss / d prompts relative L2 error {rel_prompts:.3e} "
+        f"(noise floor {floor_prompts:.3e}, limit {GRAD_FLOOR_RATIO:g} x the floor); d loss / d ctx {list(ctx.shape)} "
+        f"relative L2 error {rel_ctx:.3e} (noise floor {floor_ctx:.3e}, limit {GRAD_FLOOR_RATIO:g} x the floor), "
+        f"max abs diff {max_abs:.3e} of max |grad| {float(grads['plain'][0].abs().max()):.3e}")
+    finite = all(bool(torch.isfinite(x).all()) for x in grads["kernel"])
+    within = (max(per_launch) <= GRAD_LAUNCH_LIMIT and rel_prompts <= GRAD_FLOOR_RATIO * floor_prompts
+              and rel_ctx <= GRAD_FLOOR_RATIO * floor_ctx)
+    if not finite or not launched.get("bwd_mma_short") or not within:
+        raise AssertionError("the gradient through the kernel backward disagrees with the plain backward")
+    return {"grad_launch_rel_l2_max": max(per_launch), "grad_prompts_rel_l2": rel_prompts, "grad_ctx_rel_l2": rel_ctx,
+            "grad_prompts_noise_floor": floor_prompts, "grad_ctx_noise_floor": floor_ctx,
+            "grad_ctx_max_abs_diff": max_abs}
+
+
 def episode_timing_and_reference(out_dir):
     """Phase 4b: on one group, views built on the card (the AugMix kernel,
     sampling and patchify) against the host pipeline; the episode ms/img on
@@ -465,6 +638,7 @@ def episode_timing_and_reference(out_dir):
         ep()
     out["episode_ms_per_img"] = (time.perf_counter() - t0) / 3 / GROUP * 1e3
     out.update(profile_episode(lambda: clf.adapt_tokens(*device_views())[0].float().cpu()))
+    out.update(gradient_check(clf, toks))
     del clf
     torch.cuda.empty_cache()
 
@@ -514,30 +688,34 @@ def main():
 
     # phase 2: one nvcc per source, all started together, beside the host pipeline's g++
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(A.build, force=True), pool.submit(A.build_mma, force=True),
-                  pool.submit(X.build, force=True), pool.submit(native.available)]
+                  pool.submit(A.build_bwd_mma, force=True), pool.submit(X.build, force=True),
+                  pool.submit(native.available)]
         results = [b.result() for b in builds]
-    for name in ("rlcf_attention", "rlcf_attention_mma", "rlcf_augmix"):
+    for name in ("rlcf_attention", "rlcf_attention_mma", "rlcf_attention_bwd_mma", "rlcf_augmix"):
         for line in cuda_build.PTXAS[name].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"PTXAS {name}: " + line.strip())
-    if not results[3]:
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "Performance" in line:
+                log(f"PTXAS {name}: " + line.strip()[:200])
+    if not results[-1]:
         raise RuntimeError("the host view pipeline (native/rlcf_host.cpp) did not build")
-    log(f"BUILD nvcc x3 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
+    log(f"BUILD nvcc x4 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path's shapes (group 4: 256 policy views, 24 selected
-    # reward views, 4 x 200 text prompts), plus a backward at T=257
+    # reward views, 4 x 200 text prompts), plus the backward at the vision
+    # towers' lengths (T=257, and T=197 as training the policy tower would run it)
     t_text = text_seq_len(get_classnames("A"))
     shapes = [("fwd", 256, 197, 12, False, "policy"), ("fwd", 24, 257, 16, False, "reward"),
               ("fwd", 200, t_text, 8, True, "text-setup"), ("fwd", GROUP * 200, t_text, 8, True, "text"),
-              ("bwd", GROUP * 200, t_text, 8, True, "text"), ("bwd", 24, 257, 16, False, "T257")]
+              ("bwd", GROUP * 200, t_text, 8, True, "text"), ("bwd", 24, 257, 16, False, "T257"),
+              ("bwd", 24, 197, 12, False, "T197")]
     entries = []
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
             tag = "bf16" if dtype == torch.bfloat16 else "fp32"
             entries.append(check_kernel(direction, B, T, H, dtype, masked, f"{what} B={B} T={T} H={H} {tag}"))
-    check_forward_sweep()
+    check_sweep("fwd")
+    check_sweep("bwd")
     flash_entries = check_flash_switch()
     entries.append(check_augmix())
     if args.kernels_only:

@@ -1,6 +1,6 @@
 // Fused multi-head attention from the unsplit QKV projection for Hopper
-// (sm_90a) on the CUDA cores: the forward in fp32 and the backward in fp32
-// and bf16. The bf16 forward runs on the tensor cores (attention_mma.cu).
+// (sm_90a) on the CUDA cores, for fp32 inputs: forward and backward. bf16
+// inputs run on the tensor cores (attention_mma.cu, attention_bwd_mma.cu).
 //
 // Replaces the TPU kernels `_mha_fwd_kernel` and `_mha_bwd_kernel` of
 // rlcf_tpu/ops/pallas_attention.py (the custom-VJP `fused_attention`).
@@ -31,13 +31,12 @@
 // reads every qkv element once from device memory and writes every output
 // once; nothing of size [T, T] goes to device memory. The products run on
 // the fp32 CUDA cores, which makes these kernels compute-bound in practice at
-// T=197/257: the fp32 forward stays here because TF32 would not hold its
-// 1e-5 tolerance; tensor-core tiles for the backward are later work.
+// T=197/257: fp32 stays here because TF32 would not hold its tolerances (1e-5
+// forward, 1e-4 backward).
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after the launch, or kBadArgs for shapes it refuses.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,32 +69,6 @@ struct Io<float> {
     reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
   }
   __device__ __forceinline__ static float round(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ __forceinline__ static void chunk(const __nv_bfloat16* p, float* x) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      x[2 * e] = f.x; x[2 * e + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static void load2(const __nv_bfloat16* p, float& a, float& b) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    a = f.x; b = f.y;
-  }
-  __device__ __forceinline__ static void store8(__nv_bfloat16* p, const float* x) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-  __device__ __forceinline__ static float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 };
 
 // shared-memory row stride in elements: 64 + 16 bytes of padding
@@ -368,7 +341,7 @@ bool bad_args(int batch, int t, int heads) {
 
 extern "C" {
 
-// dtype: 0 = float32 only (the bf16 forward is attention_mma.cu's). mask may be null.
+// dtype: 0 = float32 only (bf16 is attention_mma.cu's). mask may be null.
 int rlcf_mha_fwd(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
                  int dtype, void* stream) {
   if (bad_args(batch, t, heads)) return kBadArgs;
@@ -377,13 +350,12 @@ int rlcf_mha_fwd(const void* qkv, const void* mask, void* out, int batch, int t,
   return kBadArgs;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. mask may be null.
+// dtype: 0 = float32 only (bf16 is attention_bwd_mma.cu's). mask may be null.
 int rlcf_mha_bwd(const void* qkv, const void* g, const void* mask, void* dqkv, int batch, int t, int heads,
                  float scale, int dtype, void* stream) {
   if (bad_args(batch, t, heads)) return kBadArgs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd<float>(qkv, g, mask, dqkv, batch, t, heads, scale, s);
-  if (dtype == 1) return launch_bwd<__nv_bfloat16>(qkv, g, mask, dqkv, batch, t, heads, scale, s);
   return kBadArgs;
 }
 

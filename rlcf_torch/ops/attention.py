@@ -1,7 +1,8 @@
 """Fused multi-head attention from the unsplit QKV projection, forward and
-backward: hand-written CUDA kernels for Hopper (``csrc/attention_mma.cu``:
-the bf16 forward on the tensor cores; ``csrc/attention.cu``: the fp32 forward
-and the backward on the CUDA cores) and their plain PyTorch version.
+backward: hand-written CUDA kernels for Hopper (``csrc/attention_mma.cu`` and
+``csrc/attention_bwd_mma.cu``: the bf16 forward and backward on the tensor
+cores; ``csrc/attention.cu``: the fp32 forward and backward on the CUDA
+cores) and their plain PyTorch version.
 
 Replaces the TPU kernels ``_mha_fwd_kernel`` / ``_mha_bwd_kernel`` of
 ``rlcf_tpu/ops/pallas_attention.py`` (``fused_attention``, a custom VJP).
@@ -16,11 +17,12 @@ max-subtracted fp32 softmax, probabilities rounded to the input dtype before
 ``fused_attention`` is a ``torch.autograd.Function``: a CUDA tensor runs the
 CUDA kernels (or raises), a CPU tensor runs the plain version. ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the kernel.
-Which forward kernel a CUDA tensor runs is a rule of ``(T, dtype)``
-(``forward_variant``), not a fallback: bf16 goes to the tensor-core kernel
-(one warp per head on ``mma.sync`` for ``T <= 16``, one warpgroup per 64
-query rows on ``wgmma`` above), fp32 to the CUDA-core kernel, because TF32
-would not hold fp32's 1e-5 tolerance.
+Which kernel a CUDA tensor runs is a rule of ``(T, dtype)`` in both
+directions (``forward_variant``, ``backward_variant``), not a fallback: bf16
+goes to the tensor-core kernels (one warp per head on ``mma.sync`` for
+``T <= 16``, warpgroups per 64 rows on ``wgmma`` above), fp32 to the
+CUDA-core kernels, because TF32 would not hold fp32's 1e-5 (forward) and 1e-4
+(backward) tolerances.
 
 Each source is built at first use with ``nvcc`` for ``sm_90a`` into the
 package's git-ignored ``_build/`` directory as a plain-C shared library and
@@ -40,10 +42,11 @@ from . import cuda_build
 NEG_BIG = -1e9  # finite stand-in for the causal mask's -inf
 HEAD_DIM = 64   # the kernel's head dimension
 MAX_T = 257     # the kernel's longest sequence (ViT-L/14 at 224 px)
-SHORT_T = 16    # longest sequence of the tensor-core forward's one-warp-per-head regime
+SHORT_T = 16    # longest sequence of the tensor-core kernels' one-warp-per-head regime
 
 # kernel launches by the wrapper, per direction (plain integers), per
-# (direction, B, T, H, dtype), and per forward variant
+# (direction, B, T, H, dtype), and per variant (the forward's under its name,
+# the backward's under "bwd_" + its name)
 LAUNCHES = {"fwd": 0, "bwd": 0}
 LAUNCH_SHAPES = collections.Counter()
 LAUNCH_VARIANTS = collections.Counter()
@@ -111,13 +114,12 @@ def fused_attention_reference_bwd(qkv, g, mask, n_heads: int, scale: float):
 
 _LIB_NAME = "rlcf_attention"
 _MMA_LIB_NAME = "rlcf_attention_mma"
+_BWD_MMA_LIB_NAME = "rlcf_attention_bwd_mma"
+_MMA_HEADER = ("attention_mma.cuh",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def forward_variant(T: int, dtype) -> str:
-    """The forward kernel a CUDA tensor of this sequence length and dtype
-    runs: ``"mma_short"`` / ``"mma_long"`` (bf16, ``csrc/attention_mma.cu``)
-    or ``"cuda_core"`` (fp32, ``csrc/attention.cu``)."""
+def _variant(T: int, dtype) -> str:
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {dtype}")
     if not 1 <= T <= MAX_T:
@@ -125,6 +127,21 @@ def forward_variant(T: int, dtype) -> str:
     if dtype == torch.float32:
         return "cuda_core"
     return "mma_short" if T <= SHORT_T else "mma_long"
+
+
+def forward_variant(T: int, dtype) -> str:
+    """The forward kernel a CUDA tensor of this sequence length and dtype
+    runs: ``"mma_short"`` / ``"mma_long"`` (bf16, ``csrc/attention_mma.cu``)
+    or ``"cuda_core"`` (fp32, ``csrc/attention.cu``)."""
+    return _variant(T, dtype)
+
+
+def backward_variant(T: int, dtype) -> str:
+    """The backward kernel a CUDA tensor of this sequence length and dtype
+    runs: ``"mma_short"`` / ``"mma_long"`` (bf16,
+    ``csrc/attention_bwd_mma.cu``) or ``"cuda_core"`` (fp32,
+    ``csrc/attention.cu``). The same rule as the forward's."""
+    return _variant(T, dtype)
 
 
 def build(force: bool = False) -> str:
@@ -136,7 +153,13 @@ def build(force: bool = False) -> str:
 def build_mma(force: bool = False) -> str:
     """Compile ``csrc/attention_mma.cu`` for sm_90a; returns the library path.
     The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention_mma"]``."""
-    return cuda_build.build("attention_mma.cu", _MMA_LIB_NAME, force=force)
+    return cuda_build.build("attention_mma.cu", _MMA_LIB_NAME, force=force, deps=_MMA_HEADER)
+
+
+def build_bwd_mma(force: bool = False) -> str:
+    """Compile ``csrc/attention_bwd_mma.cu`` for sm_90a; returns the library
+    path. The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention_bwd_mma"]``."""
+    return cuda_build.build("attention_bwd_mma.cu", _BWD_MMA_LIB_NAME, force=force, deps=_MMA_HEADER)
 
 
 @functools.lru_cache()
@@ -157,6 +180,16 @@ def _mma_lib():
     for fn in (lib.rlcf_mha_fwd_mma_short, lib.rlcf_mha_fwd_mma_long):
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
         fn.restype = ci
+    return lib
+
+
+@functools.lru_cache()
+def _bwd_mma_lib():
+    lib = ctypes.CDLL(build_bwd_mma())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rlcf_mha_bwd_mma_short.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
+    lib.rlcf_mha_bwd_mma_long.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
+    lib.rlcf_mha_bwd_mma_short.restype = lib.rlcf_mha_bwd_mma_long.restype = ci
     return lib
 
 
@@ -218,8 +251,13 @@ def launch_fwd(qkv, mask, n_heads: int, scale: float):
 
 
 def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
-    """Backward kernel on CUDA tensors: (qkv, g [B, T, HD]) -> dqkv [B, T, 3HD]."""
+    """Backward kernel on CUDA tensors: (qkv, g [B, T, HD]) -> dqkv [B, T, 3HD].
+
+    The kernel is ``backward_variant(T, dtype)``: bf16 runs the tensor-core
+    kernel, fp32 the CUDA-core kernel (a routing rule by dtype; TF32 would not
+    hold fp32's tolerance). The chosen kernel runs or this raises."""
     _check_cuda_inputs(qkv, n_heads, mask)
+    variant = backward_variant(qkv.shape[1], qkv.dtype)
     qkv = _aligned(qkv)
     g = _aligned(g.to(qkv.dtype))
     if g.shape != (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3):
@@ -228,11 +266,19 @@ def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
     B, T, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     stream = ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream)
-    rc = _lib().rlcf_mha_bwd(_ptr(qkv), _ptr(g), _ptr(mask), _ptr(dqkv), B, T, n_heads, float(scale),
-                             _DTYPE_CODE[qkv.dtype], stream)
-    _raise_on(rc, "backward")
+    args = (_ptr(qkv), _ptr(g), _ptr(mask), _ptr(dqkv), B, T, n_heads, float(scale))
+    if variant == "cuda_core":
+        rc = _lib().rlcf_mha_bwd(*args, _DTYPE_CODE[qkv.dtype], stream)
+    elif variant == "mma_short":
+        rc = _bwd_mma_lib().rlcf_mha_bwd_mma_short(*args, stream)
+    else:
+        # scratch for the kernel's own classification of the mask's 64 x 64 tiles
+        classes = None if mask is None else torch.empty(((T + 63) // 64) ** 2, dtype=torch.uint8, device=qkv.device)
+        rc = _bwd_mma_lib().rlcf_mha_bwd_mma_long(*args[:3], _ptr(classes), *args[3:], stream)
+    _raise_on(rc, f"backward ({variant})")
     LAUNCHES["bwd"] += 1
     LAUNCH_SHAPES[("bwd", B, T, n_heads, str(qkv.dtype))] += 1
+    LAUNCH_VARIANTS["bwd_" + variant] += 1
     return dqkv
 
 

@@ -29,13 +29,15 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA kernels cannot be built")
 
 
-def build(source: str, name: str, extra_flags=(), force: bool = False) -> str:
-    """Compile ``csrc/<source>`` into ``_build/lib<name>.so`` (unless an
-    up-to-date one exists and ``force`` is false); returns the library path."""
+def build(source: str, name: str, extra_flags=(), force: bool = False, deps=()) -> str:
+    """Compile ``csrc/<source>`` into ``_build/lib<name>.so`` (unless one newer
+    than the source and the headers ``deps`` it includes exists and ``force``
+    is false); returns the library path."""
     src = os.path.join(CSRC_DIR, source)
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
     with _LOCKS[name]:
-        if not force and os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        newest = max(os.path.getmtime(os.path.join(CSRC_DIR, f)) for f in (source, *deps))
+        if not force and os.path.exists(lib) and os.path.getmtime(lib) >= newest:
             return lib
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.build.{os.getpid()}"

@@ -47,7 +47,7 @@ def test_kernel_matches_plain(dev, dtype, B, T, H, masked):
                                **_tol(dtype, bwd=True))
 
 
-SWEEP_T = [1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 77, 128, 196, 197, 256, 257]
+SWEEP_T = [1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 65, 77, 80, 81, 128, 196, 197, 256, 257]
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -97,6 +97,103 @@ def test_fp32_forward_stays_on_the_cuda_core_kernel(dev, T):
     torch.testing.assert_close(got, A.fused_attention_reference(qkv, None, 2, 0.125), **_tol(torch.float32))
 
 
+def _bwd_inputs(dev, B, T, H, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(B, T, 3 * H * 64, device=dev, generator=g).to(torch.bfloat16)
+    cot = torch.randn(B, T, H * 64, device=dev, generator=g).to(torch.bfloat16)
+    return qkv, cot, g
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("H", [8, 12, 16])
+@pytest.mark.parametrize("T", SWEEP_T)
+def test_bf16_backward_sweep(dev, T, H, masked):
+    """The tensor-core backward over the edges of both regimes; the counters
+    show which kernel ran; a second launch gives the same bits."""
+    qkv, cot, _ = _bwd_inputs(dev, 3, T, H, T * 100 + H)
+    mask = causal_mask(T, dev) if masked else None
+    want = A.fused_attention_reference_bwd(qkv, cot, mask, H, 0.125).float()
+    A.reset_launch_counts()
+    got = A.launch_bwd(qkv, cot, mask, H, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"bwd_mma_short" if T <= 16 else "bwd_mma_long": 1}
+    assert A.LAUNCHES == {"fwd": 0, "bwd": 1}
+    torch.testing.assert_close(got.float(), want, **_tol(torch.bfloat16, bwd=True))
+    assert torch.equal(got, A.launch_bwd(qkv, cot, mask, H, 0.125))
+
+
+def _general_mask(kind, T, dev, gen):
+    """A random additive mask with -inf on one key for every query
+    (``key_out``), on two whole query rows, one of them the last
+    (``dead_row``), on every 64 x 64 tile off the diagonal
+    (``block_diagonal``), on both, or on the keys behind the last whole 64
+    (``dead_tail``)."""
+    mask = torch.randn(T, T, device=dev, generator=gen)
+    block = torch.arange(T, device=dev) // 64
+    if kind == "key_out":
+        mask[:, 3] = float("-inf")
+    if kind.startswith("block_diagonal"):
+        mask[block[:, None] != block[None, :]] = float("-inf")
+    if kind.endswith("dead_row"):
+        mask[[T // 3, T - 1]] = float("-inf")
+    if kind == "dead_tail":
+        mask[:, T // 64 * 64:] = float("-inf")
+    return mask
+
+
+@pytest.mark.parametrize("T,kind", [(16, "key_out"), (197, "key_out"), (16, "dead_row"), (197, "dead_row"),
+                                    (257, "dead_row"), (197, "block_diagonal"), (257, "block_diagonal"),
+                                    (197, "block_diagonal_dead_row"), (257, "block_diagonal_dead_row"),
+                                    (197, "dead_tail"), (257, "dead_tail")])
+def test_bf16_backward_general_mask(dev, T, kind):
+    """Additive masks that are not causal: what the long kernel's skipping of
+    fully masked 64 x 64 tiles must get right (a fully masked row keeps every
+    tile of its block; a row whose live keys lie in one tile; a dead tail)."""
+    qkv, cot, g = _bwd_inputs(dev, 2, T, 12, 5)
+    mask = _general_mask(kind, T, dev, g)
+    got, again = A.launch_bwd(qkv, cot, mask, 12, 0.125), A.launch_bwd(qkv, cot, mask, 12, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), A.fused_attention_reference_bwd(qkv, cot, mask, 12, 0.125).float(),
+                               **_tol(torch.bfloat16, bwd=True))
+
+
+@pytest.mark.parametrize("B,T,H,masked", [(800, 16, 8, True), (24, 197, 12, False), (24, 257, 16, False),
+                                          (24, 256, 16, True)])
+def test_bf16_backward_at_full_batch(dev, B, T, H, masked):
+    """The shapes the smoke script times: more CTAs than the card holds at once."""
+    qkv, cot, _ = _bwd_inputs(dev, B, T, H, B + T)
+    mask = causal_mask(T, dev) if masked else None
+    got, again = A.launch_bwd(qkv, cot, mask, H, 0.125), A.launch_bwd(qkv, cot, mask, H, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), A.fused_attention_reference_bwd(qkv, cot, mask, H, 0.125).float(),
+                               **_tol(torch.bfloat16, bwd=True))
+
+
+@pytest.mark.parametrize("T", [16, 197])
+def test_fp32_backward_stays_on_the_cuda_core_kernel(dev, T):
+    A.reset_launch_counts()
+    qkv = torch.randn(2, T, 3 * 2 * 64, device=dev)
+    cot = torch.randn(2, T, 2 * 64, device=dev)
+    got = A.launch_bwd(qkv, cot, None, 2, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"bwd_cuda_core": 1}
+    torch.testing.assert_close(got, A.fused_attention_reference_bwd(qkv, cot, None, 2, 0.125),
+                               **_tol(torch.float32, bwd=True))
+
+
+@pytest.mark.parametrize("T", [16, 50])
+def test_bf16_autograd_runs_both_tensor_core_kernels(dev, T):
+    A.reset_launch_counts()
+    x = torch.randn(4, T, 3 * 8 * 64, device=dev).to(torch.bfloat16).requires_grad_(True)
+    A.fused_attention(x, causal_mask(T, dev), 8, 0.125).float().sum().backward()
+    torch.cuda.synchronize()
+    regime = "mma_short" if T <= 16 else "mma_long"
+    assert dict(A.LAUNCH_VARIANTS) == {regime: 1, "bwd_" + regime: 1}
+    assert x.grad.shape == x.shape and bool(torch.isfinite(x.grad).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,masked", [(128, False), (128, True), (256, True)])
 def test_flash_switch_launches_the_kernel(dev, monkeypatch, T, masked, dtype):
@@ -135,6 +232,10 @@ def test_kernel_refuses_unsupported_shapes(dev):
         A.launch_fwd(torch.randn(1, 258, 3 * 64, device=dev), None, 1, 0.125)  # T > 257
     with pytest.raises(TypeError):
         A.launch_fwd(torch.randn(1, 8, 3 * 64, device=dev).half(), None, 1, 0.125)
+    with pytest.raises(ValueError):
+        A.launch_bwd(torch.randn(1, 258, 3 * 64, device=dev), torch.randn(1, 258, 64, device=dev), None, 1, 0.125)
+    with pytest.raises(ValueError, match="cotangent"):
+        A.launch_bwd(torch.randn(1, 8, 3 * 64, device=dev), torch.randn(1, 8, 32, device=dev), None, 1, 0.125)
 
 
 # ---------------------------------------------------------------------------
