@@ -363,14 +363,33 @@ def augmix_views_reference(images_planar, params, basew, R: int, S: int, V: int,
 
 _LIB_NAME = "rlcf_augmix"
 MAX_SHARED_BYTES = 232448   # an H100 block's dynamic shared memory
-_STRIP_ROWS = 16            # csrc/augmix.cu kStrip
+_STRIP_ROWS = 32            # csrc/augmix.cu kStrip
+_TAPS = 6                   # csrc/augmix.cu kTaps
 _THREADS = 512              # csrc/augmix.cu kThreads
 
 
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
 def shared_bytes(R: int, S: int) -> int:
-    """The kernel's dynamic shared memory at (R, S) (``smem_bytes`` in the source)."""
+    """The kernel's dynamic shared memory at (R, S) (``layout`` in the
+    source): two u8 planes of R rows padded to a multiple of 4 bytes (the
+    first also holds the crop's tables, the second its float64 strip of row
+    sums, up to 32 rows), the rotate's two shift tables, the histogram, the byte
+    table and the reduction slots."""
     a16 = lambda b: (b + 15) // 16 * 16
-    return 3 * a16(R * R) + 2 * a16(16 * R) + a16(4 * _STRIP_ROWS * S) + 2 * 256 * 4 + 2 * (_THREADS // 32) * 4 + 16
+    plane = R * _round4(R)
+    tables = 2 * a16(8 * R * _TAPS) + 2 * 16 * R + 4 * R
+    strip_rows = max(1, min(_STRIP_ROWS, plane // (8 * _round4(S))))
+    return (a16(max(plane, tables)) + a16(max(plane, 8 * _round4(S) * strip_rows)) + 2 * 16 * R + 256 * 4 + 256
+            + 2 * (_THREADS // 32) * 4 + 16)
+
+
+def keep_bytes(N: int, V: int, R: int) -> int:
+    """The device scratch the kernel keeps the first two chains' u8 results
+    in: ``[N*V*3, 2, R, round4(R)]``."""
+    return N * V * 3 * 2 * R * _round4(R)
 
 
 def build(force: bool = False) -> str:
@@ -386,6 +405,8 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rlcf_augmix_views.argtypes = [vp] * 13 + [ci] * 8 + [vp]
     lib.rlcf_augmix_views.restype = ci
+    lib.rlcf_augmix_shared_bytes.argtypes = [ci, ci]
+    lib.rlcf_augmix_shared_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -396,9 +417,11 @@ def _check_inputs(images, params, basew, R: int, S: int, V: int, shifts):
         raise TypeError(f"the AugMix kernel takes uint8 source images, not {images.dtype}")
     if images.dim() != 4 or tuple(images.shape[1:]) != (3, S, S) or not images.is_contiguous():
         raise ValueError(f"source images must be contiguous [N, 3, {S}, {S}]; got {tuple(images.shape)}")
-    if not (1 <= R and 1 <= S and V >= 1) or shared_bytes(R, S) > MAX_SHARED_BYTES:
-        raise ValueError(f"R={R}, S={S} needs {shared_bytes(R, S)} bytes of shared memory "
-                         f"(at most {MAX_SHARED_BYTES})")
+    if not (1 <= R and 1 <= S <= 0xFFFF and V >= 1):
+        raise ValueError(f"the AugMix kernel takes 1 <= R, 1 <= S <= 65535, V >= 1; got R={R}, S={S}, V={V}")
+    if shared_bytes(R, S) > MAX_SHARED_BYTES:
+        raise ValueError(f"R={R}, S={S} needs {shared_bytes(R, S)} bytes of shared memory per CTA, above the "
+                         f"limit of {MAX_SHARED_BYTES} bytes a CTA can have on an H100")
     if len(shifts) != 4 or any(int(s) < 0 for s in shifts):
         raise ValueError(f"shifts must be 4 non-negative tap windows; got {shifts}")
     rows = images.shape[0] * V
@@ -425,10 +448,10 @@ def launch_views(images_planar_u8, params, basew, R: int, S: int, V: int, shifts
     N = images_planar_u8.shape[0]
     dev = images_planar_u8.device
     out = torch.empty((N, V, 3, R, R), dtype=torch.uint8, device=dev)
-    mix = torch.empty((N * V * 3, R * R), dtype=torch.float32, device=dev)  # the chains' f32 mix
+    keep = torch.empty(keep_bytes(N, V, R), dtype=torch.uint8, device=dev)  # the first two chains' results
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     rc = _lib().rlcf_augmix_views(
-        _ptr(images_planar_u8), _ptr(basew), *(_ptr(params[k]) for k in PARAM_FIELDS), _ptr(out), _ptr(mix),
+        _ptr(images_planar_u8), _ptr(basew), *(_ptr(params[k]) for k in PARAM_FIELDS), _ptr(out), _ptr(keep),
         N, V, R, S, *(int(s) for s in shifts), stream)
     if rc != 0:
         raise RuntimeError(f"CUDA AugMix kernel failed to launch (error code {rc})")

@@ -249,6 +249,36 @@ def test_fused_views_on_cpu_is_the_plain_version():
     assert torch.equal(ptoks, T.patchify_planar_u8(views, 16)) and torch.equal(rtoks, T.patchify_planar_u8(views, 8))
 
 
+def test_kernel_layout_fits_two_ctas_an_sm_at_the_flagship():
+    """The kernel's design holds two CTAs an SM at R=224, S=256 (two u8
+    planes and tables, ~109 KB each); one CTA at most 227 KB."""
+    sm_bytes, per_cta = 233472, 1024   # an H100 SM's shared memory; what each resident CTA also takes
+    assert T.shared_bytes(224, 256) == 108944
+    assert sm_bytes // (T.shared_bytes(224, 256) + per_cta) == 2
+    assert T.shared_bytes(223, 255) <= T.shared_bytes(224, 256)   # rows padded to 4 bytes, not more
+    assert T.shared_bytes(480, 512) > T.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("R,S", [(224, 256), (223, 255), (64, 64), (32, 48), (8, 256)])
+def test_kernel_layout_holds_planes_tables_and_strip(R, S):
+    """Shared memory holds two padded u8 planes, and the first holds the
+    crop's tables and the second its float64 strip of at least one row, at
+    every shape (a small R with a large S needs more than two planes)."""
+    r4 = -(-R // 4) * 4
+    tables = 2 * 8 * R * T._TAPS + 2 * 16 * R + 4 * R
+    rest = 2 * 16 * R + 256 * 4 + 256 + 2 * (T._THREADS // 32) * 4 + 16
+    planes = T.shared_bytes(R, S) - rest
+    assert planes >= 2 * R * r4 and planes >= max(R * r4, tables) + 8 * (-(-S // 4) * 4)
+
+
+def test_keep_buffer_is_two_u8_planes_per_view():
+    """The device scratch: the first two chains' u8 results, half the f32 mix
+    buffer of the first design (154 MB at a flagship group)."""
+    assert T.keep_bytes(4, 64, 224) == 4 * 64 * 3 * 2 * 224 * 224
+    assert T.keep_bytes(4, 64, 224) * 2 == 4 * 64 * 3 * 224 * 224 * 4
+    assert T.keep_bytes(1, 1, 223) == 3 * 2 * 223 * 224
+
+
 def test_augmix_views_dispatch_and_checks():
     """A CPU tensor takes the plain version (no launch is counted); the
     kernel's wrapper refuses a CPU tensor."""

@@ -307,6 +307,81 @@ def test_augmix_kernel_refuses_bad_inputs(dev):
         X.launch_views(imgs, dict(params, ops=params["ops"][:, :8].contiguous()), basew, R, S, V, shifts)
 
 
+def _rotate_everywhere(dev, n, v, size, severity):
+    """Every augmented view at depth 3 on all chains, every step a rotate, at
+    the identity crop (source = view size): the slowest CTA there is."""
+    r = X.draw_view_randoms(torch.Generator(device=dev).manual_seed(3), n, v, device=dev)
+    r["op_idx"][:] = 3
+    r["depths"][:] = 3
+    p = X.derive_view_params(r, src_size=size, resolution=size, severity=severity)
+    p["rrc"][:, 1:] = torch.tensor([0.0, 0.0, size, size], device=dev)
+    p["flip"][:, 1:] = 0
+    return X.flatten_params(p)
+
+
+def _unequal(got, want):
+    return int((got != want).sum())
+
+
+def test_augmix_flagship_group_matches_plain(dev):
+    """A full flagship group (N=4, V=64, S=256, R=224): the count of pixels
+    unequal to the plain version is the count the first design of the
+    kernel gave on these inputs: 0. Two launches give the same bits."""
+    S, R, V = 256, 224, 64
+    imgs = _sources(dev, 4, S, seed=1234)
+    params = X.flatten_params(X.sample_view_params(torch.Generator(device=dev).manual_seed(0), 4, V, S, R,
+                                                   device=dev))
+    basew, shifts = X.bicubic_matrix(S, R, device=dev), X.op_shift_bounds(1.0, R)
+    got, again = (X.launch_views(imgs, params, basew, R, S, V, shifts) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _unequal(got, X.augmix_views_reference(imgs, params, basew, R, S, V, shifts)) == 0
+
+
+@pytest.mark.parametrize("severity", [1.0, 2.0])
+def test_augmix_rotate_at_every_step_matches_plain(dev, severity):
+    """Rotate at all 9 steps of every view (R = S = 64): unequal pixels
+    against the plain version, as the first kernel gave on these inputs: 0."""
+    R, V = 64, 16
+    params = _rotate_everywhere(dev, 2, V, R, severity)
+    imgs = _sources(dev, 2, R, seed=4)
+    basew, shifts = X.bicubic_matrix(R, R, device=dev), X.op_shift_bounds(severity, R)
+    got = X.launch_views(imgs, params, basew, R, R, V, shifts)
+    torch.cuda.synchronize()
+    assert _unequal(got, X.augmix_views_reference(imgs, params, basew, R, R, V, shifts)) == 0
+
+
+@pytest.mark.parametrize("S,R,severity", [(255, 223, 1.0), (48, 32, 2.0), (64, 32, 1.0)])
+def test_augmix_odd_and_small_shapes_match_plain(dev, S, R, severity):
+    """A view size that is not a multiple of the kernel's 4-pixel words (rows
+    padded in shared memory, byte-wise stores), an odd source size (byte-wise
+    source loads) and small views: 0 unequal pixels, as the first kernel."""
+    V = 8
+    imgs = _sources(dev, 2, S, seed=S)
+    params = X.flatten_params(X.sample_view_params(torch.Generator(device=dev).manual_seed(7), 2, V, S, R,
+                                                   severity=severity, device=dev))
+    basew, shifts = X.bicubic_matrix(S, R, device=dev), X.op_shift_bounds(severity, R)
+    got, again = (X.launch_views(imgs, params, basew, R, S, V, shifts) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _unequal(got, X.augmix_views_reference(imgs, params, basew, R, S, V, shifts)) == 0
+
+
+@pytest.mark.parametrize("R,S", [(224, 256), (223, 255), (64, 64), (32, 48), (300, 320), (480, 512)])
+def test_augmix_shared_bytes_is_the_sources(dev, R, S):
+    """``shared_bytes`` (the wrapper's check) is the source's own layout."""
+    assert X._lib().rlcf_augmix_shared_bytes(R, S) == X.shared_bytes(R, S)
+
+
+def test_augmix_kernel_refuses_too_large_views(dev):
+    S, R, V = 512, 480, 2
+    params = X.flatten_params(X.sample_view_params(torch.Generator(device=dev).manual_seed(0), 1, V, S, R,
+                                                   device=dev))
+    with pytest.raises(ValueError, match=f"limit of {X.MAX_SHARED_BYTES} bytes"):
+        X.launch_views(_sources(dev, 1, S), params, X.bicubic_matrix(S, R, device=dev), R, S, V,
+                       X.op_shift_bounds(1.0, R))
+
+
 def test_augmix_views_counts_one_launch(dev):
     S, R, V = 64, 32, 4
     imgs = _sources(dev, 2, S)
