@@ -11,23 +11,25 @@ Phases, each fatal:
      shapes and time kernel, plain version and, where one exists, the PyTorch
      library call with CUDA events: the attention kernels in bf16 and fp32
      (against scaled_dot_product_attention, forward and backward, the
-     library's own kernels named); the bf16 tensor-core forward and backward
-     over the edges of both their regimes (T from 1 to 257, 8/12/16 heads,
-     masked and not) and for bit-identical repeats; the ATTN_IMPL="flash"
-     switch of models/layers.py at T=128 and 256, with the backward it
-     takes; the AugMix kernel at a flagship
+     library's own kernels named); the tensor-core forward and backward, bf16
+     and fp32 (split TF32 operands), over the edges of both their regimes (T from 1 to 257,
+     8/12/16 heads, masked and not) and for bit-identical repeats, with the
+     error the operand precisions they could have would give (PRECISION); the
+     ATTN_IMPL="flash" switch of models/layers.py at T=128 and 256, with the
+     backward it takes; the AugMix kernel at a flagship
      group (4 images x 64 views, 256 -> 224 px) with augmix on and off, on a
      second seed, and op by op at the identity crop at severities 1 and 2;
   4. drive the flagship RLCF prompt TTA through the port's CLI at full width
      (ViT-B/16 policy, ViT-L/14 reward, random weights from a seed, ImageNet-A's
      200 class names on synthetic images, 64 views, group 4, 3 steps): first
      with --viewgen fused (every view built on the card), then with --viewgen
-     native (views built on the host) at a smaller depth, the launch counters
-     set to 0 just before each run and read just after; then time device
-     views, host views and the episode on one group, hold the gradient of one
-     step's loss in the context through the kernel backward to the one through
-     the plain backward (bf16, same forward), and hold the fused-attention
-     episode to the dense one in fp32;
+     native (views built on the host) at a smaller depth, then --viewgen fused
+     with --precision fp32 (the split-TF32 kernels) at that depth, the launch
+     counters set to 0 just before each run and read just after; then time
+     device views, host views and the episode on one group (bf16 and fp32),
+     hold the gradient of one step's loss in the context through the kernel
+     backward to the one through the plain backward (bf16, same forward), and
+     hold the fused-attention episode to the dense one in fp32;
   5. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -50,7 +52,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12                                       # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 tensor cores; fp32 CUDA cores
+# dense bf16 tensor cores; fp32 attention products at the 3xTF32 rate: a third of the 494.7 TFLOP/s of TF32
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
+CUDA_CORE_FP32_FLOPS = 67e12   # fp32 outside the tensor cores: the AugMix kernel, and the fp32 attention bound before 3xTF32
 POLICY, REWARD = "ViT-B/16", "ViT-L/14"
 GROUP, VIEWS, STEPS = 4, 64, 3
 TOL = {  # |kernel - plain| <= atol + rtol * |plain|: fp32 = summation order; bf16 = one output rounding
@@ -60,9 +64,11 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|: fp32 = summation order; bf
 REPLACES = {"fwd": "rlcf_tpu/ops/pallas_attention.py:65", "bwd": "rlcf_tpu/ops/pallas_attention.py:89",
             "augmix": "rlcf_tpu/ops/pallas_augmix.py:284", "flash": "rlcf_tpu/models/layers.py:48"}
 ATTENTION_SOURCE = {  # by the key of ops/attention.py::LAUNCH_VARIANTS that a launch counts under
-    "cuda_core": "rlcf_torch/csrc/attention.cu", "mma_short": "rlcf_torch/csrc/attention_mma.cu",
-    "mma_long": "rlcf_torch/csrc/attention_mma.cu", "bwd_cuda_core": "rlcf_torch/csrc/attention.cu",
-    "bwd_mma_short": "rlcf_torch/csrc/attention_bwd_mma.cu", "bwd_mma_long": "rlcf_torch/csrc/attention_bwd_mma.cu"}
+    "mma_short": "rlcf_torch/csrc/attention_mma.cu", "mma_long": "rlcf_torch/csrc/attention_mma.cu",
+    "bwd_mma_short": "rlcf_torch/csrc/attention_bwd_mma.cu", "bwd_mma_long": "rlcf_torch/csrc/attention_bwd_mma.cu",
+    "tf32x6_short": "rlcf_torch/csrc/attention_tf32.cu", "tf32x3_long": "rlcf_torch/csrc/attention_tf32.cu",
+    "bwd_tf32x6_short": "rlcf_torch/csrc/attention_bwd_tf32.cu",
+    "bwd_tf32x3_long": "rlcf_torch/csrc/attention_bwd_tf32.cu"}
 # Relative L2 errors of the full-width bf16 gradient check, kernel against plain backward. What the check can
 # resolve is each launch on its own inputs: there the two differ by the bf16 steps that different fp32 sums leave,
 # and GRAD_LAUNCH_LIMIT holds every launch. Down the 12 layers any such difference flips roundings in every later
@@ -74,7 +80,7 @@ SWEEP_T = (1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 65, 77, 80, 81, 128, 196, 19
 SWEEP_H = (8, 12, 16)
 FLASH_SHAPE = (24, 256, 16)   # B, T, H at which the ATTN_IMPL="flash" route is timed
 SRC_SIZE, RES = 256, 224
-FLAGSHIP_IMAGES, NATIVE_IMAGES = 16, 8
+FLAGSHIP_IMAGES, NATIVE_IMAGES, FP32_IMAGES = 16, 8, 8
 # fp32 operations per pixel of one plane, read off csrc/augmix.cu: each op's
 # arithmetic, compares and rounding (rotate: three two-tap passes), the mix
 # per chain and the final blend
@@ -214,10 +220,12 @@ def check_kernel(direction, B, T, H, dtype, masked, label, kind=None):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     name = f"{kind or 'mha_' + direction}[{label}]"
     variant = ran.removeprefix("bwd_")
+    cuda_core = ("" if dtype != torch.float32 else   # the yardstick of the CUDA-core kernels that 3xTF32 replaced
+                 f", bound at 67 TFLOP/s fp32 {max(t_bytes, flops / CUDA_CORE_FP32_FLOPS * 1e3):.4f} ms")
     log(f"KERNEL {name}: variant={variant} max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} rel_l2_err={rel_l2:.3e} "
         f"(tolerance {atol} + {rtol:.3g}*|plain|) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
-        f"(bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, ops {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms) "
+        f"(bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, ops {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms{cuda_core}) "
         f"library kernels: {' + '.join(n[:48] for n in library_kernels[:3])}")
     return {"name": name, "route": "cuda", "source": ATTENTION_SOURCE[ran], "variant": variant,
             "replaces": REPLACES[kind or direction], "shape": [direction, B, T, H, str(dtype)],
@@ -271,16 +279,23 @@ def rounded_operand_bwd(qkv, g, mask, H, scale, split):
     return torch.cat([t.transpose(1, 2).reshape(B, T, W // 3) for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
 
 
-def check_sweep(direction):
-    """Phase 3, correctness only: the bf16 forward or backward against its
-    plain version over the edges of both regimes (small B), and two launches
-    on the same input bit for bit. For the backward also the worst error as a
-    share of the tolerance, per regime, of the kernel and of the two operand
-    precisions it could have (``rounded_operand_bwd``)."""
+# the operand precisions of PRECISION's fp32 lines: one TF32 pass, the long kernels' 3xTF32, the short ones' six products
+TF32_PASSES = (("one TF32 pass", 1), ("3xTF32", 3), ("six products", 6))
+
+
+def check_sweep(direction, dtype):
+    """Phase 3, correctness only: the forward or backward kernel of one dtype
+    against its plain version over the edges of both regimes (small B), and
+    two launches on the same input bit for bit. Then the worst error as a
+    share of the tolerance, per regime, of the kernel and of the operand
+    precisions it could have: bf16 backward, P and dS rounded once or split
+    into hi + lo (``rounded_operand_bwd``); fp32, both directions, one TF32
+    pass, 3xTF32 or six products of a three-way split
+    (``ops/attention.py::tf32_reference``)."""
     from rlcf_torch.models.layers import causal_mask
     from rlcf_torch.ops import attention as A
 
-    dev, dtype, scale = torch.device("cuda"), torch.bfloat16, 1.0 / math.sqrt(64)
+    dev, scale, fp32 = torch.device("cuda"), 1.0 / math.sqrt(64), dtype == torch.float32
     atol, rtol = TOL[(dtype, direction)]
     shares = {}   # (what, variant) -> worst |x - plain| / (atol + rtol * |plain|)
 
@@ -294,14 +309,19 @@ def check_sweep(direction):
             want = A.fused_attention_reference(qkv, mask, H, scale)
             got, again = A.launch_fwd(qkv, mask, H, scale), A.launch_fwd(qkv, mask, H, scale)
             variant, others = A.forward_variant(T, dtype), {}
+            if fp32:
+                others = {name: A.tf32_reference(qkv, mask, H, scale, passes=n) for name, n in TF32_PASSES}
         else:
             want = A.fused_attention_reference_bwd(qkv, g, mask, H, scale)
             got, again = A.launch_bwd(qkv, g, mask, H, scale), A.launch_bwd(qkv, g, mask, H, scale)
             variant = A.backward_variant(T, dtype)
-            others = {"one rounding": rounded_operand_bwd(qkv, g, mask, H, scale, split=False),
-                      "hi + lo split": rounded_operand_bwd(qkv, g, mask, H, scale, split=True)}
+            if fp32:
+                others = {name: A.tf32_reference_bwd(qkv, g, mask, H, scale, passes=n) for name, n in TF32_PASSES}
+            else:
+                others = {"one rounding": rounded_operand_bwd(qkv, g, mask, H, scale, split=False),
+                          "hi + lo split": rounded_operand_bwd(qkv, g, mask, H, scale, split=True)}
         torch.cuda.synchronize()
-        label = f"sweep {direction} {label} variant={variant}"
+        label = f"sweep {direction} {tag} {label} variant={variant}"
         if not torch.equal(got, again):
             raise AssertionError(f"{label}: two launches on the same input differ")
         for what, x in {"kernel": got, **others}.items():
@@ -309,15 +329,16 @@ def check_sweep(direction):
             shares[(what, variant)] = max(shares.get((what, variant), 0.0), share)
         return assert_close(got, want, dtype, direction, label)[0]
 
+    tag = "fp32" if fp32 else "bf16"
     errs = [case(T, H, causal_mask(T, dev) if masked else None, T * 100 + H, f"T={T} H={H} masked={masked}")
             for T in SWEEP_T for H in SWEEP_H for masked in (False, True)]
     errs += [case(T, 12, kind, 5, f"T={T} H=12 general mask {kind}")
              for kind, lengths in GENERAL_MASKS for T in lengths]
-    log(f"SWEEP mha_{direction} bf16: {len(errs)} cases (T in {list(SWEEP_T)}, H in {list(SWEEP_H)}, masked and not, "
-        f"general masks {dict(GENERAL_MASKS)}) within tolerance, worst max_abs_err {max(errs):.3e}; "
+    log(f"SWEEP mha_{direction} {tag}: {len(errs)} cases (T in {list(SWEEP_T)}, H in {list(SWEEP_H)}, masked and "
+        f"not, general masks {dict(GENERAL_MASKS)}) within tolerance, worst max_abs_err {max(errs):.3e}; "
         f"repeats bit-identical")
-    if direction == "bwd":
-        log("PRECISION mha_bwd bf16, worst error / tolerance over the sweep: "
+    if fp32 or direction == "bwd":
+        log(f"PRECISION mha_{direction} {tag}, worst error / tolerance over the sweep: "
             + "; ".join(f"{what} {variant} {share:.3f}" for (what, variant), share in sorted(shares.items())))
 
 
@@ -440,7 +461,7 @@ def check_augmix():
             ms, plain_ms = time_ms(kernel, reps=20), time_ms(plain, reps=2, warmup=1)
             nbytes = GROUP * 3 * SRC_SIZE ** 2 + GROUP * VIEWS * 3 * RES ** 2
             flops = augmix_ops(params, RES, SRC_SIZE)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / CUDA_CORE_FP32_FLOPS * 1e3
             log(f"KERNEL augmix[group N={GROUP} V={VIEWS} S={SRC_SIZE} R={RES}]: max_abs_err={worst} gray "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call computes AugMix views) "
                 f"bound_ms={max(t_bytes, t_ops):.4f} (bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
@@ -507,7 +528,7 @@ def flagship_argv(out_dir, precision="bf16", limit=FLAGSHIP_IMAGES, viewgen="fus
             "--episode_group", str(GROUP), "--seed", "0", "--output", out_dir]
 
 
-def run_flagship(out_dir, viewgen, limit):
+def run_flagship(out_dir, viewgen, limit, precision="bf16"):
     """Phase 4a: one path through the CLI; returns its numbers."""
     from rlcf_torch.cli import tta_cls
     from rlcf_torch.ops import attention as A
@@ -528,7 +549,7 @@ def run_flagship(out_dir, viewgen, limit):
     X.reset_launch_counts()
     try:
         t0 = time.perf_counter()
-        results = tta_cls.main(flagship_argv(out_dir, limit=limit, viewgen=viewgen))
+        results = tta_cls.main(flagship_argv(out_dir, precision=precision, limit=limit, viewgen=viewgen))
         wall = time.perf_counter() - t0
     finally:
         PromptTTAClassifier.adapt_tokens = adapt
@@ -543,18 +564,19 @@ def run_flagship(out_dir, viewgen, limit):
     kernels = ("fwd", "bwd", "augmix") if viewgen == "fused" else ("fwd", "bwd")
     if len(seen) != groups or any(launches[k] == 0 for k in kernels) or \
             (viewgen == "fused" and launches["augmix"] != groups):
-        raise AssertionError(f"--viewgen {viewgen} did not go through the kernels: groups={len(seen)} "
-                             f"launches={launches}")
+        raise AssertionError(f"--viewgen {viewgen} --precision {precision} did not go through the kernels: "
+                             f"groups={len(seen)} launches={launches}")
     secs = results["synthetic"]["group_seconds"]
     timed = secs[1:]  # the first group warms up
-    return {"viewgen": viewgen, "groups": len(secs), "group_seconds": secs,
+    return {"path": viewgen if precision == "bf16" else f"{viewgen} {precision}", "viewgen": viewgen,
+            "precision": precision, "groups": len(secs), "group_seconds": secs,
             "img_per_s": GROUP * len(timed) / sum(timed), "wall_s": wall,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
             "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
             "top1": results["synthetic"]["top1"]}
 
 
-def profile_episode(ep):
+def profile_episode(ep, what="fused group (views + episode)"):
     """Device busy share of one group and its costliest kernels
     (torch.profiler; CUPTI sees the ctypes-launched kernels too)."""
     from torch.profiler import ProfilerActivity, profile
@@ -571,7 +593,7 @@ def profile_episode(ep):
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"PROFILE {t:9.3f} ms {n:5d} launches  {name[:110]}")
-    log(f"PROFILE fused group (views + episode): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+    log(f"PROFILE {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
         f"{len(kernels)} kernels, idle share {1 - busy_ms / wall_ms:.3f}")
     return {"profile_wall_ms": wall_ms, "profile_device_busy_ms": busy_ms, "profile_kernels": len(kernels),
             "profile_idle_share": 1 - busy_ms / wall_ms}
@@ -688,6 +710,13 @@ def episode_timing_and_reference(out_dir):
     clf, _, _ = tta_cls.build(tta_cls.get_args(flagship_argv(out_dir, precision="fp32")))
     clf.setup(names)
     fused_logits, fused_aux = clf.adapt_tokens(*toks)
+    ep = lambda: clf.adapt_tokens(*toks)[0].float().cpu()   # fp32: the 3xTF32 attention kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        ep()
+    out["fp32_episode_ms_per_img"] = (time.perf_counter() - t0) / 2 / GROUP * 1e3
+    out.update({f"fp32_{k}": v for k, v in profile_episode(ep, "fp32 episode (views pre-built)").items()})
     clf.attn = clf.reward_attn = "dense"
     clf.setup(names)
     dense_logits, dense_aux = clf.adapt_tokens(*toks)
@@ -731,18 +760,19 @@ def main():
 
     # phase 2: one nvcc per source, all started together, beside the host pipeline's g++
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
-        builds = [pool.submit(A.build, force=True), pool.submit(A.build_mma, force=True),
-                  pool.submit(A.build_bwd_mma, force=True), pool.submit(X.build, force=True),
-                  pool.submit(native.available)]
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        builds = [pool.submit(A.build_mma, force=True), pool.submit(A.build_bwd_mma, force=True),
+                  pool.submit(A.build_tf32, force=True), pool.submit(A.build_bwd_tf32, force=True),
+                  pool.submit(X.build, force=True), pool.submit(native.available)]
         results = [b.result() for b in builds]
-    for name in ("rlcf_attention", "rlcf_attention_mma", "rlcf_attention_bwd_mma", "rlcf_augmix"):
+    for name in ("rlcf_attention_mma", "rlcf_attention_bwd_mma", "rlcf_attention_tf32", "rlcf_attention_bwd_tf32",
+                 "rlcf_augmix"):
         for line in cuda_build.PTXAS[name].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "Performance" in line:
                 log(f"PTXAS {name}: " + line.strip()[:200])
     if not results[-1]:
         raise RuntimeError("the host view pipeline (native/rlcf_host.cpp) did not build")
-    log(f"BUILD nvcc x4 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
+    log(f"BUILD nvcc x5 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path's shapes (group 4: 256 policy views, 24 selected
     # reward views, 4 x 200 text prompts), plus the backward at the vision
@@ -757,8 +787,9 @@ def main():
         for direction, B, T, H, masked, what in shapes:
             tag = "bf16" if dtype == torch.bfloat16 else "fp32"
             entries.append(check_kernel(direction, B, T, H, dtype, masked, f"{what} B={B} T={T} H={H} {tag}"))
-    check_sweep("fwd")
-    check_sweep("bwd")
+    for dtype in (torch.bfloat16, torch.float32):
+        check_sweep("fwd", dtype)
+        check_sweep("bwd", dtype)
     flash_entries = check_flash_switch()
     entries.append(check_augmix())
     if args.kernels_only:
@@ -766,7 +797,8 @@ def main():
 
     # phase 4: each path with its counters set to 0 just before and read just after
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
-    paths = [run_flagship(out_dir, "fused", FLAGSHIP_IMAGES), run_flagship(out_dir, "native", NATIVE_IMAGES)]
+    paths = [run_flagship(out_dir, "fused", FLAGSHIP_IMAGES), run_flagship(out_dir, "native", NATIVE_IMAGES),
+             run_flagship(out_dir, "fused", FP32_IMAGES, precision="fp32")]
     for flag in paths:
         log("FLAGSHIP " + json.dumps(flag))
     ep = episode_timing_and_reference(out_dir)
@@ -778,7 +810,7 @@ def main():
     launched = {}
     for flag in paths:
         for key, count in flag["launches_by_shape"].items():
-            launched.setdefault(key, {})[flag["viewgen"]] = count
+            launched.setdefault(key, {})[flag["path"]] = count
     missing = sorted(set(launched) - set(checked))
     if missing:
         raise AssertionError(f"main-path kernel shapes without a check: {missing}")

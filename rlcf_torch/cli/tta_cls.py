@@ -48,6 +48,11 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
+# what the port does not run for a policy outside token mode, and where it comes
+NON_TOKEN_WAITS = ("other policies come with the NHWC adapt (ROADMAP A5, rest) and --viewgen device with the "
+                   "torch AugMix pipeline (ROADMAP A16)")
+
+
 def refuse_unported(args):
     """Exit with a message for options this slice of the port does not run."""
     waits = {
@@ -93,7 +98,8 @@ def main(argv=None):
     if args.tpt and args.loss == "rlcf":
         args.loss = "tpt"
     if args.viewgen == "fused" and args.hard_aug:
-        raise SystemExit("--viewgen fused does not implement --hard_aug (BYOL); use --viewgen device")
+        raise SystemExit("--viewgen fused does not implement --hard_aug (BYOL); the port runs --viewgen fused "
+                         "or --viewgen native without it, and --hard_aug comes with ROADMAP A16")
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
@@ -116,12 +122,14 @@ def main(argv=None):
         args.viewgen = "fused" if device.type == "cuda" and token_ok else "native"
         print(f"viewgen: auto -> {args.viewgen}")
     if args.viewgen == "fused" and not token_ok:
-        raise SystemExit("--viewgen fused needs a ViT policy in token mode; use --viewgen device")
+        raise SystemExit("--viewgen fused needs a ViT policy in token mode (its patch size tiling --resolution); "
+                         f"the port runs the token path only (--viewgen fused or native): {NON_TOKEN_WAITS}")
     if args.viewgen == "native":
         if not native.available():
             raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
         if not token_ok:
-            raise SystemExit("the token path needs a ViT policy whose patch size tiles --resolution")
+            raise SystemExit("--viewgen native: the token path needs a ViT policy whose patch size tiles "
+                             f"--resolution; {NON_TOKEN_WAITS}")
     logger = RunLogger(args.output)
     save_hparams(args.output, vars(args))
     # the fused kernel also patchifies for a ViT reward at the view resolution

@@ -2,9 +2,8 @@
 // bf16, on Hopper's tensor cores (sm_90a).
 //
 // Replaces the TPU kernel `_mha_bwd_kernel` of
-// rlcf_tpu/ops/pallas_attention.py:89 for bf16 inputs (fp32 inputs stay on the
-// CUDA-core kernel of attention.cu, whose 1e-4 tolerance TF32 would break),
-// and is the backward of the `ATTN_IMPL = "flash"` switch of
+// rlcf_tpu/ops/pallas_attention.py:89 for bf16 inputs (fp32 inputs run the
+// 3xTF32 kernel of attention_bwd_tf32.cu), and is the backward of the `ATTN_IMPL = "flash"` switch of
 // rlcf_tpu/models/layers.py:48.
 //
 //   (qkv [B, T, 3*H*64], g [B, T, H*64]) bf16 (+ additive mask [T, T] fp32)

@@ -2,9 +2,8 @@
 // on Hopper's tensor cores (sm_90a).
 //
 // Replaces the TPU kernel `_mha_fwd_kernel` of
-// rlcf_tpu/ops/pallas_attention.py:65 for bf16 inputs (fp32 inputs stay on the
-// CUDA-core kernel of attention.cu, whose 1e-5 tolerance TF32 would break),
-// and serves the `ATTN_IMPL = "flash"` switch of rlcf_tpu/models/layers.py:48.
+// rlcf_tpu/ops/pallas_attention.py:65 for bf16 inputs (fp32 inputs run the
+// 3xTF32 kernel of attention_tf32.cu), and serves the `ATTN_IMPL = "flash"` switch of rlcf_tpu/models/layers.py:48.
 //
 //   qkv [B, T, 3*H*64] bf16 (+ additive mask [T, T] fp32) -> out [B, T, H*64]
 //   s = q.k * scale (+ mask) in fp32; p = exp(s - rowmax) / rowsum in fp32,

@@ -1,7 +1,9 @@
 // What the tensor-core attention kernels share (attention_mma.cu, the bf16
-// forward; attention_bwd_mma.cu, the bf16 backward): the swizzled tile of
-// 128-byte head rows in shared memory, cp.async staging out of the unsplit
-// QKV layout, and the ldmatrix / mma.sync / wgmma wrappers (sm_90a).
+// forward; attention_bwd_mma.cu, the bf16 backward; through
+// attention_tf32.cuh the fp32 ones): the swizzled tile of 128-byte head rows
+// in shared memory, cp.async staging out of the unsplit QKV layout, the
+// softmax's quad reductions and exp2, and the ldmatrix / mma.sync / wgmma
+// wrappers (sm_90a).
 
 #pragma once
 

@@ -1,8 +1,8 @@
 """Fused multi-head attention from the unsplit QKV projection, forward and
-backward: hand-written CUDA kernels for Hopper (``csrc/attention_mma.cu`` and
-``csrc/attention_bwd_mma.cu``: the bf16 forward and backward on the tensor
-cores; ``csrc/attention.cu``: the fp32 forward and backward on the CUDA
-cores) and their plain PyTorch version.
+backward: hand-written CUDA kernels for Hopper's tensor cores
+(``csrc/attention_mma.cu`` and ``csrc/attention_bwd_mma.cu``: bf16 forward and
+backward; ``csrc/attention_tf32.cu`` and ``csrc/attention_bwd_tf32.cu``: fp32
+forward and backward on split TF32 operands) and their plain PyTorch version.
 
 Replaces the TPU kernels ``_mha_fwd_kernel`` / ``_mha_bwd_kernel`` of
 ``rlcf_tpu/ops/pallas_attention.py`` (``fused_attention``, a custom VJP).
@@ -18,11 +18,14 @@ max-subtracted fp32 softmax, probabilities rounded to the input dtype before
 CUDA kernels (or raises), a CPU tensor runs the plain version. ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the kernel.
 Which kernel a CUDA tensor runs is a rule of ``(T, dtype)`` in both
-directions (``forward_variant``, ``backward_variant``), not a fallback: bf16
-goes to the tensor-core kernels (one warp per head on ``mma.sync`` for
-``T <= 16``, warpgroups per 64 rows on ``wgmma`` above), fp32 to the
-CUDA-core kernels, because TF32 would not hold fp32's 1e-5 (forward) and 1e-4
-(backward) tolerances.
+directions (``forward_variant``, ``backward_variant``), not a fallback: one
+warp per head on ``mma.sync`` for ``T <= 16`` (``mma_short``,
+``tf32x6_short``), several warps per head above (``mma_long``, ``tf32x3_long``).
+fp32 products run on the tensor cores with split operands: 3xTF32 above
+T = 16 (each operand split into two TF32 values, each product three passes),
+six products of a three-way split up to T = 16 (kernels bound by bytes, which
+take the products to fp32's accuracy). Both hold fp32's 1e-5 (forward) and
+1e-4 (backward) tolerances, where one TF32 pass does not.
 
 Each source is built at first use with ``nvcc`` for ``sm_90a`` into the
 package's git-ignored ``_build/`` directory as a plain-C shared library and
@@ -108,46 +111,92 @@ def fused_attention_reference_bwd(qkv, g, mask, n_heads: int, scale: float):
     return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(qkv.dtype)
 
 
+def rna_tf32(x):
+    """``x`` rounded to the nearest TF32 value (10 mantissa bits), ties away
+    from zero: what ``cvt.rna.tf32.f32`` gives, by integer ops on the fp32
+    bits (add 0x1000, clear the 13 low bits)."""
+    return ((x.float().contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes: int):
+    """``a @ b`` on TF32 operands as the fp32 kernels take them: one TF32
+    pass (``hi . hi``), 3xTF32 (``lo . hi + hi . lo + hi . hi``, lo the TF32
+    value of what rounding to hi lost; the long kernels) or six products of a
+    three-way split (``x = hi + mid + lo``; the short kernels). The products
+    of TF32 values are exact in fp32, the sums fp32, the smallest first."""
+    ah, bh = rna_tf32(a), rna_tf32(b)
+    if passes == 1:
+        return ah @ bh
+    am, bm = rna_tf32(a - ah), rna_tf32(b - bh)
+    if passes == 3:
+        return (am @ bh + ah @ bm) + ah @ bh
+    al, bl = rna_tf32(a - ah - am), rna_tf32(b - bh - bm)
+    return ((((ah @ bl + al @ bh) + am @ bm) + ah @ bm) + am @ bh) + ah @ bh
+
+
+def tf32_reference(qkv, mask, n_heads: int, scale: float, passes: int = 3):
+    """The fp32 forward with every product on TF32 operands
+    (``_tf32_matmul``, ``passes`` 1, 3 or 6): the fp32 kernels' arithmetic in
+    plain PyTorch, for the tests and the smoke script's PRECISION line."""
+    B, T, threeHD = qkv.shape
+    q, k, v = _split_heads(qkv, n_heads)
+    s = _tf32_matmul(q, k.transpose(-1, -2), passes) * scale
+    if mask is not None:
+        s = s + prep_mask(mask)
+    out = _tf32_matmul(torch.softmax(s, dim=-1), v, passes)
+    return out.transpose(1, 2).reshape(B, T, threeHD // 3)
+
+
+def tf32_reference_bwd(qkv, g, mask, n_heads: int, scale: float, passes: int = 3):
+    """The fp32 backward with every product on TF32 operands, as
+    ``tf32_reference``."""
+    B, T, threeHD = qkv.shape
+    q, k, v = _split_heads(qkv, n_heads)
+    g = g.float().reshape(B, T, n_heads, -1).transpose(1, 2)
+    mm = functools.partial(_tf32_matmul, passes=passes)
+    s = mm(q, k.transpose(-1, -2)) * scale
+    p = torch.softmax(s if mask is None else s + prep_mask(mask), dim=-1)
+    dp = mm(g, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    grads = (mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale, mm(p.transpose(-1, -2), g))
+    return torch.cat([t.transpose(1, 2).reshape(B, T, threeHD // 3) for t in grads], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_LIB_NAME = "rlcf_attention"
 _MMA_LIB_NAME = "rlcf_attention_mma"
 _BWD_MMA_LIB_NAME = "rlcf_attention_bwd_mma"
+_TF32_LIB_NAME = "rlcf_attention_tf32"
+_BWD_TF32_LIB_NAME = "rlcf_attention_bwd_tf32"
 _MMA_HEADER = ("attention_mma.cuh",)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TF32_HEADERS = ("attention_mma.cuh", "attention_tf32.cuh")
+# the kernels of each dtype: (T <= SHORT_T, above)
+_VARIANTS = {torch.bfloat16: ("mma_short", "mma_long"), torch.float32: ("tf32x6_short", "tf32x3_long")}
 
 
 def _variant(T: int, dtype) -> str:
-    if dtype not in _DTYPE_CODE:
+    if dtype not in _VARIANTS:
         raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {dtype}")
     if not 1 <= T <= MAX_T:
         raise ValueError(f"fused_attention kernel takes 1 <= T <= {MAX_T}; got T={T}")
-    if dtype == torch.float32:
-        return "cuda_core"
-    return "mma_short" if T <= SHORT_T else "mma_long"
+    return _VARIANTS[dtype][0] if T <= SHORT_T else _VARIANTS[dtype][1]
 
 
 def forward_variant(T: int, dtype) -> str:
     """The forward kernel a CUDA tensor of this sequence length and dtype
     runs: ``"mma_short"`` / ``"mma_long"`` (bf16, ``csrc/attention_mma.cu``)
-    or ``"cuda_core"`` (fp32, ``csrc/attention.cu``)."""
+    or ``"tf32x6_short"`` / ``"tf32x3_long"`` (fp32, ``csrc/attention_tf32.cu``)."""
     return _variant(T, dtype)
 
 
 def backward_variant(T: int, dtype) -> str:
     """The backward kernel a CUDA tensor of this sequence length and dtype
     runs: ``"mma_short"`` / ``"mma_long"`` (bf16,
-    ``csrc/attention_bwd_mma.cu``) or ``"cuda_core"`` (fp32,
-    ``csrc/attention.cu``). The same rule as the forward's."""
+    ``csrc/attention_bwd_mma.cu``) or ``"tf32x6_short"`` / ``"tf32x3_long"``
+    (fp32, ``csrc/attention_bwd_tf32.cu``). The same rule as the forward's."""
     return _variant(T, dtype)
-
-
-def build(force: bool = False) -> str:
-    """Compile ``csrc/attention.cu`` for sm_90a; returns the library path.
-    The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention"]``."""
-    return cuda_build.build("attention.cu", _LIB_NAME, force=force)
 
 
 def build_mma(force: bool = False) -> str:
@@ -162,41 +211,46 @@ def build_bwd_mma(force: bool = False) -> str:
     return cuda_build.build("attention_bwd_mma.cu", _BWD_MMA_LIB_NAME, force=force, deps=_MMA_HEADER)
 
 
-@functools.lru_cache()
-def _lib():
-    lib = ctypes.CDLL(build())
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rlcf_mha_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, vp]
-    lib.rlcf_mha_fwd.restype = ci
-    lib.rlcf_mha_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, vp]
-    lib.rlcf_mha_bwd.restype = ci
-    return lib
+def build_tf32(force: bool = False) -> str:
+    """Compile ``csrc/attention_tf32.cu`` for sm_90a; returns the library
+    path. The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention_tf32"]``."""
+    return cuda_build.build("attention_tf32.cu", _TF32_LIB_NAME, force=force, deps=_TF32_HEADERS)
+
+
+def build_bwd_tf32(force: bool = False) -> str:
+    """Compile ``csrc/attention_bwd_tf32.cu`` for sm_90a; returns the library
+    path. The ptxas report lands in ``cuda_build.PTXAS["rlcf_attention_bwd_tf32"]``."""
+    return cuda_build.build("attention_bwd_tf32.cu", _BWD_TF32_LIB_NAME, force=force, deps=_TF32_HEADERS)
 
 
 @functools.lru_cache()
-def _mma_lib():
-    lib = ctypes.CDLL(build_mma())
+def _fwd_lib(dtype):
+    lib = ctypes.CDLL(build_tf32() if dtype == torch.float32 else build_mma())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.rlcf_mha_fwd_mma_short, lib.rlcf_mha_fwd_mma_long):
+    for variant in _VARIANTS[dtype]:
+        fn = getattr(lib, f"rlcf_mha_fwd_{variant}")
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
         fn.restype = ci
     return lib
 
 
 @functools.lru_cache()
-def _bwd_mma_lib():
-    lib = ctypes.CDLL(build_bwd_mma())
+def _bwd_lib(dtype):
+    lib = ctypes.CDLL(build_bwd_tf32() if dtype == torch.float32 else build_bwd_mma())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rlcf_mha_bwd_mma_short.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
-    lib.rlcf_mha_bwd_mma_long.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
-    lib.rlcf_mha_bwd_mma_short.restype = lib.rlcf_mha_bwd_mma_long.restype = ci
+    for variant in _VARIANTS[dtype]:
+        fn = getattr(lib, f"rlcf_mha_bwd_{variant}")
+        # the bf16 long kernel takes a scratch for its classification of the mask's tiles
+        extra = [vp] if variant == "mma_long" else []
+        fn.argtypes = [vp, vp, vp, *extra, vp, ci, ci, ci, ctypes.c_float, vp]
+        fn.restype = ci
     return lib
 
 
 def _check_cuda_inputs(qkv, n_heads: int, mask):
     if not qkv.is_cuda:
         raise ValueError(f"the CUDA attention kernel needs a CUDA tensor; got one on {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODE:
+    if qkv.dtype not in _VARIANTS:
         raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[-1] != 3 * n_heads * HEAD_DIM:
         raise ValueError(f"fused_attention kernel needs qkv [B, T, 3*H*{HEAD_DIM}]; got {tuple(qkv.shape)} "
@@ -226,9 +280,9 @@ def _ptr(t):
 def launch_fwd(qkv, mask, n_heads: int, scale: float):
     """Forward kernel on a CUDA tensor: qkv [B, T, 3HD] -> out [B, T, HD].
 
-    The kernel is ``forward_variant(T, dtype)``: bf16 runs the tensor-core
-    kernel, fp32 the CUDA-core kernel (a routing rule by dtype; TF32 would not
-    hold fp32's tolerance). The chosen kernel runs or this raises."""
+    The kernel is ``forward_variant(T, dtype)``: bf16 on bf16 operands, fp32
+    on split TF32 operands (three or six tensor-core passes a product), both
+    on the tensor cores. The chosen kernel runs or this raises."""
     _check_cuda_inputs(qkv, n_heads, mask)
     variant = forward_variant(qkv.shape[1], qkv.dtype)
     qkv = _aligned(qkv)
@@ -237,12 +291,7 @@ def launch_fwd(qkv, mask, n_heads: int, scale: float):
     out = torch.empty((B, T, threeHD // 3), dtype=qkv.dtype, device=qkv.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream)
     args = (_ptr(qkv), _ptr(mask), _ptr(out), B, T, n_heads, float(scale))
-    if variant == "cuda_core":
-        rc = _lib().rlcf_mha_fwd(*args, _DTYPE_CODE[qkv.dtype], stream)
-    elif variant == "mma_short":
-        rc = _mma_lib().rlcf_mha_fwd_mma_short(*args, stream)
-    else:
-        rc = _mma_lib().rlcf_mha_fwd_mma_long(*args, stream)
+    rc = getattr(_fwd_lib(qkv.dtype), f"rlcf_mha_fwd_{variant}")(*args, stream)
     _raise_on(rc, f"forward ({variant})")
     LAUNCHES["fwd"] += 1
     LAUNCH_SHAPES[("fwd", B, T, n_heads, str(qkv.dtype))] += 1
@@ -253,9 +302,8 @@ def launch_fwd(qkv, mask, n_heads: int, scale: float):
 def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
     """Backward kernel on CUDA tensors: (qkv, g [B, T, HD]) -> dqkv [B, T, 3HD].
 
-    The kernel is ``backward_variant(T, dtype)``: bf16 runs the tensor-core
-    kernel, fp32 the CUDA-core kernel (a routing rule by dtype; TF32 would not
-    hold fp32's tolerance). The chosen kernel runs or this raises."""
+    The kernel is ``backward_variant(T, dtype)``, on the tensor cores as the
+    forward's. The chosen kernel runs or this raises."""
     _check_cuda_inputs(qkv, n_heads, mask)
     variant = backward_variant(qkv.shape[1], qkv.dtype)
     qkv = _aligned(qkv)
@@ -267,14 +315,13 @@ def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
     dqkv = torch.empty_like(qkv)
     stream = ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream)
     args = (_ptr(qkv), _ptr(g), _ptr(mask), _ptr(dqkv), B, T, n_heads, float(scale))
-    if variant == "cuda_core":
-        rc = _lib().rlcf_mha_bwd(*args, _DTYPE_CODE[qkv.dtype], stream)
-    elif variant == "mma_short":
-        rc = _bwd_mma_lib().rlcf_mha_bwd_mma_short(*args, stream)
-    else:
+    fn = getattr(_bwd_lib(qkv.dtype), f"rlcf_mha_bwd_{variant}")
+    if variant == "mma_long":
         # scratch for the kernel's own classification of the mask's 64 x 64 tiles
         classes = None if mask is None else torch.empty(((T + 63) // 64) ** 2, dtype=torch.uint8, device=qkv.device)
-        rc = _bwd_mma_lib().rlcf_mha_bwd_mma_long(*args[:3], _ptr(classes), *args[3:], stream)
+        rc = fn(*args[:3], _ptr(classes), *args[3:], stream)
+    else:
+        rc = fn(*args, stream)
     _raise_on(rc, f"backward ({variant})")
     LAUNCHES["bwd"] += 1
     LAUNCH_SHAPES[("bwd", B, T, n_heads, str(qkv.dtype))] += 1

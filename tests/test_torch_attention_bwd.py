@@ -25,8 +25,8 @@ from rlcf_torch.ops import cuda_build
 
 @pytest.mark.parametrize("T,dtype,want", [
     (1, torch.bfloat16, "mma_short"), (16, torch.bfloat16, "mma_short"), (17, torch.bfloat16, "mma_long"),
-    (257, torch.bfloat16, "mma_long"), (1, torch.float32, "cuda_core"), (16, torch.float32, "cuda_core"),
-    (17, torch.float32, "cuda_core"), (257, torch.float32, "cuda_core"),
+    (257, torch.bfloat16, "mma_long"), (1, torch.float32, "tf32x6_short"), (16, torch.float32, "tf32x6_short"),
+    (17, torch.float32, "tf32x3_long"), (257, torch.float32, "tf32x3_long"),
 ])
 def test_backward_variant(T, dtype, want):
     assert TA.backward_variant(T, dtype) == want

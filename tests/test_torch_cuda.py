@@ -87,14 +87,33 @@ def test_bf16_forward_is_bit_identical_between_launches(dev, B, T, H, masked):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("T", [16, 197])
-def test_fp32_forward_stays_on_the_cuda_core_kernel(dev, T):
+FP32_SWEEP_T = [1, 16, 17, 64, 197, 257]
+FP32_CASES = ([(T, kind) for T in FP32_SWEEP_T for kind in (None, "causal")]
+              + [(T, kind) for T in FP32_SWEEP_T if T >= 16
+                 for kind in ("key_out", "dead_row", "block_diagonal", "block_diagonal_dead_row", "dead_tail")])
+
+
+def _fp32_inputs(dev, T, H, mask_kind):
+    g = torch.Generator(device=dev).manual_seed(T * 100 + H)
+    qkv = torch.randn(2, T, 3 * H * 64, device=dev, generator=g)
+    cot = torch.randn(2, T, H * 64, device=dev, generator=g)
+    mask = None if mask_kind is None else causal_mask(T, dev) if mask_kind == "causal" else \
+        _general_mask(mask_kind, T, dev, g)
+    return qkv, cot, mask
+
+
+@pytest.mark.parametrize("H", [2, 12])
+@pytest.mark.parametrize("T,mask_kind", FP32_CASES)
+def test_fp32_forward_sweep_on_the_tf32_kernels(dev, T, H, mask_kind):
+    """The split-TF32 forward over both regimes and the general masks: the
+    counters show which kernel ran; fp32's tolerance; repeats bit-identical."""
+    qkv, _, mask = _fp32_inputs(dev, T, H, mask_kind)
     A.reset_launch_counts()
-    qkv = torch.randn(2, T, 3 * 2 * 64, device=dev)
-    got = A.launch_fwd(qkv, None, 2, 0.125)
+    got = A.launch_fwd(qkv, mask, H, 0.125)
     torch.cuda.synchronize()
-    assert dict(A.LAUNCH_VARIANTS) == {"cuda_core": 1}
-    torch.testing.assert_close(got, A.fused_attention_reference(qkv, None, 2, 0.125), **_tol(torch.float32))
+    assert dict(A.LAUNCH_VARIANTS) == {"tf32x6_short" if T <= 16 else "tf32x3_long": 1}
+    torch.testing.assert_close(got, A.fused_attention_reference(qkv, mask, H, 0.125), **_tol(torch.float32))
+    assert torch.equal(got, A.launch_fwd(qkv, mask, H, 0.125))
 
 
 def _bwd_inputs(dev, B, T, H, seed):
@@ -171,16 +190,18 @@ def test_bf16_backward_at_full_batch(dev, B, T, H, masked):
                                **_tol(torch.bfloat16, bwd=True))
 
 
-@pytest.mark.parametrize("T", [16, 197])
-def test_fp32_backward_stays_on_the_cuda_core_kernel(dev, T):
+@pytest.mark.parametrize("H", [2, 12])
+@pytest.mark.parametrize("T,mask_kind", FP32_CASES)
+def test_fp32_backward_sweep_on_the_tf32_kernels(dev, T, H, mask_kind):
+    """The split-TF32 backward as the forward's sweep."""
+    qkv, cot, mask = _fp32_inputs(dev, T, H, mask_kind)
     A.reset_launch_counts()
-    qkv = torch.randn(2, T, 3 * 2 * 64, device=dev)
-    cot = torch.randn(2, T, 2 * 64, device=dev)
-    got = A.launch_bwd(qkv, cot, None, 2, 0.125)
+    got = A.launch_bwd(qkv, cot, mask, H, 0.125)
     torch.cuda.synchronize()
-    assert dict(A.LAUNCH_VARIANTS) == {"bwd_cuda_core": 1}
-    torch.testing.assert_close(got, A.fused_attention_reference_bwd(qkv, cot, None, 2, 0.125),
+    assert dict(A.LAUNCH_VARIANTS) == {"bwd_tf32x6_short" if T <= 16 else "bwd_tf32x3_long": 1}
+    torch.testing.assert_close(got, A.fused_attention_reference_bwd(qkv, cot, mask, H, 0.125),
                                **_tol(torch.float32, bwd=True))
+    assert torch.equal(got, A.launch_bwd(qkv, cot, mask, H, 0.125))
 
 
 @pytest.mark.parametrize("T", [16, 50])

@@ -87,8 +87,8 @@ def test_flash_switch_refusals(monkeypatch):
 @pytest.mark.parametrize("T,dtype,want", [
     (1, torch.bfloat16, "mma_short"), (8, torch.bfloat16, "mma_short"), (16, torch.bfloat16, "mma_short"),
     (17, torch.bfloat16, "mma_long"), (24, torch.bfloat16, "mma_long"), (197, torch.bfloat16, "mma_long"),
-    (257, torch.bfloat16, "mma_long"), (1, torch.float32, "cuda_core"), (16, torch.float32, "cuda_core"),
-    (257, torch.float32, "cuda_core"),
+    (257, torch.bfloat16, "mma_long"), (1, torch.float32, "tf32x6_short"), (16, torch.float32, "tf32x6_short"),
+    (257, torch.float32, "tf32x3_long"),
 ])
 def test_forward_variant(T, dtype, want):
     assert TA.forward_variant(T, dtype) == want

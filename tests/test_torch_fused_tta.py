@@ -125,7 +125,26 @@ def test_cli_fused_runs_on_cpu(tmp_path):
 def test_cli_fused_refusals_match_jax(tmp_path):
     from rlcf_torch.cli import tta_cls
 
-    with pytest.raises(SystemExit, match=r"--viewgen fused does not implement --hard_aug \(BYOL\); use --viewgen device"):
+    with pytest.raises(SystemExit, match=r"--viewgen fused does not implement --hard_aug \(BYOL\)"):
         tta_cls.main(_cli_argv(tmp_path, "--viewgen", "fused", "--hard_aug", "1"))
-    with pytest.raises(SystemExit, match="--viewgen fused needs a ViT policy in token mode; use --viewgen device"):
+    with pytest.raises(SystemExit, match="--viewgen fused needs a ViT policy in token mode"):
         tta_cls.main(_cli_argv(tmp_path, "--viewgen", "fused", "--resolution", "72"))
+
+
+@pytest.mark.parametrize("extra,items", [
+    (("--viewgen", "fused", "--hard_aug", "1"), ("A16",)),
+    (("--viewgen", "fused", "--resolution", "72"), ("A5, rest", "A16")),
+    (("--viewgen", "native", "--resolution", "72"), ("A5, rest", "A16")),
+    (("--viewgen", "auto", "--resolution", "72"), ("A5, rest", "A16")),
+])
+def test_cli_refusals_name_what_the_port_runs(tmp_path, extra, items):
+    """A refusal names the view generators the port runs and the ROADMAP items
+    that bring the rest, never an option the port refuses itself."""
+    from rlcf_torch.cli import tta_cls
+
+    with pytest.raises(SystemExit) as exc:
+        tta_cls.main(_cli_argv(tmp_path, *extra))
+    msg = str(exc.value)
+    assert "--viewgen fused" in msg or "--viewgen native" in msg
+    assert all(f"ROADMAP {item}" in msg for item in items)
+    assert "use --viewgen device" not in msg
