@@ -29,7 +29,16 @@ Phases, each fatal:
      device views, host views and the episode on one group (bf16 and fp32),
      hold the gradient of one step's loss in the context through the kernel
      backward to the one through the plain backward (bf16, same forward), and
-     hold the fused-attention episode to the dense one in fp32;
+     hold the fused-attention episode to the dense one in fp32; then drive
+     encoder TTA through rlcf_torch.cli.tune_cls as scripts/rlcf-tune.sh sets
+     it (the ViT-B/16 visual tower tuned against a ViT-L/14 reward, one image a
+     group, 64 views built by the AugMix kernel, 3 steps at lr 1e-5, momentum
+     EMA, full remat) in bf16 and, at a smaller depth, fp32, counters set to 0
+     just before each and read just after; time its episode on views built
+     beforehand, count the visual weights one bf16 episode changed, hold the
+     gradient of one step's loss in the visual weights through the kernel
+     backward to the plain backward's (GRAD), and the fused-attention
+     episode to the dense one in fp32 (REFERENCE); print the ENCODER line;
   5. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -81,14 +90,16 @@ SWEEP_H = (8, 12, 16)
 FLASH_SHAPE = (24, 256, 16)   # B, T, H at which the ATTN_IMPL="flash" route is timed
 SRC_SIZE, RES = 256, 224
 FLAGSHIP_IMAGES, NATIVE_IMAGES, FP32_IMAGES = 16, 8, 8
+ENCODER_IMAGES, ENCODER_FP32_IMAGES = 8, 2   # encoder TTA runs one image a group
 # fp32 operations per pixel of one plane, read off csrc/augmix.cu: each op's
 # arithmetic, compares and rounding (rotate: three two-tap passes), the mix
 # per chain and the final blend
 AUGMIX_OP_COST = {0: 7, 1: 2, 2: 1, 3: 12, 4: 2, 5: 4, 6: 4, 7: 4, 8: 4}
 AUGMIX_MIX_COST, AUGMIX_FINAL_COST = 2, 4
-# pixels unequal to the plain version in the flagship checks with augmix on,
-# as the first design of the AugMix kernel gave them on these inputs
-AUGMIX_UNEQUAL = {"flagship augmix on": 0, "flagship augmix on, seed 1": 0}
+# pixels unequal to the plain version in the checks with augmix on: the
+# flagship's as the first design of the AugMix kernel gave them on these
+# inputs, and the encoder's group of one image held to the same 0
+AUGMIX_UNEQUAL = {"flagship augmix on": 0, "flagship augmix on, seed 1": 0, "encoder group augmix on": 0}
 
 
 def log(msg):
@@ -124,6 +135,14 @@ def time_ms(fn, reps=20, warmup=3, rounds=1):
     return sorted(means)[rounds // 2]
 
 
+def device_events(prof):
+    """The device's own events of a torch.profiler profile: not the spans of
+    annotations on its timeline (``Optimizer.step#AdamW.step``), which overlap
+    the kernels they cover."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_kernels(fn):
     """Names of the device kernels one call of ``fn`` runs, costliest first
     (torch.profiler): tells which backend a library call took."""
@@ -132,7 +151,7 @@ def device_kernels(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     names = {}
     for e in kernels:
         names[e.name] = names.get(e.name, 0.0) + e.device_time
@@ -422,7 +441,8 @@ def check_augmix():
     multiply-add could still round twice in rare cases): augmix off at most 1
     gray; augmix on at most AUGMIX_UNEQUAL pixels unequal, the count the first
     kernel gave on these inputs; single ops exact at R=224; then the
-    AUGMIX_PHASES line. Returns the kernels-line entry of the flagship shape."""
+    AUGMIX_PHASES line. Returns the kernels-line entries of the flagship's
+    group of 4 images and encoder TTA's group of 1."""
     from rlcf_torch.ops import augmix as X
 
     dev = torch.device("cuda")
@@ -431,9 +451,9 @@ def check_augmix():
     basew = X.bicubic_matrix(SRC_SIZE, RES, device=dev)
     shifts = X.op_shift_bounds(1.0, RES)
 
-    def sample(seed, augmix):
+    def sample(seed, augmix, n):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return X.flatten_params(X.sample_view_params(gen, GROUP, VIEWS, SRC_SIZE, RES, augmix=augmix, device=dev))
+        return X.flatten_params(X.sample_view_params(gen, n, VIEWS, SRC_SIZE, RES, augmix=augmix, device=dev))
 
     def compare(label, got, want, max_unequal=None, max_gray=None):
         d = (got.int() - want.int()).abs()
@@ -443,12 +463,13 @@ def check_augmix():
             raise AssertionError(f"AugMix kernel disagrees with its plain version: {label}")
         return worst
 
-    entry = None
-    for label, seed, augmix in (("flagship augmix on", 0, True), ("flagship augmix off", 0, False),
-                                ("flagship augmix on, seed 1", 1, True)):
-        params = sample(seed, augmix)
-        kernel = lambda: X.launch_views(imgs, params, basew, RES, SRC_SIZE, VIEWS, shifts)
-        plain = lambda: X.augmix_views_reference(imgs, params, basew, RES, SRC_SIZE, VIEWS, shifts)
+    entries = []
+    for label, n, seed, augmix in (("flagship augmix on", GROUP, 0, True), ("flagship augmix off", GROUP, 0, False),
+                                   ("flagship augmix on, seed 1", GROUP, 1, True),
+                                   ("encoder group augmix on", 1, 2, True)):
+        params = sample(seed, augmix, n)
+        kernel = lambda: X.launch_views(imgs[:n], params, basew, RES, SRC_SIZE, VIEWS, shifts)
+        plain = lambda: X.augmix_views_reference(imgs[:n], params, basew, RES, SRC_SIZE, VIEWS, shifts)
         got = kernel()
         torch.cuda.synchronize()
         again = kernel()
@@ -457,20 +478,21 @@ def check_augmix():
             raise AssertionError(f"AugMix kernel: two launches on the same input differ ({label})")
         worst = compare(label, got, plain(), max_unequal=AUGMIX_UNEQUAL[label] if augmix else None,
                         max_gray=None if augmix else 1)
-        if entry is None:
+        if augmix and seed != 1:   # timed: the flagship's group of 4 and the encoder's group of 1
             ms, plain_ms = time_ms(kernel, reps=20), time_ms(plain, reps=2, warmup=1)
-            nbytes = GROUP * 3 * SRC_SIZE ** 2 + GROUP * VIEWS * 3 * RES ** 2
+            nbytes = n * 3 * SRC_SIZE ** 2 + n * VIEWS * 3 * RES ** 2
             flops = augmix_ops(params, RES, SRC_SIZE)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / CUDA_CORE_FP32_FLOPS * 1e3
-            log(f"KERNEL augmix[group N={GROUP} V={VIEWS} S={SRC_SIZE} R={RES}]: max_abs_err={worst} gray "
+            name = f"augmix[group N={n} V={VIEWS} S={SRC_SIZE} R={RES}]"
+            log(f"KERNEL {name}: max_abs_err={worst} gray "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call computes AugMix views) "
                 f"bound_ms={max(t_bytes, t_ops):.4f} (bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
                 f"ops {flops / 1e9:.3f} GFLOP fp32 -> {t_ops:.4f} ms)")
-            entry = {"name": f"augmix[group N={GROUP} V={VIEWS} S={SRC_SIZE} R={RES}]", "route": "cuda",
-                     "source": "rlcf_torch/csrc/augmix.cu", "replaces": REPLACES["augmix"],
-                     "shape": ["augmix", GROUP, VIEWS, SRC_SIZE, RES], "max_abs_err": float(worst), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+            entries.append({"name": name, "route": "cuda", "source": "rlcf_torch/csrc/augmix.cu",
+                            "replaces": REPLACES["augmix"], "shape": ["augmix", n, VIEWS, SRC_SIZE, RES],
+                            "max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                            "library_ms": None})
 
     # one view per op at the identity crop (source = view size), severities 1 and 2
     src = torch.nn.functional.interpolate(imgs[:1].float(), size=(RES, RES), mode="area").round().to(torch.uint8)
@@ -484,7 +506,7 @@ def check_augmix():
         compare(f"single ops at severity {severity:g} R={RES} (36 views, 4 per op)", got,
                 X.augmix_views_reference(src, params, eye, RES, RES, len(ops) + 1, sh), max_unequal=0)
     augmix_phases(imgs, basew, shifts)
-    return entry
+    return entries
 
 
 AUGMIX_OP_NAMES = ("autocontrast", "equalize", "posterize", "rotate", "solarize", "shear_x", "shear_y",
@@ -585,7 +607,7 @@ def profile_episode(ep, what="fused group (views + episode)"):
         t0 = time.perf_counter()
         ep()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -599,31 +621,14 @@ def profile_episode(ep, what="fused group (views + episode)"):
             "profile_idle_share": 1 - busy_ms / wall_ms}
 
 
-def gradient_check(clf, toks):
-    """Phase 4b, bf16 at full width: the gradient of the first episode step's
-    loss through the whole text tower, once with the kernel backward and once
-    with the plain backward on the same forward: in the prompts' embeddings
-    (what the tower hands back) and in the context (their sum over classes
-    and positions, which cancels most of it); a third pass, with the plain
-    backward's result moved within its rounding, measures the noise floor
-    that the two are held to (see GRAD_LAUNCH_LIMIT)."""
-    from rlcf_torch.core import prompt as P
-    from rlcf_torch.core.episode import step_loss
-    from rlcf_torch.models import clip as clip_model
+def grads_through_backwards(loss, wrt):
+    """The gradients of ``loss`` in ``wrt`` three times over one forward: with
+    the kernel backward (each launch also held to the plain backward on its
+    own inputs), with the plain backward, and with the plain backward's fp32
+    result moved within its rounding (the noise floor, see GRAD_LAUNCH_LIMIT).
+    Returns (grads by pass, per-launch relative L2 errors, variants launched)."""
     from rlcf_torch.ops import attention as A
 
-    img_feats, sel, r_sim = clf.prepare_tokens(*toks)
-    sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, img_feats.shape[-1]))
-    pt = clf.prompt_state
-    ctx = pt.ctx0.detach()[None].expand(GROUP, *pt.ctx0.shape).clone().requires_grad_(True)
-    prompts = P.splice_arrays(ctx, pt.fixed_embed, pt.ctx_map)   # [N, C, T, D], as text_features builds them
-    N, C, T, D = prompts.shape
-    feats = clip_model.encode_text_embeds(clf.clip_params, clf.clip_cfg, prompts.reshape(N * C, T, D),
-                                          pt.eot_idx.repeat(N), attn=clf.attn)
-    text = clip_model.normalize(feats.float()).reshape(N, C, -1)
-    logits = clf._logit_scale() * torch.einsum("nse,nce->nsc", sel_feats, text)
-    loss = step_loss(logits, r_sim, clf.ecfg, clf.reward.score_samples,
-                     clf.reward.params["logit_scale"].exp().float()).sum()
     launch, per_launch = A.launch_bwd, []
     plain_bwd = lambda qkv, g, mask, heads, scale: A.fused_attention_reference_bwd(qkv, g.to(qkv.dtype), mask, heads,
                                                                                    scale)
@@ -642,11 +647,41 @@ def gradient_check(clf, toks):
     try:
         for name, bwd in (("kernel", kernel_bwd), ("plain", plain_bwd), ("jittered", jittered_bwd)):
             A.launch_bwd = bwd
-            grads[name] = torch.autograd.grad(loss, (ctx, prompts), retain_graph=True)
+            grads[name] = torch.autograd.grad(loss, wrt, retain_graph=True)
     finally:
         A.launch_bwd = launch
-    launched = dict(A.LAUNCH_VARIANTS)
-    rel_l2 = lambda a, b: float((a - b).float().norm() / b.float().norm())
+    return grads, per_launch, dict(A.LAUNCH_VARIANTS)
+
+
+def rel_l2(a, b):
+    return float((a - b).float().norm() / b.float().norm())
+
+
+def gradient_check(clf, toks):
+    """Phase 4b, bf16 at full width: the gradient of the first episode step's
+    loss through the whole text tower, once with the kernel backward and once
+    with the plain backward on the same forward: in the prompts' embeddings
+    (what the tower hands back) and in the context (their sum over classes
+    and positions, which cancels most of it); a third pass, with the plain
+    backward's result moved within its rounding, measures the noise floor
+    that the two are held to (see GRAD_LAUNCH_LIMIT)."""
+    from rlcf_torch.core import prompt as P
+    from rlcf_torch.core.episode import step_loss
+    from rlcf_torch.models import clip as clip_model
+
+    img_feats, sel, r_sim = clf.prepare_tokens(*toks)
+    sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, img_feats.shape[-1]))
+    pt = clf.prompt_state
+    ctx = pt.ctx0.detach()[None].expand(GROUP, *pt.ctx0.shape).clone().requires_grad_(True)
+    prompts = P.splice_arrays(ctx, pt.fixed_embed, pt.ctx_map)   # [N, C, T, D], as text_features builds them
+    N, C, T, D = prompts.shape
+    feats = clip_model.encode_text_embeds(clf.clip_params, clf.clip_cfg, prompts.reshape(N * C, T, D),
+                                          pt.eot_idx.repeat(N), attn=clf.attn)
+    text = clip_model.normalize(feats.float()).reshape(N, C, -1)
+    logits = clf._logit_scale() * torch.einsum("nse,nce->nsc", sel_feats, text)
+    loss = step_loss(logits, r_sim, clf.ecfg, clf.reward.score_samples,
+                     clf.reward.params["logit_scale"].exp().float()).sum()
+    grads, per_launch, launched = grads_through_backwards(loss, (ctx, prompts))
     (rel_ctx, rel_prompts), (floor_ctx, floor_prompts) = ([rel_l2(x, p) for x, p in zip(grads[name], grads["plain"])]
                                                           for name in ("kernel", "jittered"))
     max_abs = float((grads["kernel"][0] - grads["plain"][0]).abs().max())
@@ -734,6 +769,174 @@ def episode_timing_and_reference(out_dir):
     return out
 
 
+def encoder_argv(out_dir, precision="bf16", limit=ENCODER_IMAGES):
+    """``scripts/rlcf-tune.sh``'s settings: ViT-B/16 policy tuned against a
+    ViT-L/14 reward, 64 views, selection 0.1, sample_k 3, 3 steps at lr 1e-5,
+    momentum EMA re-anchored every 256 images, one image a group, full remat."""
+    return [".", "--test_sets", "synthetic", "--synthetic_classes", "A", "--limit", str(limit),
+            "--arch", POLICY, "--reward_arch", REWARD, "--precision", precision, "--device", "cuda",
+            "--batch_size", str(VIEWS), "--selection_p", "0.1", "--sample_k", "3", "--tta_steps", str(STEPS),
+            "--lr", "1e-5", "--momentum_update", "1", "--update_freq", "256", "--episode_group", "1",
+            "--remat", "full", "--seed", "0", "--output", out_dir]
+
+
+def run_encoder(out_dir, limit, precision="bf16"):
+    """Phase 4c: encoder TTA through ``rlcf_torch.cli.tune_cls``; returns its
+    numbers (the kernels' launches by shape over the whole run, setup's
+    class features included)."""
+    from rlcf_torch.cli import tune_cls
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.ops import augmix as X
+    from rlcf_torch.tasks.classification import EncoderTTAClassifier
+
+    seen = []
+    adapt = EncoderTTAClassifier.adapt
+
+    def recording(self, views, **kw):
+        logits, aux = adapt(self, views, **kw)
+        seen.append((tuple(views.shape), logits.detach(), aux["losses"].detach()))
+        return logits, aux
+
+    EncoderTTAClassifier.adapt = recording
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()                 # counts start at 0 just before the path
+    X.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        results = tune_cls.main(encoder_argv(out_dir, precision=precision, limit=limit))
+        wall = time.perf_counter() - t0
+    finally:
+        EncoderTTAClassifier.adapt = adapt
+    launches = {**A.LAUNCHES, **X.LAUNCHES}     # read just after
+    by_shape = {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}
+    variants = dict(A.LAUNCH_VARIANTS)
+    for shape, logits, losses in seen:
+        if shape != (1, VIEWS, RES, RES, 3) or tuple(logits.shape) != (1, 200) or tuple(losses.shape) != (1, STEPS) \
+                or not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"encoder views {shape}, logits {tuple(logits.shape)}, losses {tuple(losses.shape)}: "
+                                 f"not finite [1, 200] and [1, {STEPS}] from [1, {VIEWS}, {RES}, {RES}, 3] views")
+    long_bwd = "bwd_mma_long" if precision == "bf16" else "bwd_tf32x3_long"
+    if len(seen) != limit or launches["augmix"] != limit or not variants.get(long_bwd):
+        raise AssertionError(f"encoder --precision {precision} did not go through the kernels: images={len(seen)} "
+                             f"launches={launches} variants={variants}")
+    secs = results["synthetic"]["group_seconds"]
+    timed = secs[1:]  # the first image warms up
+    return {"path": "encoder" if precision == "bf16" else f"encoder {precision}", "precision": precision,
+            "images": len(secs), "group_seconds": secs, "img_per_s": len(timed) / sum(timed), "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+            "launch_variants": variants, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
+            "top1": results["synthetic"]["top1"]}
+
+
+def encoder_gradient_check(clf, views):
+    """Phase 4c, bf16 at full width: the gradient of one step's loss in the
+    visual tower's weights (all of them, one vector) through the 12 layers at
+    T=197 on the 6 selected views, the kernel backward against the plain
+    backward on one forward, held to the noise floor as ``gradient_check``."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.core.episode import step_loss, take_rows
+    from rlcf_torch.core.losses import entropy_per_sample, select_confident_entropy
+    from rlcf_torch.tasks.classification import maybe_normalize_u8
+
+    remat, clf.remat = clf.remat, False   # one stored forward whose graph is differentiated three times
+    try:
+        cache = {"views": maybe_normalize_u8(views)}
+        t = Po.tree_map(lambda v: v.detach()[None].clone().requires_grad_(True), clf.trainable0)
+        with torch.no_grad():
+            n_keep = max(1, int(VIEWS * clf.ecfg.selection_p))
+            all_idx = torch.arange(VIEWS, device=views.device)[None]
+            sel = select_confident_entropy(entropy_per_sample(clf.policy_logits(t, cache, all_idx)), n_keep)
+            r_sim = clf.reward_image_sim(take_rows(cache["views"], sel))
+        loss = step_loss(clf.policy_logits(t, cache, sel), r_sim, clf.ecfg, clf.reward.score_samples,
+                         clf.reward.params["logit_scale"].exp().float()).sum()
+        leaves = Po.tree_leaves(t)
+        grads, per_launch, launched = grads_through_backwards(loss, leaves)
+    finally:
+        clf.remat = remat
+    flat = {name: torch.cat([g.float().flatten() for g in gs]) for name, gs in grads.items()}
+    rel, floor = rel_l2(flat["kernel"], flat["plain"]), rel_l2(flat["jittered"], flat["plain"])
+    log(f"GRAD encoder bf16 full width, d loss / d visual weights ({flat['plain'].numel()} of them, {len(leaves)} "
+        f"tensors) through {clf.clip_cfg.vision_layers} layers at B={n_keep} T={clf.clip_cfg.grid_size ** 2 + 1} "
+        f"({launched}), kernel backward against plain backward: per launch on its own inputs, relative L2 error "
+        f"{min(per_launch):.3e} to {max(per_launch):.3e} (limit {GRAD_LAUNCH_LIMIT}); relative L2 error {rel:.3e} "
+        f"(noise floor {floor:.3e}, limit {GRAD_FLOOR_RATIO:g} x the floor)")
+    if not bool(torch.isfinite(flat["kernel"]).all()) or not launched.get("bwd_mma_long") \
+            or max(per_launch) > GRAD_LAUNCH_LIMIT or rel > GRAD_FLOOR_RATIO * floor:
+        raise AssertionError("the encoder gradient through the kernel backward disagrees with the plain backward")
+    return {"grad_launch_rel_l2_max": max(per_launch), "grad_visual_rel_l2": rel, "grad_visual_noise_floor": floor}
+
+
+def encoder_timing_and_reference(out_dir):
+    """Phase 4c: on one image's views built beforehand, the bf16 encoder
+    episode's ms/img and its device busy share (torch.profiler), the share
+    of visual-tower weights one bf16 episode changed, the GRAD check, and
+    the fused-attention episode held to the dense one in fp32 at full width
+    (REFERENCE: selections equal, logits and losses within 1e-3 x max(|logits|, 1)
+    and 1e-3, the flagship REFERENCE's tolerance)."""
+    from rlcf_torch.cli import tune_cls
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.data.class_names import get_classnames
+    from rlcf_torch.data.datasets import SyntheticDataset
+    from rlcf_torch.ops.augmix import fused_views
+
+    names = get_classnames("A")
+    img = SyntheticDataset(n=1, n_classes=200)[0][0]
+    planar = torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).cuda()
+    views = fused_views(planar, torch.Generator(device="cuda").manual_seed(0), n_views=VIEWS, resolution=RES,
+                        src_size=SRC_SIZE).permute(0, 1, 3, 4, 2)
+    clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir)))
+    clf.setup(names)
+    ep = lambda: clf.adapt(views)[0].float().cpu()
+    ep()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ep()
+    out = {"episode_ms_per_img": (time.perf_counter() - t0) / 3 * 1e3}
+    out.update(profile_episode(ep, "encoder episode (views pre-built, bf16)"))
+    by_remat = {}
+    for remat, setting in (("save_attn", "save_attn"), ("none", False), ("full", True)):   # the CLI's --remat
+        clf.remat = setting
+        torch.cuda.reset_peak_memory_stats()
+        ep()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ep()
+        by_remat[remat] = {"episode_ms_per_img": (time.perf_counter() - t0) / 2 * 1e3,
+                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"ENCODER bf16 episode by --remat (views pre-built): {json.dumps(by_remat)}")
+    out["by_remat"] = by_remat
+    anchor = Po.tree_leaves(clf.momentum_state.reset_params)
+    _, aux = clf.adapt(views, return_adapted=True)
+    adapted = [a[0] for a in Po.tree_leaves(aux["adapted"])]
+    changed = sum(int((a != b).sum()) for a, b in zip(adapted, anchor))
+    total = sum(a.numel() for a in anchor)
+    out.update(weights_changed=changed, weights_total=total, weights_changed_share=changed / total)
+    log(f"ENCODER bf16 weights one episode changed (lr 1e-5, 3 AdamW steps, bf16 weights): {changed} of {total}, "
+        f"share {changed / total:.4f}")
+    out.update(encoder_gradient_check(clf, views))
+    del clf, aux, adapted, anchor
+    torch.cuda.empty_cache()
+
+    clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir, precision="fp32")))
+    clf.setup(names)
+    fused_logits, fused_aux = clf.adapt(views)   # the momentum fold moves the EMA only: the next starts alike
+    clf.attn = clf.reward_attn = "dense"
+    clf.setup(names)
+    dense_logits, dense_aux = clf.adapt(views)
+    same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
+    d_logits = float((fused_logits - dense_logits).abs().max())
+    d_losses = float((fused_aux["losses"] - dense_aux["losses"]).abs().max())
+    scale = float(dense_logits.abs().max())
+    log(f"REFERENCE encoder fp32 full width, fused vs dense attention: selections equal={same_sel} "
+        f"max|d logits|={d_logits:.3e} (of max {scale:.3e}) max|d losses|={d_losses:.3e}")
+    if not same_sel or d_logits > 1e-3 * max(scale, 1.0) or d_losses > 1e-3:
+        raise AssertionError("fused-attention encoder episode disagrees with the dense episode in fp32")
+    out.update(fp32_selected_equal=same_sel, fp32_max_abs_logit_diff=d_logits, fp32_max_abs_loss_diff=d_losses)
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -778,10 +981,16 @@ def main():
     # reward views, 4 x 200 text prompts), plus the backward at the vision
     # towers' lengths (T=257, and T=197 as training the policy tower would run it)
     t_text = text_seq_len(get_classnames("A"))
+    # encoder TTA's (one image: 64 views to select from, 6 selected views
+    # through the steps and the reward, view 0 for the prediction)
+    n_sel = int(VIEWS * 0.1)
     shapes = [("fwd", 256, 197, 12, False, "policy"), ("fwd", 24, 257, 16, False, "reward"),
               ("fwd", 200, t_text, 8, True, "text-setup"), ("fwd", GROUP * 200, t_text, 8, True, "text"),
               ("bwd", GROUP * 200, t_text, 8, True, "text"), ("bwd", 24, 257, 16, False, "T257"),
-              ("bwd", 24, 197, 12, False, "T197")]
+              ("bwd", 24, 197, 12, False, "T197"),
+              ("fwd", VIEWS, 197, 12, False, "encoder select"), ("fwd", n_sel, 197, 12, False, "encoder step"),
+              ("fwd", 1, 197, 12, False, "encoder final"), ("fwd", n_sel, 257, 16, False, "encoder reward"),
+              ("bwd", n_sel, 197, 12, False, "encoder step")]
     entries = []
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
@@ -791,7 +1000,7 @@ def main():
         check_sweep("fwd", dtype)
         check_sweep("bwd", dtype)
     flash_entries = check_flash_switch()
-    entries.append(check_augmix())
+    entries += check_augmix()
     if args.kernels_only:
         return 3
 
@@ -803,6 +1012,26 @@ def main():
         log("FLAGSHIP " + json.dumps(flag))
     ep = episode_timing_and_reference(out_dir)
     log("EPISODE " + json.dumps(ep))
+    encoder = [run_encoder(out_dir, ENCODER_IMAGES), run_encoder(out_dir, ENCODER_FP32_IMAGES, precision="fp32")]
+    enc = encoder_timing_and_reference(out_dir)
+    bf16 = encoder[0]
+    log("ENCODER " + json.dumps({
+        "img_per_s": bf16["img_per_s"], "fp32_img_per_s": encoder[1]["img_per_s"],
+        "episode_ms_per_img": enc["episode_ms_per_img"], "device_busy_ms": enc["profile_device_busy_ms"],
+        "idle_share": enc["profile_idle_share"], "kernels_per_episode": enc["profile_kernels"],
+        "peak_mem_gib": bf16["peak_mem_gib"], "fp32_peak_mem_gib": encoder[1]["peak_mem_gib"],
+        "weights_changed_share": enc["weights_changed_share"], "by_remat": enc["by_remat"],
+        "launches_per_image_by_shape": {k: v / bf16["images"] for k, v in bf16["launches_by_shape"].items()},
+        "fp32_launches_per_image_by_shape": {k: v / encoder[1]["images"]
+                                             for k, v in encoder[1]["launches_by_shape"].items()},
+        "launch_note": "per image over the whole run (the class features' text-setup launch once per run); "
+                       "with --remat full each step's backward runs the attention forward again, so the B=6 T=197 "
+                       "forward counts 36 step forwards and 36 recomputed ones an image",
+        **{k: enc[k] for k in ("grad_visual_rel_l2", "grad_visual_noise_floor", "grad_launch_rel_l2_max",
+                               "fp32_selected_equal", "fp32_max_abs_logit_diff", "fp32_max_abs_loss_diff")}}))
+    for e in encoder:
+        log("ENCODER_PATH " + json.dumps(e))
+    paths += encoder
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -819,6 +1048,9 @@ def main():
     for kind in ("mha_fwd", "mha_bwd", "augmix"):
         if not any(e["name"].startswith(kind) for e in line):
             raise AssertionError(f"{kind} was launched no time on the main path")
+    for variant in ("mma_long", "tf32x3_long"):   # the long backward: encoder TTA's
+        if not any(e["name"].startswith("mha_bwd") and e["variant"] == variant and e["launches"] for e in line):
+            raise AssertionError(f"the long backward {variant} was launched no time on a path")
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:

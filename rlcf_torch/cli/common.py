@@ -49,7 +49,7 @@ def add_tta_args(p: argparse.ArgumentParser):
     p.add_argument("--hard_aug", type=int, default=0)
     p.add_argument("--min_entropy_reg", type=int, default=0)
     p.add_argument("--min_entropy_w", type=float, default=0.1)
-    # encoder-TTA flags, accepted so that scripts carry over
+    # encoder-TTA flags (tune_cls), accepted by tta_cls too so that scripts carry over
     p.add_argument("--momentum_update", type=int, default=0)
     p.add_argument("--update_freq", type=int, default=256)
     p.add_argument("--update_w", type=float, default=1.0)

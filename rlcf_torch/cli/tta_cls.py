@@ -48,9 +48,10 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-# what the port does not run for a policy outside token mode, and where it comes
-NON_TOKEN_WAITS = ("other policies come with the NHWC adapt (ROADMAP A5, rest) and --viewgen device with the "
-                   "torch AugMix pipeline (ROADMAP A16)")
+# what runs outside this CLI's token path, and what the port does not run yet
+NON_TOKEN_WAITS = ("NHWC views run through PromptTTAClassifier.adapt (and encoder TTA through "
+                   "rlcf_torch.cli.tune_cls); a policy outside token mode, a ResNet tower, comes with ROADMAP A8, "
+                   "and --viewgen device with the torch AugMix pipeline (ROADMAP A16)")
 
 
 def refuse_unported(args):
@@ -63,8 +64,8 @@ def refuse_unported(args):
         "--multiple_reward_models": (bool(args.multiple_reward_models), "reward ensembles (ROADMAP A8)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
         "--resume": (args.resume, "the progress journal"),
-        "--download": (bool(args.download), "checkpoint download (a later slice of A2)"),
-        "--decode native": (args.decode == "native", "the native decoder binding"),
+        "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),
+        "--decode native": (args.decode == "native", "the native decoder binding (ROADMAP A15)"),
     }
     for flag, (used, item) in waits.items():
         if used:

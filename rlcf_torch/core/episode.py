@@ -1,11 +1,12 @@
-"""Episode pieces: configuration, optimizer and per-step loss (the
-counterpart of ``rlcf_tpu/core/episode.py``).
+"""The TTA episode engine: configuration, optimizer, per-step loss and the
+generic episode (the counterpart of ``rlcf_tpu/core/episode.py``).
 
 The JAX package vmaps one episode over the test stream. Here N episodes
-share one batch axis: the trainable context is one ``[N, n_ctx, D]`` tensor,
-the loss is the SUM of the N per-episode losses (so each episode's slice of
-the gradient is its own loss's gradient), and AdamW, being elementwise,
-then takes exactly N independent ``optax.adamw`` steps. A fresh optimizer per
+share one batch axis: each trainable tensor carries a leading episode axis
+(the prompt context ``[N, n_ctx, D]``, a tower's weights ``[N, ...]``), the
+loss is the SUM of the N per-episode losses (so each episode's slice of the
+gradient is its own loss's gradient), and AdamW, being elementwise, then
+takes exactly N independent ``optax.adamw`` steps. A fresh optimizer per
 group of episodes is the reference's per-sample weight/optimizer reset.
 """
 
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import losses as Lo
+from .policy import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,3 +69,80 @@ def step_loss(logits, reward_sim, ecfg: EpisodeConfig, score_samples: Optional[C
     if ecfg.loss == "atkd":
         return Lo.atkd_loss(logits, teacher)
     raise ValueError(ecfg.loss)
+
+
+def take_rows(x, idx):
+    """Rows ``idx [N, k]`` of ``x [N, B, ...]`` per episode -> ``[N, k, ...]``."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def make_tta_episode(
+    policy_logits: Callable,
+    reward_image_sim: Callable,
+    score_samples: Callable,
+    ecfg: EpisodeConfig,
+    predict_batched: bool = False,
+    teacher_scale=None,
+    return_adapted: bool = False,
+    step0_reuse: Optional[bool] = None,
+):
+    """Build the generic episode function for N episodes at once.
+
+    Args:
+      policy_logits(trainable, cache, idx) -> [N, k, C] logits of the views
+        ``idx [N, k]``; ``trainable`` is a nested dict of per-episode tensors
+        ``[N, ...]`` (None leaves allowed), differentiable; computing on the
+        selected views only keeps encoder-TTA steps to S-view forwards.
+      reward_image_sim(views_selected [N, S, ...]) -> [N, S, C] frozen reward
+        similarities.
+      score_samples(sim, idx) -> processed rewards.
+      predict_batched: if True the final prediction covers every view;
+        otherwise view 0 only (`tpt_cls_rl.py:260-262`).
+
+    Returns ``episode(trainable0, cache, views [N, B, ...]) -> (final_logits
+    [N, 1 or B, C], aux)``; every episode starts from the same ``trainable0``
+    (one episode's tensors, no episode axis) and a fresh AdamW state. ``aux``:
+    ``losses [N, steps]``, ``selected [N, S]`` and, with ``return_adapted``,
+    ``adapted`` (the N adapted tensors, detached).
+
+    Step 0, as in the JAX package: when the selection keeps every view (or
+    ``step0_reuse``) the selection forward is differentiated and its graph
+    serves the first gradient (the masked-cotangent VJP: only the selected
+    rows' logits get a cotangent); otherwise the B-view selection forward
+    runs under ``torch.no_grad()`` (no activations kept) and every step
+    recomputes the forward on the S selected views (3 fwd(S) against 2
+    fwd(B) of masked backward whenever S < 2B/3: encoder TTA).
+    """
+
+    def episode(trainable0, cache, views):
+        N, B = views.shape[:2]
+        n_keep = max(1, int(B * ecfg.selection_p))
+        all_idx = torch.arange(B, device=views.device).expand(N, B)
+        reuse = n_keep >= B if step0_reuse is None else step0_reuse
+        t = tree_map(lambda v: v.detach()[None].expand(N, *v.shape).clone().requires_grad_(True), trainable0)
+        with torch.set_grad_enabled(reuse):
+            logits_all = policy_logits(t, cache, all_idx)
+        sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits_all.detach()), n_keep)  # [N, S]
+        with torch.no_grad():
+            reward_sim = reward_image_sim(take_rows(views, sel))  # [N, S, C], frozen
+        pred_idx = all_idx if predict_batched else all_idx[:, :1]
+        aux = {"selected": sel}
+        losses = []
+        if ecfg.tta_steps > 0:
+            opt = make_optimizer(tree_leaves(t), ecfg)
+            for step in range(ecfg.tta_steps):
+                opt.zero_grad(set_to_none=True)
+                logits = take_rows(logits_all, sel) if reuse and step == 0 else policy_logits(t, cache, sel)
+                loss = step_loss(logits, reward_sim, ecfg, score_samples, teacher_scale)  # [N]
+                loss.sum().backward()
+                opt.step()
+                losses.append(loss.detach())
+        del logits_all
+        with torch.no_grad():
+            final = policy_logits(t, cache, pred_idx)
+        aux["losses"] = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
+        if return_adapted:
+            aux["adapted"] = tree_map(lambda v: v.detach(), t)
+        return final, aux
+
+    return episode

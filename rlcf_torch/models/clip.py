@@ -120,28 +120,32 @@ def init_clip_params(cfg: ClipConfig, seed: int = 0, dtype=torch.float32, device
 # ---------------------------------------------------------------------------
 
 
-def _vit_post_patch(p, cfg: ClipConfig, x, pool=True, attn="dense"):
-    """Shared ViT trunk after patch embedding: x [B, T, W] patch activations."""
-    B, _, W = x.shape
-    cls_tok = p["class_emb"].to(x.dtype).expand(B, 1, W)
-    x = torch.cat([cls_tok, x], dim=1)
-    x = x + p["pos_emb"].to(x.dtype)
+def _vit_post_patch(p, cfg: ClipConfig, x, pool=True, attn="dense", remat=False):
+    """Shared ViT trunk after patch embedding: x [B, T, W] patch activations,
+    or ``[N, B, T, W]`` with per-episode weights (``models/layers.py``)."""
+    *lead, _, W = x.shape
+    cls_tok, pos = p["class_emb"].to(x.dtype), p["pos_emb"].to(x.dtype)
+    if cls_tok.dim() == 2:   # per episode: [N, W] and [N, T, W]
+        cls_tok, pos = cls_tok[:, None, None], pos[:, None]
+    x = torch.cat([cls_tok.expand(*lead, 1, W), x], dim=-2)
+    x = x + pos
     x = L.layer_norm(x, p["ln_pre_w"], p["ln_pre_b"])
-    x = L.transformer(x, p["blocks"], cfg.vision_heads, attn=attn)
-    x = L.layer_norm(x[:, 0, :] if pool else x, p["ln_post_w"], p["ln_post_b"])
+    x = L.transformer(x, p["blocks"], cfg.vision_heads, attn=attn, remat=remat)
+    x = L.layer_norm(x[..., 0, :] if pool else x, p["ln_post_w"], p["ln_post_b"])
     return L.linear(x, p["proj"])
 
 
-def encode_image(params, cfg: ClipConfig, images, pool=True, attn="dense"):
+def encode_image(params, cfg: ClipConfig, images, pool=True, attn="dense", remat=False):
     """NHWC images (normalized) -> [B, embed_dim]; the patch embedding is a
-    strided convolution, as in the reference tower."""
+    strided convolution, as in the reference tower. ``remat``: see
+    ``layers.transformer``."""
     if not cfg.is_vit:
         raise NotImplementedError("ResNet towers are not ported yet")
     p = params["visual"]
     w = p["conv_w"]  # HWIO
     x = F.conv2d(images.to(w.dtype).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=cfg.vision_patch_size)
     B, W, gh, gw = x.shape
-    return _vit_post_patch(p, cfg, x.permute(0, 2, 3, 1).reshape(B, gh * gw, W), pool=pool, attn=attn)
+    return _vit_post_patch(p, cfg, x.permute(0, 2, 3, 1).reshape(B, gh * gw, W), pool=pool, attn=attn, remat=remat)
 
 
 def patch_tokens_from_images(images, patch_size: int):
@@ -162,16 +166,19 @@ def images_from_patch_tokens(tokens, patch_size: int):
     return x.reshape(B, g * p, g * p, 3)
 
 
-def encode_image_tokens(params, cfg: ClipConfig, tokens, pool=True, attn="dense"):
+def encode_image_tokens(params, cfg: ClipConfig, tokens, pool=True, attn="dense", remat=False):
     """Encode pre-patchified views: tokens [B, T, p*p*3] -> [B, embed_dim];
     the patch embedding is one matmul against the conv kernel reshaped
-    [p*p*3, width]. ViT towers only."""
+    [p*p*3, width]. ViT towers only. With per-episode weights (``conv_w``
+    ``[N, p, p, 3, width]``, every leaf on a leading episode axis) tokens are
+    ``[N, B, T, p*p*3]`` and the features ``[N, B, embed_dim]``."""
     if not cfg.is_vit:
         raise ValueError("encode_image_tokens requires a ViT tower")
     p = params["visual"]
-    kmat = p["conv_w"].reshape(-1, p["conv_w"].shape[-1])  # HWIO row-major == (row, col, channel)
+    w = p["conv_w"]
+    kmat = w.reshape(w.shape[:-4] + (-1, w.shape[-1]))  # HWIO row-major == (row, col, channel)
     x = L.linear(tokens.to(kmat.dtype), kmat)
-    return _vit_post_patch(p, cfg, x, pool=pool, attn=attn)
+    return _vit_post_patch(p, cfg, x, pool=pool, attn=attn, remat=remat)
 
 
 def best_attn(cfg: Optional[ClipConfig] = None, device="cpu") -> str:

@@ -5,6 +5,14 @@ OpenAI CLIP blocks: fp32 LayerNorm whatever the activation dtype, QuickGELU,
 pre-LN residual attention blocks. Weights keep the JAX layout: linear
 weights ``[in, out]``, a transformer's blocks stacked on a leading layer axis
 (a Python loop over that axis takes the place of ``lax.scan``).
+
+Per-episode weights: where the JAX package vmaps one episode's tower over N
+episodes, the port stacks the N episodes' weights on a leading axis (a
+linear ``[N, in, out]``, a LayerNorm or bias ``[N, D]``, a transformer's
+blocks ``[N, L, ...]``) and gives activations the same leading axis
+``[N, ..., D]``; each function here takes either layout, told apart by the
+weight's rank. A weight shared by the episodes may come expanded (stride 0
+on the episode axis) and is then applied as one matrix.
 """
 
 from __future__ import annotations
@@ -12,10 +20,19 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def _per_episode(v, x):
+    """A per-episode parameter ``[N, *s]`` viewed to broadcast against ``x [N, ..., *s]``."""
+    return v.reshape(v.shape[:1] + (1,) * (x.dim() - v.dim()) + v.shape[1:])
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
-    """LayerNorm computed in fp32 (population variance), cast back to x's dtype."""
+    """LayerNorm computed in fp32 (population variance), cast back to x's
+    dtype; ``weight``/``bias`` ``[D]``, or ``[N, D]`` per episode."""
+    if weight.dim() == 2:
+        weight, bias = _per_episode(weight, x), _per_episode(bias, x)
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, correction=0)
@@ -29,12 +46,17 @@ def quick_gelu(x):
 
 
 def linear(x, w, b=None):
-    """x @ w (+ b), weights stored input-major ``w[in, out]``; the product is
-    taken in the promoted dtype and cast back to x's dtype."""
+    """x @ w (+ b), weights stored input-major ``w[in, out]``, or ``[N, in,
+    out]`` per episode with ``x [N, ..., in]`` (one batched product); the
+    product is taken in the promoted dtype and cast back to x's dtype."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    y = torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
+    if w.dim() == 3 and w.stride(0) != 0:
+        y = torch.matmul(x.to(dt).reshape(x.shape[0], -1, x.shape[-1]), w.to(dt))
+        y = y.reshape(x.shape[:-1] + w.shape[-1:]).to(x.dtype)
+    else:   # one matrix (a per-episode weight expanded from one is applied as that one)
+        y = torch.matmul(x.to(dt), (w[0] if w.dim() == 3 else w).to(dt)).to(x.dtype)
     if b is not None:
-        y = y + b.to(x.dtype)
+        y = y + (_per_episode(b, y) if b.dim() == 2 else b).to(x.dtype)
     return y
 
 
@@ -52,8 +74,9 @@ def causal_mask(length: int, device=None):
 ATTN_IMPL = "dense"
 
 
-def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, n_heads: int, mask=None, attn: str = "dense"):
-    """Self-attention over [B, T, D] with the fused QKV projection.
+def attention_core(qkv, n_heads: int, mask=None, attn: str = "dense"):
+    """Attention from the fused QKV projection ``[..., T, 3D]`` to the heads'
+    merged output ``[..., T, D]``, before the output projection.
 
     ``attn="fused"`` hands the unsplit projection to the fused kernel
     (``ops/attention.py``: the CUDA kernel on the card, its plain version on
@@ -63,9 +86,11 @@ def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, n_heads: int, mask=None,
     the additive mask itself (the JAX package maps any mask to its kernel's
     causal flag), so the head split is skipped.
     """
-    B, T, D = x.shape
+    *lead, T, threeD = qkv.shape
+    D = threeD // 3
     head_dim = D // n_heads
-    qkv = linear(x, qkv_w, qkv_b)  # [B, T, 3D]
+    qkv = qkv.reshape(-1, T, threeD)
+    B = qkv.shape[0]
     scale = 1.0 / math.sqrt(head_dim)
     if ATTN_IMPL not in ("dense", "flash"):
         raise ValueError(f"unknown ATTN_IMPL {ATTN_IMPL!r} (\"dense\" or \"flash\")")
@@ -75,31 +100,71 @@ def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, n_heads: int, mask=None,
         if attn == "dense" and T > MAX_T:
             raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernel, which takes "
                              f"T <= {MAX_T} (so T = 128 or 256); got T={T}")
-        return linear(fused_attention(qkv, mask, n_heads, scale), out_w, out_b)
+        return fused_attention(qkv, mask, n_heads, scale).reshape(*lead, T, D)
     if attn != "dense":
         raise ValueError(f"unknown attention implementation {attn!r}")
     q, k, v = (t.reshape(B, T, n_heads, head_dim).transpose(1, 2) for t in qkv.split(D, dim=-1))
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     if mask is not None:
         logits = logits + mask.float()
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = (probs.float() @ v.float()).to(x.dtype)
-    return linear(out.transpose(1, 2).reshape(B, T, D), out_w, out_b)
+    probs = torch.softmax(logits, dim=-1).to(qkv.dtype)
+    out = (probs.float() @ v.float()).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(*lead, T, D)
 
 
-def residual_block(x, p, n_heads: int, mask=None, attn: str = "dense"):
-    """Pre-LN residual attention block (attention + QuickGELU MLP)."""
-    h = layer_norm(x, p["ln1_w"], p["ln1_b"])
-    x = x + multi_head_attention(h, p["qkv_w"], p["qkv_b"], p["out_w"], p["out_b"], n_heads, mask, attn=attn)
+def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, n_heads: int, mask=None, attn: str = "dense"):
+    """Self-attention over ``[..., T, D]`` with the fused QKV projection
+    (``attention_core`` between the two projections)."""
+    return linear(attention_core(linear(x, qkv_w, qkv_b), n_heads, mask, attn), out_w, out_b)
+
+
+def _block_in(x, p):
+    """A block's first LayerNorm and QKV projection."""
+    return linear(layer_norm(x, p["ln1_w"], p["ln1_b"]), p["qkv_w"], p["qkv_b"])
+
+
+def _block_out(x, o, p):
+    """The rest of a block after attention ``o``: output projection, residual,
+    second LayerNorm, QuickGELU MLP, residual."""
+    x = x + linear(o, p["out_w"], p["out_b"])
     h = layer_norm(x, p["ln2_w"], p["ln2_b"])
     return x + linear(quick_gelu(linear(h, p["fc_w"], p["fc_b"])), p["proj_w"], p["proj_b"])
 
 
-def transformer(x, blocks, n_heads: int, mask=None, attn: str = "dense"):
+def residual_block(x, p, n_heads: int, mask=None, attn: str = "dense"):
+    """Pre-LN residual attention block (attention + QuickGELU MLP)."""
+    return _block_out(x, attention_core(_block_in(x, p), n_heads, mask, attn), p)
+
+
+def transformer(x, blocks, n_heads: int, mask=None, attn: str = "dense", remat=False):
     """Run a stacked-block transformer: ``blocks`` maps names to tensors whose
-    leading axis is the layer index."""
-    for layer in range(next(iter(blocks.values())).shape[0]):
-        x = residual_block(x, {k: v[layer] for k, v in blocks.items()}, n_heads, mask, attn=attn)
+    leading axis is the layer index (``[N, L, ...]`` per episode).
+
+    ``remat`` checkpoints each layer where gradients are taken
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+    ``jax.checkpoint`` of its scan body: ``False`` stores every activation;
+    ``True`` keeps only each layer's input and recomputes the whole block in
+    the backward (the attention forward included); ``"save_attn"`` keeps
+    each block's attention input and output (the fused projection and the
+    merged heads) and recomputes the rest, the two sides of the attention
+    checkpointed apart, so that the backward runs no attention forward.
+    The gradients are the same in all three.
+
+    The layers' weights are taken apart once (``unbind``, whose backward
+    stacks the layers' gradients in one kernel a tensor; a per-layer index
+    would write a zero-filled copy of the whole stack for each layer)."""
+    layer_axis = int(blocks["ln1_w"].dim() == 3)   # [N, L, ...] per episode
+    remat = remat if torch.is_grad_enabled() else False
+    per_layer = {k: v.unbind(layer_axis) for k, v in blocks.items()}
+    for layer in range(blocks["ln1_w"].shape[layer_axis]):
+        p = {k: v[layer] for k, v in per_layer.items()}
+        if remat == "save_attn":
+            o = attention_core(checkpoint(_block_in, x, p, use_reentrant=False), n_heads, mask, attn)
+            x = checkpoint(_block_out, x, o, p, use_reentrant=False)
+        elif remat:
+            x = checkpoint(residual_block, x, p, n_heads, mask, attn, use_reentrant=False)
+        else:
+            x = residual_block(x, p, n_heads, mask, attn=attn)
     return x
 
 

@@ -1,12 +1,18 @@
-"""Classification prompt-TTA (RLCF / TPT / KD episodes) on patch-major u8
-views (the counterpart of ``rlcf_tpu/tasks/classification.py``; the NHWC
-``adapt``, serving and the device mesh are not ported yet).
+"""Classification test-time adaptation (RLCF / TPT / KD episodes): prompt
+TTA on patch-major u8 views or NHWC views, and encoder TTA on NHWC views
+(the counterpart of ``rlcf_tpu/tasks/classification.py``; zero-shot,
+CoCoOp, serving and the device mesh are not ported yet).
 
-Per group of N test images: the frozen policy ViT encodes all views of
-each image, the lowest-entropy views are selected against the initial text
-features, the frozen reward CLIP scores only those, and N episodes of
-REINFORCE + AdamW on the CoOp context run as one batch: the text tower
-sees all N*C prompts at once, forward and backward.
+Prompt TTA, per group of N test images: the frozen policy ViT encodes all
+views of each image, the lowest-entropy views are selected against the
+initial text features, the frozen reward CLIP scores only those, and N
+episodes of REINFORCE + AdamW on the CoOp context run as one batch: the text
+tower sees all N*C prompts at once, forward and backward.
+
+Encoder TTA adapts the policy's visual tower itself against frozen class
+text features: the N episodes' tower weights are stacked on a leading
+episode axis (``models/layers.py``), so each step is one batched forward
+and backward over the N episodes' selected views.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 
 from ..core import losses as Lo
 from ..core import prompt as P
-from ..core.episode import make_optimizer, step_loss
+from ..core import policy as Po
+from ..core.episode import make_optimizer, make_tta_episode, step_loss, take_rows
 from ..data.class_names import assemble_prompts
 from ..data.transforms import CLIP_MEAN, CLIP_STD
 from ..models import clip as clip_model
@@ -58,13 +65,21 @@ def truncate_tokens(tokens: np.ndarray) -> np.ndarray:
 
 @torch.no_grad()
 def compute_class_features(params, cfg, classnames: Sequence[str], prompt_prefix: str = "a photo of a",
-                           batch_size: int = 256):
+                           batch_size: int = 256, attn: str = "dense"):
     """Normalized class text features [C, E], computed in batches."""
     tokens = truncate_tokens(tokenize(assemble_prompts(classnames, prompt_prefix))).astype(np.int64)
     device = params["logit_scale"].device
-    feats = [clip_model.encode_text(params, cfg, torch.as_tensor(tokens[s : s + batch_size], device=device))
+    feats = [clip_model.encode_text(params, cfg, torch.as_tensor(tokens[s : s + batch_size], device=device),
+                                    attn=attn)
              for s in range(0, tokens.shape[0], batch_size)]
     return clip_model.normalize(torch.cat(feats).float())
+
+
+def reward_resolution_refusal(have: int, want: int) -> NotImplementedError:
+    """The error for a reward tower at another resolution than the views."""
+    return NotImplementedError(
+        f"the reward takes {want} px views and these are {have} px: the reward's input resize comes with ROADMAP "
+        f"A8, together with the longer attention forward that ViT-L/14@336px (T=577) needs")
 
 
 class PromptTTAClassifier:
@@ -73,8 +88,9 @@ class PromptTTAClassifier:
 
     ``setup`` builds the prompt template for a class set (the reference's
     ``reset_classnames``) and caches the reward's class features from the
-    same tokenized prompts; ``adapt_tokens`` runs N episodes at once from
-    the shared initial context.
+    same tokenized prompts; ``adapt_tokens`` (patch-major u8 views) and
+    ``adapt`` (NHWC views) run N episodes at once from the shared initial
+    context.
     """
 
     def __init__(self, clip_params, clip_cfg, reward, ecfg, ctx_init="a photo of a", n_ctx=4, ctx0=None):
@@ -139,17 +155,38 @@ class PromptTTAClassifier:
             rx = normalize_u8_patch_tokens(sel_r).reshape(N * n_keep, Tr, Dr)
             feats = clip_model.normalize(
                 clip_model.encode_image_tokens(self.reward.params, rcfg, rx, attn=self.reward_attn).float())
+            r_sim = feats @ self.reward.class_features.T
         else:
             # depatchify ONLY the selected views back to NHWC for the reward tower
             sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
             sel_views = clip_model.images_from_patch_tokens(
                 normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
-            if sel_views.shape[1] != rcfg.image_resolution:
-                raise NotImplementedError(
-                    f"reward input resize ({sel_views.shape[1]} -> {rcfg.image_resolution} px) is not ported yet")
-            feats = clip_model.normalize(
-                clip_model.encode_image(self.reward.params, rcfg, sel_views, attn=self.reward_attn).float())
-        r_sim = (feats @ self.reward.class_features.T).reshape(N, n_keep, -1)
+            r_sim = self._reward_sim(sel_views)
+        return img_feats, sel, r_sim.reshape(N, n_keep, -1)
+
+    def _reward_sim(self, views):
+        """Frozen reward similarities [B, C] of normalized NHWC views."""
+        rcfg = self.reward.cfg
+        if views.shape[1] != rcfg.image_resolution:
+            raise reward_resolution_refusal(views.shape[1], rcfg.image_resolution)
+        feats = clip_model.normalize(
+            clip_model.encode_image(self.reward.params, rcfg, views, attn=self.reward_attn).float())
+        return feats @ self.reward.class_features.T
+
+    @torch.no_grad()
+    def prepare(self, views):
+        """NHWC views [N, B, H, W, 3], u8 (CLIP-normalized here) or float
+        (normalized) -> (img_feats [N, B, E], sel [N, S], reward_sim [N, S, C])."""
+        views = maybe_normalize_u8(views)
+        N, B = views.shape[:2]
+        n_keep = max(1, int(B * self.ecfg.selection_p))
+        img = clip_model.encode_image(self.clip_params, self.clip_cfg, views.reshape((N * B,) + views.shape[2:]),
+                                      attn=self.attn)
+        img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
+        logits0 = self._logit_scale() * torch.einsum("nbe,ce->nbc", img_feats, self._tf0)
+        sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
+        sel_views = take_rows(views, sel)
+        r_sim = self._reward_sim(sel_views.reshape((N * n_keep,) + views.shape[2:])).reshape(N, n_keep, -1)
         return img_feats, sel, r_sim
 
     def episodes(self, img_feats, sel, reward_sim):
@@ -176,7 +213,14 @@ class PromptTTAClassifier:
         stacked = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
         return final, stacked
 
-    # -- entry point ----------------------------------------------------
+    # -- entry points ---------------------------------------------------
+
+    def adapt(self, views_batch):
+        """TTA from NHWC views [N, B, H, W, 3] (numpy or tensor; u8 pixels or
+        normalized floats) -> (final logits [N, C], {"losses", "selected"})."""
+        img_feats, sel, r_sim = self.prepare(torch.as_tensor(views_batch).to(self.device))
+        logits, losses = self.episodes(img_feats, sel, r_sim)
+        return logits, {"losses": losses, "selected": sel}
 
     def adapt_tokens(self, policy_tokens, reward_tokens=None):
         """TTA from pre-patchified u8 views [N, B, (res/p)^2, p*p*3] (numpy
@@ -247,3 +291,113 @@ class PromptTTAClassifier:
             return torch.stack(logits), torch.stack(losses), seed
 
         return adapt
+
+
+# ---------------------------------------------------------------------------
+# Encoder TTA: `TPT/tune_cls_rl.py` (CLIPCLS_TTA): tune the visual tower
+# ---------------------------------------------------------------------------
+
+
+class EncoderTTAClassifier:
+    """Visual-encoder test-time adaptation with frozen class text features
+    (``rlcf_tpu/tasks/classification.py::EncoderTTAClassifier``).
+
+    Class features are computed once per class set from plain prompts;
+    episodes adapt the visual tower (or only its normalization affines with
+    ``only_norm``) under the REINFORCE/TPT/KD loss, with the recompute step-0
+    strategy of ``core/episode.py``; an optional momentum EMA re-anchors the
+    episodes' starting point every ``update_freq`` samples. ``remat`` is the
+    visual tower's checkpointing in the steps (``layers.transformer``). ViT
+    policy and a single ViT reward; ``bn_prior`` (ResNet towers) is refused.
+    """
+
+    def __init__(self, clip_params, clip_cfg, reward, ecfg, prompt_prefix: str = "a photo of a",
+                 only_norm: bool = False, momentum_update: bool = False, update_freq: int = 256,
+                 update_w: float = 1.0, momentum: float = 0.9999, bn_prior=None, remat=True):
+        if not hasattr(reward, "params"):
+            raise ValueError(
+                "EncoderTTAClassifier requires a single ClipReward; reward "
+                "ensembles are only supported by PromptTTAClassifier (matching "
+                "the reference encoder path, `TPT/tune_cls_rl.py`)"
+            )
+        if bn_prior is not None:
+            raise NotImplementedError("bn_prior mixes the BatchNorm statistics of ResNet towers, which come with "
+                                      "ROADMAP A8")
+        if not clip_cfg.is_vit or not reward.cfg.is_vit:
+            raise NotImplementedError("the port runs ViT policy and reward towers only; ResNet towers come with "
+                                      "ROADMAP A8")
+        self.clip_params = clip_params
+        self.clip_cfg = clip_cfg
+        self.reward = reward
+        self.ecfg = ecfg
+        self.prompt_prefix = prompt_prefix
+        self.only_norm = only_norm
+        self.momentum_cfg = dict(momentum=momentum, update_freq=update_freq, update_w=update_w)
+        self.momentum_update = momentum_update
+        self.remat = remat
+        self.device = clip_params["logit_scale"].device
+        self.attn = clip_model.best_attn(clip_cfg, self.device)
+        self.reward_attn = clip_model.best_attn(reward.cfg, self.device)
+        if only_norm:
+            self.trainable0, self.frozen_visual = Po.partition(clip_params["visual"], Po.norm_only_filter)
+        else:
+            self.trainable0, self.frozen_visual = clip_params["visual"], None
+        self.momentum_state = Po.MomentumState.create(self.trainable0) if momentum_update else None
+        self.class_features = None
+        self._episode = None
+
+    def setup(self, classnames: Sequence[str]):
+        self.class_features = compute_class_features(self.clip_params, self.clip_cfg, classnames,
+                                                     self.prompt_prefix, attn=self.attn)
+        self.reward.set_class_features(tokenize(assemble_prompts(classnames, self.prompt_prefix)))
+        self._episode = make_tta_episode(self.policy_logits, self.reward_image_sim, self.reward.score_samples,
+                                         self.ecfg, teacher_scale=self.reward.params["logit_scale"].exp().float(),
+                                         return_adapted=True)
+        return self
+
+    def policy_logits(self, trainable, cache, idx):
+        """Logits [N, k, C] of the views ``idx [N, k]`` of ``cache["views"]``
+        (normalized NHWC [N, B, H, W, 3]) under per-episode visual weights
+        (``trainable``, every leaf ``[N, ...]``); the patch embedding is the
+        token matmul of ``encode_image_tokens``."""
+        N, k = idx.shape
+        visual = trainable
+        if self.only_norm:
+            visual = Po.merge(trainable, Po.tree_map(lambda v: v.expand(N, *v.shape), self.frozen_visual))
+        views = take_rows(cache["views"], idx)
+        toks = clip_model.patch_tokens_from_images(views.reshape((N * k,) + views.shape[2:]),
+                                                   self.clip_cfg.vision_patch_size)
+        feats = clip_model.encode_image_tokens({"visual": visual}, self.clip_cfg, toks.reshape((N, k) + toks.shape[1:]),
+                                               attn=self.attn, remat=self.remat)
+        scale = self.clip_params["logit_scale"].exp().float()
+        return scale * torch.einsum("nke,ce->nkc", clip_model.normalize(feats.float()), self.class_features)
+
+    def reward_image_sim(self, views):
+        """Frozen reward similarities [N, S, C] of normalized NHWC views [N, S, H, W, 3]."""
+        N, S = views.shape[:2]
+        rcfg = self.reward.cfg
+        if views.shape[2] != rcfg.image_resolution:
+            raise reward_resolution_refusal(views.shape[2], rcfg.image_resolution)
+        feats = clip_model.encode_image(self.reward.params, rcfg, views.reshape((N * S,) + views.shape[2:]),
+                                        attn=self.reward_attn)
+        return (clip_model.normalize(feats.float()) @ self.reward.class_features.T).reshape(N, S, -1)
+
+    def adapt(self, views_batch, return_adapted: bool = False):
+        """views_batch: NHWC [N, B, H, W, 3] (numpy or tensor; u8 pixels or
+        normalized floats) -> (final logits [N, C], {"losses", "selected"}).
+
+        All N episodes start from the same anchor, as the JAX package's vmap
+        does; with momentum_update their adapted weights fold into the EMA
+        in episode order afterwards, so a re-anchor that falls inside a group
+        takes effect from the next group (N=1 is the sequential reference).
+        ``return_adapted`` adds the N adapted visual weights (``[N, ...]``)
+        under ``"adapted"``."""
+        views = maybe_normalize_u8(torch.as_tensor(views_batch).to(self.device))
+        start = self.momentum_state.reset_params if self.momentum_update else self.trainable0
+        logits, aux = self._episode(start, {"views": views}, views)
+        adapted = aux.pop("adapted")
+        if self.momentum_update:
+            self.momentum_state = Po.momentum_update_batch(self.momentum_state, adapted, **self.momentum_cfg)
+        if return_adapted:
+            aux["adapted"] = adapted
+        return logits[:, 0], aux

@@ -8,6 +8,7 @@ rounding step of the output on top of that (2**-7 relative, 1e-2 absolute).
 AugMix: each test states its own.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -257,6 +258,74 @@ def test_kernel_refuses_unsupported_shapes(dev):
         A.launch_bwd(torch.randn(1, 258, 3 * 64, device=dev), torch.randn(1, 258, 64, device=dev), None, 1, 0.125)
     with pytest.raises(ValueError, match="cotangent"):
         A.launch_bwd(torch.randn(1, 8, 3 * 64, device=dev), torch.randn(1, 8, 32, device=dev), None, 1, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction,B,T,H", [("fwd", 64, 197, 12), ("fwd", 6, 197, 12), ("fwd", 1, 197, 12),
+                                             ("fwd", 6, 257, 16), ("bwd", 6, 197, 12)])
+def test_encoder_tta_shapes_match_plain(dev, dtype, direction, B, T, H):
+    """Encoder TTA's launch shapes (one image: 64 views selected from, 6
+    through the steps and the reward, view 0 predicted): the long kernels."""
+    g = torch.Generator(device=dev).manual_seed(B * 7 + T)
+    qkv = torch.randn(B, T, 3 * H * 64, device=dev, generator=g).to(dtype)
+    cot = torch.randn(B, T, H * 64, device=dev, generator=g).to(dtype)
+    A.reset_launch_counts()
+    if direction == "fwd":
+        got, want = A.launch_fwd(qkv, None, H, 0.125), A.fused_attention_reference(qkv, None, H, 0.125)
+    else:
+        got, want = A.launch_bwd(qkv, cot, None, H, 0.125), A.fused_attention_reference_bwd(qkv, cot, None, H, 0.125)
+    torch.cuda.synchronize()
+    long_kernel = "mma_long" if dtype == torch.bfloat16 else "tf32x3_long"
+    assert dict(A.LAUNCH_VARIANTS) == {long_kernel if direction == "fwd" else "bwd_" + long_kernel: 1}
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, bwd=direction == "bwd"))
+
+
+def _encoder_classifiers(dev, dtype=torch.float32, **kw):
+    """One EncoderTTAClassifier on the card and one on the CPU, same weights:
+    ViT towers with 64-wide heads at T = (64/8)^2 + 1 = 65 (the long kernels)."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.core.episode import EpisodeConfig
+    from rlcf_torch.core.reward import ClipReward, RewardConfig
+    from rlcf_torch.models import clip as TC
+    from rlcf_torch.tasks.classification import EncoderTTAClassifier
+
+    cfg = TC.ClipConfig("t", 32, 64, 2, 128, 8, 128, 1, vision_heads_override=2, text_heads_override=2)
+    names = ["goldfish", "tiger cat", "airliner", "acoustic guitar", "great white shark"]
+    ecfg = EpisodeConfig(tta_steps=3, selection_p=0.25, lr=1e-4, sample_k=2)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        move = lambda p: Po.tree_map(lambda v: v.to(device, dtype if v.dim() else v.dtype), p)
+        reward = ClipReward(move(TC.init_clip_params(cfg, seed=1)), cfg, RewardConfig(sample_k=2))
+        out.append(EncoderTTAClassifier(move(TC.init_clip_params(cfg, seed=0)), cfg, reward, ecfg, **kw).setup(names))
+    return out
+
+
+@pytest.mark.parametrize("remat", [True, "save_attn", False])
+def test_encoder_episode_on_the_card_matches_cpu(dev, remat):
+    """fp32 encoder TTA (N=2, 8 views) through the split-TF32 kernels against
+    the CPU's dense plain path: selections equal, logits and losses within
+    2e-4 + 1e-3 relative."""
+    card, cpu = _encoder_classifiers(dev, remat=remat)
+    views = np.random.default_rng(0).integers(0, 256, size=(2, 8, 64, 64, 3), dtype=np.uint8)
+    A.reset_launch_counts()
+    got, got_aux = card.adapt(views)
+    torch.cuda.synchronize()
+    want, want_aux = cpu.adapt(views)
+    assert A.LAUNCH_VARIANTS["tf32x3_long"] > 0 and A.LAUNCH_VARIANTS["bwd_tf32x3_long"] == 3 * 2
+    assert torch.equal(got_aux["selected"].cpu(), want_aux["selected"])
+    torch.testing.assert_close(got_aux["losses"].cpu(), want_aux["losses"], rtol=1e-3, atol=2e-4)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-4)
+
+
+def test_encoder_bf16_episode_runs_the_long_backward(dev):
+    card, _ = _encoder_classifiers(dev, torch.bfloat16, momentum_update=True, update_freq=2)
+    views = np.random.default_rng(1).integers(0, 256, size=(2, 8, 64, 64, 3), dtype=np.uint8)
+    A.reset_launch_counts()
+    logits, aux = card.adapt(views, return_adapted=True)
+    torch.cuda.synchronize()
+    assert A.LAUNCH_VARIANTS["bwd_mma_long"] == 3 * 2 and A.LAUNCH_VARIANTS["mma_long"] > 0
+    assert logits.shape == (2, 5) and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux["losses"]).all())
+    assert card.momentum_state.counter == 0   # two episodes folded with update_freq 2: re-anchored
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,8 @@ def test_no_jax_imports(path):
 
 
 def test_cli_import_leaves_jax_unloaded():
-    code = ("import sys, rlcf_torch.cli.tta_cls, rlcf_torch.tasks.classification, rlcf_torch.ops.attention, "
-            "rlcf_torch.ops.augmix; "
+    code = ("import sys, rlcf_torch.cli.tta_cls, rlcf_torch.cli.tune_cls, rlcf_torch.tasks.classification, "
+            "rlcf_torch.core.policy, rlcf_torch.core.episode, rlcf_torch.ops.attention, rlcf_torch.ops.augmix; "
             "bad = [m for m in ('jax', 'optax', 'rlcf_tpu') if m in sys.modules]; "
             "assert not bad, bad; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -1,6 +1,7 @@
 """The slice as a whole: the port's prompt-TTA episode group against
 ``rlcf_tpu``'s ``PromptTTAClassifier.adapt_tokens`` on the same weights and
-the same u8 views (fp32; selections equal, per-step losses and final logits
+the same u8 views, and the NHWC ``adapt`` against JAX's ``adapt`` on u8 and
+float views (fp32; selections equal, per-step losses and final logits
 within 2e-4), the port's CLI on the CPU, and the port's native view loader
 against the JAX package's on one seed."""
 
@@ -55,6 +56,37 @@ def test_adapt_tokens_matches_jax(towers, loss, attn):
     np.testing.assert_allclose(taux["losses"].numpy(), np.asarray(jaux["losses"]), **TOL)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert tl.shape == (2, len(CLASSNAMES)) and taux["losses"].shape == (2, 3)
+
+
+@pytest.mark.parametrize("loss,u8", [("rlcf", True), ("tpt", True), ("kd", True), ("rlcf", False)])
+def test_nhwc_adapt_matches_jax(towers, loss, u8):
+    jcfg, tcfg, jp, jrp, tp, trp = towers
+    ek = dict(tta_steps=3, selection_p=0.25, lr=7e-3, sample_k=2, loss=loss)
+    jclf = JClassifier(jp, jcfg, JClipReward(jrp, jcfg, JRewardConfig(sample_k=2)), JEpisodeConfig(**ek),
+                       ctx_init="a photo of a").setup(CLASSNAMES)
+    tclf = PromptTTAClassifier(tp, tcfg, ClipReward(trp, tcfg, RewardConfig(sample_k=2)), EpisodeConfig(**ek),
+                               ctx_init="a photo of a").setup(CLASSNAMES)
+    rng = np.random.default_rng(2)
+    views = (rng.integers(0, 256, size=(2, 16, 32, 32, 3), dtype=np.uint8) if u8
+             else rng.normal(size=(2, 16, 32, 32, 3)).astype(np.float32))
+    jl, jaux = jclf.adapt(views)
+    tl, taux = tclf.adapt(views)
+    np.testing.assert_array_equal(taux["selected"].numpy(), np.asarray(jaux["selected"]))
+    np.testing.assert_allclose(taux["losses"].numpy(), np.asarray(jaux["losses"]), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert tl.shape == (2, len(CLASSNAMES)) and taux["losses"].shape == (2, 3)
+
+
+def test_nhwc_adapt_refuses_a_reward_at_another_resolution(towers):
+    """The reward's input resize is not ported: the refusal names ROADMAP A8."""
+    from rlcf_torch.models import clip as TC
+
+    _, tcfg, _, _, tp, _ = towers
+    rcfg = TC.ClipConfig("r", 16, 64, 1, 64, 16, 64, 1, vision_heads_override=2, text_heads_override=2)
+    reward = ClipReward(TC.init_clip_params(rcfg), rcfg, RewardConfig(sample_k=2))
+    clf = PromptTTAClassifier(tp, tcfg, reward, EpisodeConfig(sample_k=2), ctx_init="a photo of a").setup(CLASSNAMES)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        clf.adapt(np.zeros((1, 4, 32, 32, 3), dtype=np.uint8))
 
 
 def test_cli_runs_on_cpu(tmp_path):
