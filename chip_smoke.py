@@ -12,11 +12,13 @@ Phases, each fatal:
      library call with CUDA events: the attention kernels in bf16 and fp32
      (against scaled_dot_product_attention, forward and backward, the
      library's own kernels named); the tensor-core forward and backward, bf16
-     and fp32 (split TF32 operands), over the edges of both their regimes (T from 1 to 257,
-     8/12/16 heads, masked and not) and for bit-identical repeats, with the
-     error the operand precisions they could have would give (PRECISION); the
-     ATTN_IMPL="flash" switch of models/layers.py at T=128 and 256, with the
-     backward it takes; the AugMix kernel at a flagship
+     and fp32 (split TF32 operands), over the edges of their regimes (T from 1
+     to 257 both directions, the forward on to 577, 8/12/16 heads, masked and
+     not) and for bit-identical repeats, with the error the operand precisions
+     they could have would give (PRECISION); the forward at the reward
+     ensemble's ViT-L/14@336px (B=24 T=577 H=16) and at zero-shot's shapes; the
+     ATTN_IMPL="flash" switch of models/layers.py at T=128, 256 and 384, with
+     the backward it takes; the AugMix kernel at a flagship
      group (4 images x 64 views, 256 -> 224 px) with augmix on and off, on a
      second seed, and op by op at the identity crop at severities 1 and 2;
   4. drive the flagship RLCF prompt TTA through the port's CLI at full width
@@ -39,6 +41,15 @@ Phases, each fatal:
      gradient of one step's loss in the visual weights through the kernel
      backward to the plain backward's (GRAD), and the fused-attention
      episode to the dense one in fp32 (REFERENCE); print the ENCODER line;
+     then prompt TTA with the reference's 3-CLIP reward ensemble
+     (--multiple_reward_models 1: ViT-L/14@336px, RN50x64, ViT-L/14, each at
+     its own resolution; NHWC views built on the host, --viewgen native), prompt
+     TTA with the single ViT-L/14@336px reward on views built on the card
+     (resized to 336 px), and zero-shot over the ensemble ViT-B/16, RN50x64,
+     ViT-L/14@336px, counters set to 0 just before each and read just after;
+     time host views and one ensemble group (device busy, idle share), and
+     hold the fused-attention ensemble episode to the dense one in fp32
+     (REFERENCE ensemble); print the ENSEMBLE line;
   5. print the kernels line, then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -74,6 +85,7 @@ REPLACES = {"fwd": "rlcf_tpu/ops/pallas_attention.py:65", "bwd": "rlcf_tpu/ops/p
             "augmix": "rlcf_tpu/ops/pallas_augmix.py:284", "flash": "rlcf_tpu/models/layers.py:48"}
 ATTENTION_SOURCE = {  # by the key of ops/attention.py::LAUNCH_VARIANTS that a launch counts under
     "mma_short": "rlcf_torch/csrc/attention_mma.cu", "mma_long": "rlcf_torch/csrc/attention_mma.cu",
+    "mma_xlong": "rlcf_torch/csrc/attention_mma.cu",
     "bwd_mma_short": "rlcf_torch/csrc/attention_bwd_mma.cu", "bwd_mma_long": "rlcf_torch/csrc/attention_bwd_mma.cu",
     "tf32x6_short": "rlcf_torch/csrc/attention_tf32.cu", "tf32x3_long": "rlcf_torch/csrc/attention_tf32.cu",
     "bwd_tf32x6_short": "rlcf_torch/csrc/attention_bwd_tf32.cu",
@@ -86,11 +98,16 @@ ATTENTION_SOURCE = {  # by the key of ops/attention.py::LAUNCH_VARIANTS that a l
 # rounding) and holds the gradients in the prompts and in the context to GRAD_FLOOR_RATIO times it.
 GRAD_LAUNCH_LIMIT, GRAD_FLOOR_RATIO = 1e-3, 2.0
 SWEEP_T = (1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 65, 77, 80, 81, 128, 196, 197, 256, 257)
+# the forward only (the backward takes T <= 257): the edges of the chunks of 64 keys up to ViT-L/14@336px's T
+SWEEP_T_FWD = SWEEP_T + (258, 271, 272, 288, 320, 321, 384, 449, 512, 513, 576, 577)
 SWEEP_H = (8, 12, 16)
 FLASH_SHAPE = (24, 256, 16)   # B, T, H at which the ATTN_IMPL="flash" route is timed
 SRC_SIZE, RES = 256, 224
 FLAGSHIP_IMAGES, NATIVE_IMAGES, FP32_IMAGES = 16, 8, 8
 ENCODER_IMAGES, ENCODER_FP32_IMAGES = 8, 2   # encoder TTA runs one image a group
+ENSEMBLE_IMAGES, REWARD336_IMAGES, ZERO_SHOT_IMAGES = 8, 4, 16
+REWARD336 = "ViT-L/14@336px"
+ZERO_SHOT_ARCHS = ("ViT-B/16", "RN50x64", "ViT-L/14@336px")
 # fp32 operations per pixel of one plane, read off csrc/augmix.cu: each op's
 # arithmetic, compares and rounding (rotate: three two-tap passes), the mix
 # per chain and the final blend
@@ -349,11 +366,12 @@ def check_sweep(direction, dtype):
         return assert_close(got, want, dtype, direction, label)[0]
 
     tag = "fp32" if fp32 else "bf16"
+    t_values = SWEEP_T_FWD if direction == "fwd" else SWEEP_T
     errs = [case(T, H, causal_mask(T, dev) if masked else None, T * 100 + H, f"T={T} H={H} masked={masked}")
-            for T in SWEEP_T for H in SWEEP_H for masked in (False, True)]
+            for T in t_values for H in SWEEP_H for masked in (False, True)]
     errs += [case(T, 12, kind, 5, f"T={T} H=12 general mask {kind}")
              for kind, lengths in GENERAL_MASKS for T in lengths]
-    log(f"SWEEP mha_{direction} {tag}: {len(errs)} cases (T in {list(SWEEP_T)}, H in {list(SWEEP_H)}, masked and "
+    log(f"SWEEP mha_{direction} {tag}: {len(errs)} cases (T in {list(t_values)}, H in {list(SWEEP_H)}, masked and "
         f"not, general masks {dict(GENERAL_MASKS)}) within tolerance, worst max_abs_err {max(errs):.3e}; "
         f"repeats bit-identical")
     if fp32 or direction == "bwd":
@@ -362,11 +380,12 @@ def check_sweep(direction, dtype):
 
 
 def check_flash_switch():
-    """Phase 3, ATTN_IMPL="flash": ``layers.multi_head_attention`` at T=128
-    and 256, masked and not, bf16 and fp32, against its dense branch, the
-    launch counter showing that the kernel ran; T=384 raises; the switch is
-    set back. Returns the kernels-line entries of the timed shape, forward
-    and the backward that the switch's autograd function takes."""
+    """Phase 3, ATTN_IMPL="flash": ``layers.multi_head_attention`` at T=128,
+    256 and 384, masked and not, bf16 and fp32, against its dense branch, the
+    launch counter showing that the kernel ran; a differentiated call at
+    T=384 raises (the backward takes T <= 257); the switch is set back.
+    Returns the kernels-line entries of the timed shape, forward and the
+    backward that the switch's autograd function takes."""
     from rlcf_torch.models import layers as L
     from rlcf_torch.ops import attention as A
 
@@ -374,7 +393,7 @@ def check_flash_switch():
     D = H * 64
     try:
         for dtype in (torch.bfloat16, torch.float32):
-            for T in (128, 256):
+            for T in (128, 256, 384):
                 gen = torch.Generator(device=dev).manual_seed(T)
                 x = torch.randn(2, T, D, device=dev, generator=gen).to(dtype)
                 w = [(torch.randn(s, device=dev, generator=gen) * D ** -0.5).to(dtype)
@@ -393,11 +412,11 @@ def check_flash_switch():
                     max_abs, _ = assert_close(got, want, dtype, "fwd", label)
                     log(f"FLASH {label}: equals the dense branch, max_abs_err={max_abs:.3e}")
         try:
-            L.multi_head_attention(torch.zeros(1, 384, D, device=dev), *[t.float() for t in w], H)
+            L.multi_head_attention(torch.zeros(1, 384, D, device=dev, requires_grad=True), *[t.float() for t in w], H)
         except ValueError as e:
-            log(f"FLASH T=384 raises: {e}")
+            log(f"FLASH T=384 differentiated raises: {e}")
         else:
-            raise AssertionError('ATTN_IMPL="flash" took T=384')
+            raise AssertionError('ATTN_IMPL="flash" took a differentiated call at T=384')
     finally:
         L.ATTN_IMPL = "dense"
     B, T, H = FLASH_SHAPE
@@ -542,57 +561,66 @@ def augmix_phases(imgs, basew, shifts):
     return {"crop_ms": crop, "mix_ms": mix, "per_step_ms": per_step}
 
 
-def flagship_argv(out_dir, precision="bf16", limit=FLAGSHIP_IMAGES, viewgen="fused"):
+def flagship_argv(out_dir, precision="bf16", limit=FLAGSHIP_IMAGES, viewgen="fused", reward=REWARD, extra=()):
     return [".", "--test_sets", "synthetic", "--synthetic_classes", "A", "--limit", str(limit),
-            "--arch", POLICY, "--reward_arch", REWARD, "--precision", precision, "--device", "cuda",
+            "--arch", POLICY, "--reward_arch", reward, "--precision", precision, "--device", "cuda",
             "--viewgen", viewgen, "--batch_size", str(VIEWS), "--selection_p", "0.1", "--sample_k", "3",
             "--tta_steps", str(STEPS), "--lr", "7e-3", "--ctx_init", "a_photo_of_a",
-            "--episode_group", str(GROUP), "--seed", "0", "--output", out_dir]
+            "--episode_group", str(GROUP), "--seed", "0", "--output", out_dir, *extra]
 
 
-def run_flagship(out_dir, viewgen, limit, precision="bf16"):
-    """Phase 4a: one path through the CLI; returns its numbers."""
+ENSEMBLE_ARGS = ("--multiple_reward_models", "1")
+
+
+def run_flagship(out_dir, viewgen, limit, precision="bf16", reward=REWARD, extra=(), path=None):
+    """Phase 4a: one prompt-TTA path through the CLI (``extra`` flags; the
+    reward ensemble's groups go through the NHWC ``adapt``, the others through
+    ``adapt_tokens``); returns its numbers. img/s leaves the first group out
+    (none with one group)."""
     from rlcf_torch.cli import tta_cls
     from rlcf_torch.ops import attention as A
     from rlcf_torch.ops import augmix as X
     from rlcf_torch.tasks.classification import PromptTTAClassifier
 
+    entry = "adapt" if ENSEMBLE_ARGS[0] in extra else "adapt_tokens"
     seen = []
-    adapt = PromptTTAClassifier.adapt_tokens
+    adapt = getattr(PromptTTAClassifier, entry)
 
-    def recording(self, *tokens):
-        logits, aux = adapt(self, *tokens)
+    def recording(self, *views):
+        logits, aux = adapt(self, *views)
         seen.append((logits.detach(), aux["losses"].detach()))
         return logits, aux
 
-    PromptTTAClassifier.adapt_tokens = recording
+    setattr(PromptTTAClassifier, entry, recording)
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()                 # counts start at 0 just before the path
     X.reset_launch_counts()
     try:
         t0 = time.perf_counter()
-        results = tta_cls.main(flagship_argv(out_dir, precision=precision, limit=limit, viewgen=viewgen))
+        results = tta_cls.main(flagship_argv(out_dir, precision=precision, limit=limit, viewgen=viewgen,
+                                             reward=reward, extra=extra))
         wall = time.perf_counter() - t0
     finally:
-        PromptTTAClassifier.adapt_tokens = adapt
+        setattr(PromptTTAClassifier, entry, adapt)
     launches = {**A.LAUNCHES, **X.LAUNCHES}     # read just after
     by_shape = {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}
+    path = path or (viewgen if precision == "bf16" else f"{viewgen} {precision}")
     for logits, losses in seen:
         if tuple(logits.shape) != (GROUP, 200) or not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"flagship logits {tuple(logits.shape)} not finite [{GROUP}, 200]")
+            raise AssertionError(f"{path} logits {tuple(logits.shape)} not finite [{GROUP}, 200]")
         if tuple(losses.shape) != (GROUP, STEPS) or not bool(torch.isfinite(losses).all()):
-            raise AssertionError(f"flagship losses {tuple(losses.shape)} not finite [{GROUP}, {STEPS}]")
+            raise AssertionError(f"{path} losses {tuple(losses.shape)} not finite [{GROUP}, {STEPS}]")
     groups = limit // GROUP
     kernels = ("fwd", "bwd", "augmix") if viewgen == "fused" else ("fwd", "bwd")
     if len(seen) != groups or any(launches[k] == 0 for k in kernels) or \
             (viewgen == "fused" and launches["augmix"] != groups):
-        raise AssertionError(f"--viewgen {viewgen} --precision {precision} did not go through the kernels: "
-                             f"groups={len(seen)} launches={launches}")
+        raise AssertionError(f"{path} (--viewgen {viewgen} --precision {precision}) did not go through the "
+                             f"kernels: groups={len(seen)} launches={launches}")
     secs = results["synthetic"]["group_seconds"]
     timed = secs[1:]  # the first group warms up
-    return {"path": viewgen if precision == "bf16" else f"{viewgen} {precision}", "viewgen": viewgen,
-            "precision": precision, "groups": len(secs), "group_seconds": secs,
-            "img_per_s": GROUP * len(timed) / sum(timed), "wall_s": wall,
+    return {"path": path, "viewgen": viewgen, "precision": precision, "reward": "ensemble" if extra else reward,
+            "groups": len(secs), "group_seconds": secs,
+            "img_per_s": GROUP * len(timed) / sum(timed) if timed else None, "wall_s": wall,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
             "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
             "top1": results["synthetic"]["top1"]}
@@ -937,6 +965,100 @@ def encoder_timing_and_reference(out_dir):
     return out
 
 
+def run_zero_shot(out_dir):
+    """Phase 4d: zero-shot through ``rlcf_torch.cli.zero_shot`` over the
+    ensemble ZERO_SHOT_ARCHS (each taking the batch resized to its own
+    resolution) on ZERO_SHOT_IMAGES synthetic images in one batch; the
+    ensemble's logits read where the accuracy meter takes them."""
+    from rlcf_torch.cli import zero_shot
+    from rlcf_torch.metrics.classification import AccuracyMeter
+    from rlcf_torch.ops import attention as A
+
+    seen = []
+    update = AccuracyMeter.update
+
+    def recording(self, logits, labels):
+        seen.append(np.asarray(logits))
+        return update(self, logits, labels)
+
+    AccuracyMeter.update = recording
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()                 # counts start at 0 just before the path
+    try:
+        t0 = time.perf_counter()
+        results = zero_shot.main([".", "--test_sets", "synthetic", "--synthetic_classes", "A", "--limit",
+                                  str(ZERO_SHOT_IMAGES), "--device", "cuda", "--precision", "bf16", "--seed", "0",
+                                  "--ensemble_archs", *ZERO_SHOT_ARCHS, "--output", out_dir])
+        wall = time.perf_counter() - t0
+    finally:
+        AccuracyMeter.update = update
+    launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES)   # read just after
+    if [x.shape for x in seen] != [(ZERO_SHOT_IMAGES, 200)] or not np.isfinite(seen[0]).all() \
+            or not by_shape.get(("fwd", ZERO_SHOT_IMAGES, 577, 16, str(torch.bfloat16))):
+        raise AssertionError(f"zero-shot logits {[x.shape for x in seen]} not finite [{ZERO_SHOT_IMAGES}, 200], or "
+                             f"the ViT-L/14@336px tower did not go through the kernel: {by_shape}")
+    return {"path": "zero-shot", "archs": list(ZERO_SHOT_ARCHS), "images": ZERO_SHOT_IMAGES, "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+            "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
+            **results["synthetic"]}
+
+
+def ensemble_timing_and_reference(out_dir):
+    """Phase 4d: on one group of NHWC views built on the host, the host
+    views' ms, the bf16 ensemble episode's ms/img and device busy share
+    (torch.profiler, views pre-built), and the fused-attention episode held
+    to the dense one in fp32 (REFERENCE ensemble: selections equal, logits
+    and losses within the flagship REFERENCE's tolerance), whose launches are
+    the path "ensemble reference fp32"."""
+    from rlcf_torch.cli import tta_cls
+    from rlcf_torch.data import native
+    from rlcf_torch.data.class_names import get_classnames
+    from rlcf_torch.data.datasets import SyntheticDataset
+    from rlcf_torch.ops import attention as A
+
+    names = get_classnames("A")
+    imgs = np.stack([SyntheticDataset(n=GROUP, n_classes=200)[i][0] for i in range(GROUP)])
+    make_views = lambda: native.generate_views_native_u8(imgs, n_views=VIEWS, resolution=RES, seed=0)
+    views = make_views()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        make_views()
+    out = {"host_views_ms_per_group": (time.perf_counter() - t0) / 3 * 1e3}
+    clf, _, _ = tta_cls.build(tta_cls.get_args(flagship_argv(out_dir, viewgen="native", extra=ENSEMBLE_ARGS)))
+    clf.setup(names)
+    ep = lambda: clf.adapt(views)[0].float().cpu()
+    ep()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        ep()
+    out["episode_ms_per_img"] = (time.perf_counter() - t0) / 2 / GROUP * 1e3
+    out.update(profile_episode(ep, "ensemble episode (host views pre-built, bf16)"))
+    del clf
+    torch.cuda.empty_cache()
+
+    clf, _, _ = tta_cls.build(tta_cls.get_args(flagship_argv(out_dir, "fp32", viewgen="native", extra=ENSEMBLE_ARGS)))
+    clf.setup(names)
+    A.reset_launch_counts()                 # the fused fp32 episode's launches, read just after
+    fused_logits, fused_aux = clf.adapt(views)
+    torch.cuda.synchronize()
+    out["reference_launches_by_shape"] = {" ".join(map(str, k)): v for k, v in A.LAUNCH_SHAPES.items()}
+    clf.attn = clf.reward_attn = "dense"
+    clf.setup(names)
+    dense_logits, dense_aux = clf.adapt(views)
+    same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
+    d_logits = float((fused_logits - dense_logits).abs().max())
+    d_losses = float((fused_aux["losses"] - dense_aux["losses"]).abs().max())
+    scale = float(dense_logits.abs().max())
+    log(f"REFERENCE ensemble fp32 full width, fused vs dense attention: selections equal={same_sel} "
+        f"max|d logits|={d_logits:.3e} (of max {scale:.3e}) max|d losses|={d_losses:.3e}")
+    if not same_sel or d_logits > 1e-3 * max(scale, 1.0) or d_losses > 1e-3:
+        raise AssertionError("fused-attention ensemble episode disagrees with the dense episode in fp32")
+    out.update(fp32_selected_equal=same_sel, fp32_max_abs_logit_diff=d_logits, fp32_max_abs_loss_diff=d_losses)
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -990,7 +1112,13 @@ def main():
               ("bwd", 24, 197, 12, False, "T197"),
               ("fwd", VIEWS, 197, 12, False, "encoder select"), ("fwd", n_sel, 197, 12, False, "encoder step"),
               ("fwd", 1, 197, 12, False, "encoder final"), ("fwd", n_sel, 257, 16, False, "encoder reward"),
-              ("bwd", n_sel, 197, 12, False, "encoder step")]
+              ("bwd", n_sel, 197, 12, False, "encoder step"),
+              # the reward ensemble's ViT-L/14@336px on a group's selected views, and zero-shot's batch
+              ("fwd", GROUP * n_sel, 577, 16, False, "ensemble reward 336"),
+              ("fwd", ZERO_SHOT_IMAGES, 577, 16, False, "zero-shot 336"),
+              ("fwd", ZERO_SHOT_IMAGES, 197, 12, False, "zero-shot B/16"),
+              ("fwd", 200, t_text, 16, True, "zero-shot RN50x64 text-setup"),
+              ("fwd", 200, t_text, 12, True, "zero-shot 336 text-setup")]
     entries = []
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
@@ -1032,6 +1160,28 @@ def main():
     for e in encoder:
         log("ENCODER_PATH " + json.dumps(e))
     paths += encoder
+    ensemble = [run_flagship(out_dir, "native", ENSEMBLE_IMAGES, extra=ENSEMBLE_ARGS, path="ensemble"),
+                run_flagship(out_dir, "fused", REWARD336_IMAGES, reward=REWARD336, path="fused reward 336"),
+                run_zero_shot(out_dir)]
+    for e in ensemble:
+        log("ENSEMBLE_PATH " + json.dumps(e))
+    ens, ens_ep = ensemble[0], ensemble_timing_and_reference(out_dir)
+    key336 = {dtype: " ".join(map(str, ("fwd", GROUP * n_sel, 577, 16, str(dtype))))
+              for dtype in (torch.bfloat16, torch.float32)}
+    log("ENSEMBLE " + json.dumps({
+        "img_per_s": ens["img_per_s"], "ms_per_group": 1e3 * sum(ens["group_seconds"][1:]) / (ens["groups"] - 1),
+        "host_views_ms_per_group": ens_ep["host_views_ms_per_group"],
+        "episode_ms_per_img": ens_ep["episode_ms_per_img"], "device_busy_ms": ens_ep["profile_device_busy_ms"],
+        "idle_share": ens_ep["profile_idle_share"], "kernels_per_group": ens_ep["profile_kernels"],
+        "peak_mem_gib": ens["peak_mem_gib"],
+        "launches_per_image_by_shape": {k: v / (ens["groups"] * GROUP) for k, v in ens["launches_by_shape"].items()},
+        "reward336_group_seconds": ensemble[1]["group_seconds"], "zero_shot_wall_s": ensemble[2]["wall_s"],
+        "zero_shot_top1": ensemble[2]["top1"], "zero_shot_peak_mem_gib": ensemble[2]["peak_mem_gib"],
+        **{k: ens_ep[k] for k in ("fp32_selected_equal", "fp32_max_abs_logit_diff", "fp32_max_abs_loss_diff")},
+        "launch_note": "per image over the whole run, the class features' text-setup launch once a run; device busy, "
+                       "idle share and kernels over one group's episode on views built beforehand"}))
+    reference = {"path": "ensemble reference fp32", "launches_by_shape": ens_ep["reference_launches_by_shape"]}
+    paths += ensemble + [reference]
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -1051,6 +1201,10 @@ def main():
     for variant in ("mma_long", "tf32x3_long"):   # the long backward: encoder TTA's
         if not any(e["name"].startswith("mha_bwd") and e["variant"] == variant and e["launches"] for e in line):
             raise AssertionError(f"the long backward {variant} was launched no time on a path")
+    # the forward above T = 257: the ensemble's ViT-L/14@336px, bf16 on the ensemble path, fp32 in its REFERENCE
+    for dtype, path in ((torch.bfloat16, "ensemble"), (torch.float32, "ensemble reference fp32")):
+        if not launched.get(key336[dtype], {}).get(path):
+            raise AssertionError(f"the forward at T=577 ({dtype}) was launched no time on the path {path}")
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:

@@ -27,7 +27,8 @@ def add_model_args(p: argparse.ArgumentParser):
 def add_reward_args(p: argparse.ArgumentParser):
     p.add_argument("--reward_arch", default="ViT-L/14")
     p.add_argument("--reward_checkpoint", default=None)
-    p.add_argument("--multiple_reward_models", type=int, default=0, help="not ported yet (refused when 1)")
+    p.add_argument("--multiple_reward_models", type=int, default=0,
+                   help="the reference's 3-CLIP reward ensemble: ViT-L/14@336px, RN50x64, ViT-L/14")
     p.add_argument("--reward_checkpoints", nargs="*", default=None, help="ckpts for the ensemble archs")
     p.add_argument("--sample_k", type=int, default=5)
     p.add_argument("--reward_process", type=int, default=1)
@@ -101,8 +102,16 @@ def load_policy(args, device):
     return clip_model.init_clip_params(cfg, seed=args.seed, dtype=dtype, device=device), cfg
 
 
+# the members of --multiple_reward_models, in the JAX package's order (`rlcf_tpu/cli/common.py:177`)
+ENSEMBLE_ARCHS = ["ViT-L/14@336px", "RN50x64", "ViT-L/14"]
+
+
 def build_reward(args, device):
-    from ..core.reward import RewardConfig, build_reward_model
+    """The reward: one CLIP (random weights from ``--seed`` + 1 without a
+    checkpoint), or with ``--multiple_reward_models`` the ensemble of
+    ``ENSEMBLE_ARCHS``, member i from ``--reward_checkpoints`` or seed
+    ``--seed`` + i + 1, confidence-weighted unless ``--weighted_scores 0``."""
+    from ..core.reward import ClipRewardEnsemble, RewardConfig, build_reward_model
     from ..utils.runtime import torch_dtype
 
     rcfg = RewardConfig(
@@ -112,7 +121,17 @@ def build_reward(args, device):
         amplify=bool(args.reward_amplify),
         default_resolution=args.resolution,
     )
+    dtype = torch_dtype(args.precision)
+    if args.multiple_reward_models:
+        ckpts = args.reward_checkpoints or [None] * len(ENSEMBLE_ARCHS)
+        if len(ckpts) != len(ENSEMBLE_ARCHS):
+            raise SystemExit(f"--reward_checkpoints takes one checkpoint per ensemble member ({ENSEMBLE_ARCHS})")
+        if not all(ckpts):
+            print("WARNING: initializing the ensemble members without a checkpoint randomly", file=sys.stderr)
+        members = [build_reward_model(a, rcfg, checkpoint=c, rng_seed=args.seed + i + 1, dtype=dtype, device=device)
+                   for i, (a, c) in enumerate(zip(ENSEMBLE_ARCHS, ckpts))]
+        return ClipRewardEnsemble(members, rcfg, weighted=bool(args.weighted_scores))
     if not args.reward_checkpoint:
         print(f"WARNING: no --reward_checkpoint; initializing {args.reward_arch} randomly", file=sys.stderr)
     return build_reward_model(args.reward_arch, rcfg, checkpoint=args.reward_checkpoint, rng_seed=args.seed + 1,
-                              dtype=torch_dtype(args.precision), device=device)
+                              dtype=dtype, device=device)

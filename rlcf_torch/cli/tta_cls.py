@@ -1,17 +1,21 @@
 """RLCF / TPT / KD prompt test-time adaptation for classification, on the card.
 
-The port of ``rlcf_tpu/cli/tta_cls.py`` for the patch-major token path: per
-group of ``--episode_group`` test images, ``--batch_size`` views each are
-built either on the device by the CUDA AugMix kernel (``--viewgen fused``,
-the default on the card) or on the host by the C++ pipeline (``--viewgen
-native``, the default on the CPU), and the classifier runs one batched
-episode group on the device.
+The port of ``rlcf_tpu/cli/tta_cls.py``: per group of ``--episode_group``
+test images, ``--batch_size`` views each are built either on the device by
+the CUDA AugMix kernel (``--viewgen fused``, the default on the card in token
+mode) or on the host by the C++ pipeline (``--viewgen native``), and the
+classifier runs one batched episode group on the device. Token mode (a ViT
+policy whose patch size tiles ``--resolution`` and a single reward) ships
+patch-major u8 tokens; otherwise (a ResNet policy, or the reward ensemble of
+``--multiple_reward_models``) the host builds NHWC u8 views for the
+classifier's ``adapt``, as the JAX package does.
 
 Example (random weights, no data):
   python -m rlcf_torch.cli.tta_cls --test_sets synthetic --limit 8 \\
       --arch ViT-B/16 --reward_arch ViT-L/14 --tta_steps 3 --lr 7e-3 \\
       --sample_k 3 --ctx_init a_photo_of_a --loss rlcf --viewgen fused
-Add ``--device cpu`` to run on the CPU.
+Add ``--device cpu`` to run on the CPU; ``--multiple_reward_models 1`` for
+the 3-CLIP reward (``--viewgen native``).
 """
 
 from __future__ import annotations
@@ -41,27 +45,29 @@ def get_args(argv=None):
     p.add_argument(
         "--viewgen", default="auto", choices=["auto", "fused", "device", "native"],
         help="view generator: 'fused' = the CUDA AugMix kernel builds every view on the device "
-        "(its plain version on the CPU); 'native' = the repo's C++ host pipeline emitting patch-major u8 "
-        "tokens; 'auto' = fused on cuda with a ViT policy in token mode, else native. 'device' is not "
+        "(its plain version on the CPU; token mode only); 'native' = the repo's C++ host pipeline, emitting "
+        "patch-major u8 tokens in token mode and NHWC u8 views otherwise; 'auto' = fused on cuda in token mode "
+        "(a ViT policy whose patch size tiles --resolution, a single reward), else native. 'device' is not "
         "ported yet",
     )
     return p.parse_args(argv)
 
 
-# what runs outside this CLI's token path, and what the port does not run yet
-NON_TOKEN_WAITS = ("NHWC views run through PromptTTAClassifier.adapt (and encoder TTA through "
-                   "rlcf_torch.cli.tune_cls); a policy outside token mode, a ResNet tower, comes with ROADMAP A8, "
-                   "and --viewgen device with the torch AugMix pipeline (ROADMAP A16)")
+# what the port runs outside token mode, and what it does not run yet
+NON_TOKEN_RUNS = ("outside token mode (a ResNet policy, a patch size that does not tile --resolution, or the reward "
+                  "ensemble of --multiple_reward_models) the port runs --viewgen native, NHWC views through "
+                  "PromptTTAClassifier.adapt, as the JAX package does; --viewgen device comes with the torch "
+                  "AugMix pipeline (ROADMAP A16)")
 
 
 def refuse_unported(args):
     """Exit with a message for options this slice of the port does not run."""
     waits = {
-        "--viewgen device": (args.viewgen == "device", "the torch AugMix pipeline (ROADMAP A16)"),
+        "--viewgen device": (args.viewgen == "device", "the torch AugMix pipeline (ROADMAP A16); the port "
+                             "runs --viewgen fused and --viewgen native"),
         "--cocoop": (args.cocoop, "CoCoOp (ROADMAP A10)"),
         "--tp > 1": (args.tp > 1, "class-axis tensor parallelism (ROADMAP A14)"),
         "bongard": ("bongard" in args.test_sets.split("/"), "Bongard-HOI (ROADMAP A10)"),
-        "--multiple_reward_models": (bool(args.multiple_reward_models), "reward ensembles (ROADMAP A8)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
         "--resume": (args.resume, "the progress journal"),
         "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),
@@ -101,6 +107,8 @@ def main(argv=None):
     if args.viewgen == "fused" and args.hard_aug:
         raise SystemExit("--viewgen fused does not implement --hard_aug (BYOL); the port runs --viewgen fused "
                          "or --viewgen native without it, and --hard_aug comes with ROADMAP A16")
+    if args.viewgen == "fused" and args.multiple_reward_models:   # before the towers are built
+        raise SystemExit(f"--viewgen fused needs a ViT policy in token mode; {NON_TOKEN_RUNS}")
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
@@ -116,26 +124,21 @@ def main(argv=None):
     from ..utils.logging_utils import RunLogger
 
     clf, cfg, device = build(args)
-    # token mode: a ViT policy whose patch size tiles the views (the port's
-    # classifier takes single ViT rewards only)
-    token_ok = cfg.is_vit and args.resolution % cfg.vision_patch_size == 0
+    # token mode: a ViT policy whose patch size tiles the views and a single
+    # reward, as the JAX CLI's token_ok
+    token_ok = cfg.is_vit and args.resolution % cfg.vision_patch_size == 0 and not args.multiple_reward_models
     if args.viewgen == "auto":
         args.viewgen = "fused" if device.type == "cuda" and token_ok else "native"
         print(f"viewgen: auto -> {args.viewgen}")
     if args.viewgen == "fused" and not token_ok:
-        raise SystemExit("--viewgen fused needs a ViT policy in token mode (its patch size tiling --resolution); "
-                         f"the port runs the token path only (--viewgen fused or native): {NON_TOKEN_WAITS}")
-    if args.viewgen == "native":
-        if not native.available():
-            raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
-        if not token_ok:
-            raise SystemExit("--viewgen native: the token path needs a ViT policy whose patch size tiles "
-                             f"--resolution; {NON_TOKEN_WAITS}")
+        raise SystemExit(f"--viewgen fused needs a ViT policy in token mode; {NON_TOKEN_RUNS}")
+    if args.viewgen == "native" and not native.available():
+        raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
     logger = RunLogger(args.output)
     save_hparams(args.output, vars(args))
     # the fused kernel also patchifies for a ViT reward at the view resolution
-    rcfg = clf.reward.cfg
-    p_reward = rcfg.vision_patch_size if rcfg.is_vit and rcfg.image_resolution == args.resolution else 0
+    rcfg = getattr(clf.reward, "cfg", None)
+    p_reward = rcfg.vision_patch_size if token_ok and rcfg.is_vit and rcfg.image_resolution == args.resolution else 0
 
     results = {}
     for set_id in args.test_sets.split("/"):
@@ -164,13 +167,19 @@ def main(argv=None):
                 views = fused_views(planar, torch.Generator(device=device).manual_seed(seed),
                                     n_views=args.batch_size, resolution=args.resolution, src_size=256,
                                     augmix=bool(args.augmix), p_policy=cfg.vision_patch_size, p_reward=p_reward)
-            else:
+            elif token_ok:
                 views = native.generate_views_native_patch_u8(
                     imgs, n_views=args.batch_size, p_policy=cfg.vision_patch_size,
                     resolution=args.resolution, augmix=bool(args.augmix), seed=seed,
                 )
+            else:  # NHWC u8 views from the same seeded stream, normalized on the device
+                views = native.generate_views_native_u8(imgs, n_views=args.batch_size, resolution=args.resolution,
+                                                        augmix=bool(args.augmix), seed=seed)
             counter[0] += 1
-            logits, _ = clf.adapt_tokens(*views) if isinstance(views, tuple) else clf.adapt_tokens(views)
+            if not token_ok:
+                logits, _ = clf.adapt(views)
+            else:
+                logits, _ = clf.adapt_tokens(*views) if isinstance(views, tuple) else clf.adapt_tokens(views)
             logits = logits.float().cpu().numpy()  # synchronizes with the device
             group_seconds.append(time.perf_counter() - t0)
             counts = topk_correct(logits, np.asarray(group_labels))

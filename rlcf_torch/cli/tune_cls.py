@@ -3,7 +3,9 @@ family), on the card: the port of ``rlcf_tpu/cli/tune_cls.py``.
 
 Tunes the CLIP visual tower per test image (optionally only its
 normalization affines), with momentum-EMA re-anchoring of the episodes'
-starting point. ViT policy and a single ViT reward at the views' resolution.
+starting point. A ViT policy and a single reward (ViT or ResNet; the views
+resized where it takes another resolution); a ResNet policy comes with
+ROADMAP A8 (rest).
 
 Views: the JAX entry point draws them with its XLA view generator
 (``rlcf_tpu/data/augment.py::make_view_generator``), whose port is ROADMAP
@@ -55,11 +57,21 @@ def get_args(argv=None):
 
 
 def refuse_unported(args):
-    """Exit with a message for options this slice of the port does not run."""
+    """Exit with a message for options this slice of the port does not run,
+    and for the reward ensemble, which encoder TTA does not take in the JAX
+    package either."""
+    if args.multiple_reward_models:
+        raise SystemExit("rlcf_torch: --multiple_reward_models: encoder TTA takes a single reward, as the JAX "
+                         "package's EncoderTTAClassifier does; the reward ensemble serves prompt TTA "
+                         "(rlcf_torch.cli.tta_cls)")
+    from ..models.clip import CLIP_ARCHS
+
+    resnet = not args.clip_checkpoint and args.arch in CLIP_ARCHS and not CLIP_ARCHS[args.arch].is_vit
     waits = {
         "--dp > 1": (args.dp > 1, "episode data parallelism (ROADMAP A14)"),
-        "--prior_strength >= 0": (args.prior_strength >= 0, "BN-prior statistics of ResNet towers (ROADMAP A8)"),
-        "--multiple_reward_models": (bool(args.multiple_reward_models), "reward ensembles (ROADMAP A8)"),
+        "--prior_strength >= 0": (args.prior_strength >= 0,
+                                  "BN-prior statistics of a ResNet policy (ROADMAP A8 (rest))"),
+        f"--arch {args.arch} (a ResNet policy)": (resnet, "encoder TTA through ResNet towers (ROADMAP A8 (rest))"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
         "--decode native": (args.decode == "native", "the native decoder binding (ROADMAP A15)"),
         "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),

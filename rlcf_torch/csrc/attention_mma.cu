@@ -51,6 +51,27 @@
 //   * the output tile goes through the warp's Q tile in shared memory and
 //     leaves as 16-byte pieces, 128 contiguous bytes a row.
 //
+// Longer sequences (258 <= T <= 577: ViT-L/14 at 336 px, T = 24 * 24 + 1, the
+// first tower of the reward ensemble): a warp's whole score rows no longer fit
+// in registers (37 blocks of 16 keys, 296 fp32 a thread), and an online softmax
+// would round the unnormalised P, another function. So two sweeps over the
+// keys per block of 128 query rows (`mha_fwd_mma_xlong`):
+//   * sweep 1 computes S chunk by chunk (64 keys a chunk, wgmma as above) and
+//     keeps only each row's running max and sum (the sum rescaled when the max
+//     grows); sweep 2 computes S again, forms P = 2^(v - max) / sum with the
+//     final max and sum, rounds it to bf16 and accumulates P.V in fp32. The
+//     function is the long kernel's; the second Q.K^T adds half again to the
+//     products;
+//   * a CTA is two warpgroups, 128 query rows, that share each chunk of K
+//     and V: half the traffic from L2 into shared memory of one warpgroup a
+//     CTA, which was slower at the ensemble's shape (PERF.md, PR 8);
+//   * K and V stream through a ring of three shared-memory slots fed by
+//     cp.async, each slot one chunk of K (sweep 1) or of K and V (sweep 2),
+//     two chunks in flight while one is multiplied: 65 KB a CTA, so that
+//     two CTAs share an SM whatever T is (one head's whole K and V at T = 577
+//     would take 144 KB and leave one CTA an SM);
+//   * the last chunk multiplies only the blocks of 16 keys it holds.
+//
 // Short sequences (T <= 16, the text tower's prompts): per-CTA and per-launch
 // overhead, not arithmetic: a head's whole attention is one m16 tile, 8
 // mma.sync for S and 8 for P.V. One CTA per sequence (per 16 heads of it), one warp
@@ -279,6 +300,189 @@ mha_fwd_mma_short(const bf16* __restrict__ qkv, const float* __restrict__ mask, 
   store_tile(o, qs, out + static_cast<size_t>(b) * t * hd + h * kD, t, hd, lane);
 }
 
+// ---- the longer regime (258 <= T <= 577): two sweeps over chunks of 64 keys
+
+constexpr int kXlWarpgroups = 2;  // a CTA's warpgroups, 64 query rows each, sharing each K and V chunk
+constexpr int kXlMinBlocks = 2;   // CTAs an SM should hold
+constexpr int kXlThreads = 128 * kXlWarpgroups;
+constexpr int kXlRows = 64 * kXlWarpgroups;
+constexpr int kXlChunkBytes = 4 * kTileBytes;  // 64 key rows
+constexpr int kXlStages = 3;                     // ring slots, each a K chunk and a V chunk
+// Q, the ring, room to align to 1024 bytes
+constexpr int kXlSmem = (4 * kXlWarpgroups + 2 * kXlStages * 4) * kTileBytes + 1024;
+
+// S = Q.K^T for the chunk's KB blocks of 16 keys (one m64n64 product a depth
+// step for a whole chunk, else KB m64n16 ones), then v = s * scale * log2(e)
+// (+ mask * log2(e)); columns >= t get -inf. Rows ra = row0 + lane / 4 and
+// ra + 8, columns k0 + 16 kb + 8 nt + 2 (lane % 4) and the next.
+template <int KB>
+__device__ __forceinline__ void xl_scores(float (&s)[4][2][4], const uint32_t (&qa)[4][4], uint32_t kaddr,
+                                          const float* __restrict__ mask, int t, int ra, int k0, float c, int lane) {
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (KB == 4) {
+      wgmma_n64<0>(&s[0][0][0], qa[k], wgmma_desc(kaddr + k * 32), k > 0);
+    } else {
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        wgmma_n16(&s[kb][0][0], qa[k], wgmma_desc(kaddr + kb * kTileBytes + k * 32), k > 0);
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait();
+  const int rb = ra + 8;
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 16 * kb + 8 * nt + 2 * (lane & 3) + e;
+        float xa = 0.f, xb = 0.f;
+        if (mask != nullptr && col < t) {
+          if (ra < t) xa = __ldg(mask + static_cast<size_t>(ra) * t + col);
+          if (rb < t) xb = __ldg(mask + static_cast<size_t>(rb) * t + col);
+        }
+        s[kb][nt][e] = col < t ? fmaf(xa, kLog2e, s[kb][nt][e] * c) : -INFINITY;
+        s[kb][nt][2 + e] = col < t ? fmaf(xb, kLog2e, s[kb][nt][2 + e] * c) : -INFINITY;
+      }
+    }
+  }
+}
+
+// Sweep 1: the rows' running max m and sum l (the thread's own columns; the
+// quad's four partial sums share one max).
+template <int KB>
+__device__ __forceinline__ void xl_stats(const float (&s)[4][2][4], float (&m)[2], float (&l)[2]) {
+  float cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      cm[0] = fmaxf(cm[0], fmaxf(s[kb][nt][0], s[kb][nt][1]));
+      cm[1] = fmaxf(cm[1], fmaxf(s[kb][nt][2], s[kb][nt][3]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // key 0 is in chunk 0, so m is finite from there on
+    const float nm = fmaxf(m[r], quad_max(cm[r]));
+    l[r] *= fast_exp2(m[r] - nm);
+    m[r] = nm;
+  }
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l[0] += fast_exp2(s[kb][nt][e] - m[0]);
+        l[1] += fast_exp2(s[kb][nt][2 + e] - m[1]);
+      }
+    }
+  }
+}
+
+// Sweep 2: P = 2^(v - m) / l rounded to bf16 as the A operands of P.V, and
+// O += P.V over the chunk's KB blocks of keys.
+template <int KB>
+__device__ __forceinline__ void xl_pv(float (&o)[8][4], const float (&s)[4][2][4], const float (&m)[2],
+                                      const float (&il)[2], uint32_t vaddr) {
+  uint32_t p[4][4];
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      p[kb][2 * nt] = pack_bf16(fast_exp2(s[kb][nt][0] - m[0]) * il[0], fast_exp2(s[kb][nt][1] - m[0]) * il[0]);
+      p[kb][2 * nt + 1] = pack_bf16(fast_exp2(s[kb][nt][2] - m[1]) * il[1], fast_exp2(s[kb][nt][3] - m[1]) * il[1]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) wgmma_n64<1>(&o[0][0], p[kb], wgmma_desc(vaddr + kb * kTileBytes), 1);
+  wgmma_commit();
+  wgmma_wait();
+}
+
+// CTA = kXlWarpgroups warpgroups = (sequence, head, block of kXlRows query
+// rows), a warp owns 16 of the rows; the warpgroups share the ring. Stage j of
+// the ring is K chunk j for j < nc (sweep 1) and K and V chunk j - nc after
+// (sweep 2); Q joins stage 0's cp.async group.
+__global__ void __launch_bounds__(kXlThreads, kXlMinBlocks)
+mha_fwd_mma_xlong(const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out, int t,
+                  int heads, int nqb, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x / nqb, qrow0 = (blockIdx.x % nqb) * kXlRows;
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD;
+  const size_t stride = 3 * static_cast<size_t>(hd);
+  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  unsigned char* qs = smem;
+  unsigned char* ring = qs + 4 * kXlWarpgroups * kTileBytes;
+  const int nc = (t + 63) / 64;
+
+  auto issue = [&](int j) {  // one cp.async group a stage, empty past the last
+    if (j < 2 * nc) {
+      unsigned char* slot = ring + (j % kXlStages) * 2 * kXlChunkBytes;
+      const int k0 = 64 * (j < nc ? j : j - nc);
+      stage_rows(slot, base + hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride, threadIdx.x, kXlThreads);
+      if (j >= nc) {
+        stage_rows(slot + kXlChunkBytes, base + 2 * hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride,
+                   threadIdx.x, kXlThreads);
+      }
+    }
+    cp_async_commit();
+  };
+  stage_rows(qs, base + static_cast<size_t>(qrow0) * stride, kXlRows, t - qrow0, stride, threadIdx.x, kXlThreads);
+  issue(0);
+  issue(1);
+
+  const int row0 = qrow0 + warp * 16, ra = row0 + (lane >> 2);
+  const float c = scale * kLog2e;
+  uint32_t qa[4][4];
+  float s[4][2][4];
+  float o[8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, il[2];
+  for (int j = 0; j < 2 * nc; ++j) {
+    cp_async_wait<1>();
+    fence_async_proxy();
+    __syncthreads();  // stage j is in, and every warp is done with stage j - 1, whose slot stage j + 2 takes
+    issue(j + 2);
+    if (j == 0) load_q(qa, qs + warp * kTileBytes, lane);
+    const uint32_t slot = smem_u32(ring + (j % kXlStages) * 2 * kXlChunkBytes);
+    const int k0 = 64 * (j < nc ? j : j - nc);
+    const int nkb = min(4, (t - k0 + 15) / 16);  // blocks of 16 keys the chunk holds (uniform)
+    if (j == nc) {
+      il[0] = 1.f / quad_sum(l[0]);
+      il[1] = 1.f / quad_sum(l[1]);
+    }
+#define RLCF_XL_CHUNK(KB)                                       \
+  xl_scores<KB>(s, qa, slot, mask, t, ra, k0, c, lane);         \
+  if (j < nc) {                                                 \
+    xl_stats<KB>(s, m, l);                                      \
+  } else {                                                      \
+    xl_pv<KB>(o, s, m, il, slot + kXlChunkBytes);               \
+  }
+    if (nkb == 4) {
+      RLCF_XL_CHUNK(4)
+    } else if (nkb == 3) {
+      RLCF_XL_CHUNK(3)
+    } else if (nkb == 2) {
+      RLCF_XL_CHUNK(2)
+    } else {
+      RLCF_XL_CHUNK(1)
+    }
+#undef RLCF_XL_CHUNK
+  }
+  if (row0 < t) {
+    store_tile(o, qs + warp * kTileBytes, out + (static_cast<size_t>(b) * t + row0) * hd + h * kD, t - row0, hd,
+               lane);
+  }
+}
+
 template <int KB, int MINB>
 int launch_long(const bf16* qkv, const float* mask, bf16* out, int batch, int t, int heads, float scale,
                 cudaStream_t stream) {
@@ -298,7 +502,7 @@ int launch_long(const bf16* qkv, const float* mask, bf16* out, int batch, int t,
 
 extern "C" {
 
-// bf16 only. mask may be null. 1 <= T <= 257 (the wrapper sends T <= 16 to the short kernel).
+// bf16 only. mask may be null. 1 <= T <= 257 (the wrapper sends 17 <= T <= 257 here).
 int rlcf_mha_fwd_mma_long(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
                           void* stream) {
   if (bad_args(batch, t, heads)) return kBadArgs;
@@ -312,6 +516,21 @@ int rlcf_mha_fwd_mma_long(const void* qkv, const void* mask, void* out, int batc
   if (nkb <= 9) return launch_long<9, 3>(x, m, o, batch, t, heads, scale, s);
   if (nkb <= 13) return launch_long<13, 3>(x, m, o, batch, t, heads, scale, s);
   return launch_long<17, 2>(x, m, o, batch, t, heads, scale, s);
+}
+
+// bf16 only. mask may be null. 1 <= T <= 577 (the wrapper sends 258 <= T <= 577 here).
+int rlcf_mha_fwd_mma_xlong(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
+                           void* stream) {
+  if (bad_args(batch, t, heads, kMaxTFwd)) return kBadArgs;
+  static const cudaError_t attr =  // once per process
+      cudaFuncSetAttribute(mha_fwd_mma_xlong, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int nqb = (t + kXlRows - 1) / kXlRows;
+  const long long ctas = static_cast<long long>(batch) * heads * nqb;
+  if (ctas > 0x7fffffffLL) return kBadArgs;
+  mha_fwd_mma_xlong<<<static_cast<unsigned>(ctas), kXlThreads, kXlSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out), t, heads, nqb, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 only. mask may be null. 1 <= T <= 16.

@@ -19,14 +19,15 @@ using bf16 = __nv_bfloat16;
 constexpr int kD = 64;             // head dimension
 constexpr int kRowBytes = 128;     // one head row in bf16
 constexpr int kTileBytes = 2048;   // 16 rows
-constexpr int kMaxT = 257;
+constexpr int kMaxT = 257;         // longest sequence of the backward kernels (ViT-L/14 at 224 px)
+constexpr int kMaxTFwd = 577;      // of the forward kernels (ViT-L/14 at 336 px)
 constexpr int kShortT = 16;        // longest sequence of the short regime
 constexpr int kBadArgs = 9001;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 
-inline bool bad_args(int batch, int t, int heads) {
-  return batch < 1 || heads < 1 || t < 1 || t > kMaxT || static_cast<long long>(batch) * heads > 0x7fffffffLL;
+inline bool bad_args(int batch, int t, int heads, int max_t = kMaxT) {
+  return batch < 1 || heads < 1 || t < 1 || t > max_t || static_cast<long long>(batch) * heads > 0x7fffffffLL;
 }
 
 // byte offset of 16-byte chunk c of row r in a swizzled tile of 128-byte rows

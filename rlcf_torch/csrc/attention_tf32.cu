@@ -16,7 +16,8 @@
 //
 // What bounds it, and what the design does about it.
 //
-// Long sequences (17 <= T <= 257, the vision towers): operations. At the
+// Long sequences (17 <= T <= 577, the vision towers up to ViT-L/14 at 336 px,
+// T = 577): operations. At the
 // policy tower's shape (B=256, T=197, H=12) qkv and out are 620 MB, 0.185 ms
 // of device memory time, and the 30.5 GFLOP of fp32 products are 0.185 ms at
 // the 3xTF32 rate (a third of the 495 TFLOP/s of TF32). A first design on
@@ -40,7 +41,10 @@
 //     A operands of P.V, whose chunk sum lands in fresh accumulators and is
 //     added to the rescaled output in fp32. The function casts P to fp32
 //     before P.V, the identity, so normalising at the end is the same
-//     function. 100 KB of shared memory and 255 registers: two CTAs an SM;
+//     function, at any T: the chunks stream, so shared memory does not grow
+//     with T and the kernel serves 258 <= T <= 577 as it is (one head's K and
+//     V at T = 577 would take 144 KB each). 100 KB of shared memory and 255
+//     registers: two CTAs an SM;
 //   * the ragged edge: key columns >= T get -inf (probability 0), rows >= T of
 //     a chunk are zero-filled and never read from device memory, query rows
 //     >= T read as 0 and are not stored.
@@ -256,10 +260,10 @@ mha_fwd_tf32x6_short(const float* __restrict__ qkv, const float* __restrict__ ma
 
 extern "C" {
 
-// fp32 only. mask may be null. 1 <= T <= 257 (the wrapper sends T <= 16 to the short kernel).
+// fp32 only. mask may be null. 1 <= T <= 577 (the wrapper sends T <= 16 to the short kernel).
 int rlcf_mha_fwd_tf32x3_long(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
                              void* stream) {
-  if (bad_args(batch, t, heads)) return kBadArgs;
+  if (bad_args(batch, t, heads, kMaxTFwd)) return kBadArgs;
   static const cudaError_t attr =  // once per process
       cudaFuncSetAttribute(mha_fwd_tf32x3_long, cudaFuncAttributeMaxDynamicSharedMemorySize, kLongSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);

@@ -1,7 +1,8 @@
-"""Dataset loaders for the flagship episode stream (the part of
-``rlcf_tpu/data/datasets.py`` the classification CLI needs): ImageFolder
+"""Dataset loaders for the episode stream and zero-shot evaluation (the part
+of ``rlcf_tpu/data/datasets.py`` the classification CLIs need): ImageFolder
 layouts of ImageNet and its OOD variants, a synthetic set for runs without
-data, the canonical-image iterator and a background prefetcher.
+data, the canonical-image and the preprocessed-batch iterators and a
+background prefetcher.
 
 Loaders expose ``__len__`` and ``__getitem__ -> (uint8 HWC image, label)``.
 """
@@ -13,7 +14,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from .transforms import center_crop, load_image, resize_short_side_pil
+from .transforms import center_crop, load_image, preprocess_pil, resize_short_side_pil
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff")
 
@@ -83,6 +84,31 @@ def build_dataset(set_id: str, data_root: str, corruption: str = "defocus_blur",
     raise KeyError(f"unknown dataset id {set_id!r}; known: {['synthetic'] + sorted(ID_TO_DIRNAME)}")
 
 
+def _order(n: int, shuffle: bool, seed: int, limit: Optional[int]) -> np.ndarray:
+    """The (shuffle, seed, limit)-determined sample order of ``rlcf_tpu``'s iterators."""
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    return order if limit is None else order[:limit]
+
+
+def iter_batches(
+    dataset,
+    batch_size: int,
+    resolution: int = 224,
+    shuffle: bool = True,
+    seed: int = 0,
+    limit: Optional[int] = None,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (images [B, R, R, 3] float32, CLIP-normalized; labels [B] int32)
+    with the host's CLIP eval transform, for zero-shot evaluation."""
+    order = _order(len(dataset), shuffle, seed, limit)
+    for start in range(0, len(order), batch_size):
+        samples = [dataset[int(i)] for i in order[start : start + batch_size]]
+        yield (np.stack([preprocess_pil(img, resolution) for img, _ in samples]),
+               np.array([label for _, label in samples], dtype=np.int32))
+
+
 def iter_canonical(
     dataset,
     size: int = 256,
@@ -93,12 +119,7 @@ def iter_canonical(
     """Yield (canonical [size, size, 3] u8, label) for the episode stream, in
     the (shuffle, seed, limit)-determined order of ``rlcf_tpu``'s iterator:
     bicubic short-side resize + center crop on the host."""
-    order = np.arange(len(dataset))
-    if shuffle:
-        np.random.default_rng(seed).shuffle(order)
-    if limit is not None:
-        order = order[:limit]
-    for i in order:
+    for i in _order(len(dataset), shuffle, seed, limit):
         img, label = dataset[int(i)]
         yield center_crop(resize_short_side_pil(img, size), size), label
 

@@ -2,8 +2,10 @@
 
 The port's own loader: it compiles the C++ source with ``g++`` into the
 package's git-ignored build directory (``rlcf_torch/_build/``) at first use
-and never writes into ``native/``. Only the patch-major u8 view generator of
-the flagship's ``--viewgen native`` path is bound.
+and never writes into ``native/``. Two view generators are bound: the
+patch-major u8 one of the token path and the NHWC u8 one of the NHWC path
+(``tta_cls --viewgen native`` with a policy outside token mode or a reward
+ensemble), both from one seeded RNG stream.
 """
 
 from __future__ import annotations
@@ -52,6 +54,11 @@ def _lib():
         ctypes.c_int, u8p, ctypes.c_int, u8p, ctypes.c_int,
     ]
     lib.rlcf_generate_views_batch_patch_u8.restype = ctypes.c_int
+    lib.rlcf_generate_views_batch_u8.argtypes = [
+        u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_uint64, u8p, ctypes.c_int,
+    ]
+    lib.rlcf_generate_views_batch_u8.restype = None
     lib.rlcf_native_version.restype = ctypes.c_int
     return lib
 
@@ -62,6 +69,29 @@ def available() -> bool:
         return _lib().rlcf_native_version() >= 1
     except Exception:
         return False
+
+
+def generate_views_native_u8(
+    images: np.ndarray,
+    n_views: int,
+    resolution: int = 224,
+    augmix: bool = True,
+    severity: float = 1.0,
+    crop_min: float = 0.08,
+    seed: int = 0,
+    n_threads: int = 0,
+) -> np.ndarray:
+    """[N, H, W, 3] u8 -> NHWC u8 views [N, V, R, R, 3], the views of
+    ``generate_views_native_patch_u8`` for the same seed (the same views as
+    ``rlcf_tpu``'s binding), normalized on the device by the classifier."""
+    images = np.ascontiguousarray(images, dtype=np.uint8)
+    n, h, w, _ = images.shape
+    out = np.empty((n, n_views, resolution, resolution, 3), np.uint8)
+    _lib().rlcf_generate_views_batch_u8(
+        images, n, h, w, n_views, resolution, int(augmix), float(severity), float(crop_min),
+        np.uint64(seed), out, n_threads,
+    )
+    return out
 
 
 def generate_views_native_patch_u8(

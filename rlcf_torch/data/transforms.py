@@ -1,5 +1,5 @@
 """Host image helpers and the CLIP normalization constants (the part of
-``rlcf_tpu/data/transforms.py`` the flagship stream needs)."""
+``rlcf_tpu/data/transforms.py`` the episode stream and zero-shot need)."""
 
 from __future__ import annotations
 
@@ -40,3 +40,14 @@ def center_crop(img: np.ndarray, size: int) -> np.ndarray:
     top = (h - size) // 2
     left = (w - size) // 2
     return img[top : top + size, left : left + size]
+
+
+def normalize(img: np.ndarray) -> np.ndarray:
+    """uint8 HWC -> CLIP-normalized float32 HWC."""
+    return (img.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+
+
+def preprocess_pil(img: np.ndarray, resolution: int = 224) -> np.ndarray:
+    """The CLIP eval transform on the host: bicubic short-side resize,
+    center crop, normalize -> float32 [resolution, resolution, 3]."""
+    return normalize(center_crop(resize_short_side_pil(img, resolution), resolution))

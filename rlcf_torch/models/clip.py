@@ -1,11 +1,13 @@
-"""CLIP ViT image tower and text tower as plain functions on a parameter
-dict (the counterpart of ``rlcf_tpu/models/clip.py``; the ResNet towers are
-not ported yet).
+"""CLIP image towers (ViT and ModifiedResNet) and text tower as plain
+functions on a parameter dict (the counterpart of ``rlcf_tpu/models/clip.py``).
 
 Parameters keep the JAX package's pytree layout (``visual``/``text`` dicts,
 transformer blocks stacked on a leading layer axis, ``[in, out]`` linears,
-the patch-embedding conv as HWIO), so ``models/convert.py`` can carry JAX
-parameters across unchanged. Images are NHWC, patch tokens patch-major.
+the ViT patch-embedding conv as HWIO), so ``models/convert.py`` carries JAX
+parameters across unchanged, except the ResNet towers' convolution kernels,
+which are OIHW in the channels_last memory format here (``models/layers.py``).
+Images are NHWC, patch tokens patch-major. Encoder TTA through a ResNet
+policy and its BN-prior statistics come with ROADMAP A8 (rest).
 """
 
 from __future__ import annotations
@@ -65,15 +67,21 @@ CLIP_ARCHS = {
     "ViT-B/16": _cfg("ViT-B/16", 512, 224, 12, 768, 16, 512, 12),
     "ViT-L/14": _cfg("ViT-L/14", 768, 224, 24, 1024, 14, 768, 12),
     "ViT-L/14@336px": _cfg("ViT-L/14@336px", 768, 336, 24, 1024, 14, 768, 12),
+    "RN50": _cfg("RN50", 1024, 224, (3, 4, 6, 3), 64, None, 512, 12),
+    "RN101": _cfg("RN101", 512, 224, (3, 4, 23, 3), 64, None, 512, 12),
+    "RN50x4": _cfg("RN50x4", 640, 288, (4, 6, 10, 6), 80, None, 640, 12),
+    "RN50x16": _cfg("RN50x16", 768, 384, (6, 8, 18, 8), 96, None, 768, 12),
+    "RN50x64": _cfg("RN50x64", 1024, 448, (3, 15, 36, 10), 128, None, 1024, 12),
     # Tiny architectures for tests (same code paths).
     "test-tiny-vit": _cfg("test-tiny-vit", 32, 32, 2, 64, 8, 64, 2, vocab_size=512),
+    "test-tiny-rn": _cfg("test-tiny-rn", 64, 64, (1, 1, 1, 1), 16, None, 64, 2, vocab_size=512),
     "test-small": _cfg("test-small", 64, 64, 2, 64, 16, 64, 2),
 }
 
 
 def get_config(arch: str) -> ClipConfig:
     if arch not in CLIP_ARCHS:
-        raise KeyError(f"architecture {arch!r} is not ported (ViT towers only); known: {sorted(CLIP_ARCHS)}")
+        raise KeyError(f"unknown architecture {arch!r}; known: {sorted(CLIP_ARCHS)}")
     return CLIP_ARCHS[arch]
 
 
@@ -85,24 +93,25 @@ def get_config(arch: str) -> ClipConfig:
 def init_clip_params(cfg: ClipConfig, seed: int = 0, dtype=torch.float32, device="cpu"):
     """Random CLIP parameters (the CLIP init scheme) from ``seed``, made on
     ``device`` with a generator of that device."""
-    if not cfg.is_vit:
-        raise NotImplementedError("ResNet towers are not ported yet")
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     normal = lambda shape, std: (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
     ones = lambda n: torch.ones(n, dtype=dtype, device=device)
     zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
-    W, P = cfg.vision_width, cfg.vision_patch_size
-    scale = W**-0.5
-    visual = {
-        "conv_w": normal((P, P, 3, W), scale),
-        "class_emb": normal((W,), scale),
-        "pos_emb": normal((cfg.grid_size**2 + 1, W), scale),
-        "ln_pre_w": ones(W), "ln_pre_b": zeros(W),
-        "blocks": L.init_transformer_blocks(gen, cfg.vision_layers, W, dtype, device),
-        "ln_post_w": ones(W), "ln_post_b": zeros(W),
-        "proj": normal((W, cfg.embed_dim), scale),
-    }
+    if cfg.is_vit:
+        W, P = cfg.vision_width, cfg.vision_patch_size
+        scale = W**-0.5
+        visual = {
+            "conv_w": normal((P, P, 3, W), scale),
+            "class_emb": normal((W,), scale),
+            "pos_emb": normal((cfg.grid_size**2 + 1, W), scale),
+            "ln_pre_w": ones(W), "ln_pre_b": zeros(W),
+            "blocks": L.init_transformer_blocks(gen, cfg.vision_layers, W, dtype, device),
+            "ln_post_w": ones(W), "ln_post_b": zeros(W),
+            "proj": normal((W, cfg.embed_dim), scale),
+        }
+    else:
+        visual = _init_resnet(cfg, normal, ones, zeros)
     tw = cfg.text_width
     text = {
         "token_embedding": normal((cfg.vocab_size, tw), 0.02),
@@ -115,8 +124,44 @@ def init_clip_params(cfg: ClipConfig, seed: int = 0, dtype=torch.float32, device
     return {"visual": visual, "text": text, "logit_scale": logit_scale}
 
 
+def _init_resnet(cfg: ClipConfig, normal, ones, zeros):
+    """The ModifiedResNet's random parameters (``_init_resnet`` of the JAX
+    package): He-normal convolutions (OIHW, channels_last), BatchNorm at the
+    identity (running mean 0 and variance 1, fp32), the attention pool's
+    projections at std width^-0.5."""
+    def conv(cout, cin, k):
+        w = normal((cout, cin, k, k), (2.0 / (cin * k * k)) ** 0.5)
+        return w.contiguous(memory_format=torch.channels_last)
+
+    def bn(c):
+        return {"w": ones(c), "b": zeros(c), "mean": zeros(c).float(), "var": ones(c).float()}
+
+    W = cfg.vision_width
+    stem = {"conv1_w": conv(W // 2, 3, 3), "bn1": bn(W // 2), "conv2_w": conv(W // 2, W // 2, 3), "bn2": bn(W // 2),
+            "conv3_w": conv(W, W // 2, 3), "bn3": bn(W)}
+    groups, inplanes = [], W
+    for g, n_blocks in enumerate(cfg.vision_layers):
+        planes = W * 2**g
+        blocks = []
+        for b in range(n_blocks):
+            block = {"conv1_w": conv(planes, inplanes, 1), "bn1": bn(planes), "conv2_w": conv(planes, planes, 3),
+                     "bn2": bn(planes), "conv3_w": conv(planes * 4, planes, 1), "bn3": bn(planes * 4)}
+            if b == 0:  # every group's first block changes the width (and strides past the first group)
+                block["downsample"] = {"conv_w": conv(planes * 4, inplanes, 1), "bn": bn(planes * 4)}
+            blocks.append(block)
+            inplanes = planes * 4
+        groups.append(blocks)
+    C = W * 32
+    std = C**-0.5
+    attnpool = {"pos_emb": normal(((cfg.image_resolution // 32) ** 2 + 1, C), std),
+                "q_w": normal((C, C), std), "q_b": zeros(C), "k_w": normal((C, C), std), "k_b": zeros(C),
+                "v_w": normal((C, C), std), "v_b": zeros(C), "c_w": normal((C, cfg.embed_dim), std),
+                "c_b": zeros(cfg.embed_dim)}
+    return {"stem": stem, "groups": groups, "attnpool": attnpool}
+
+
 # ---------------------------------------------------------------------------
-# Vision tower (ViT)
+# Vision towers
 # ---------------------------------------------------------------------------
 
 
@@ -136,11 +181,12 @@ def _vit_post_patch(p, cfg: ClipConfig, x, pool=True, attn="dense", remat=False)
 
 
 def encode_image(params, cfg: ClipConfig, images, pool=True, attn="dense", remat=False):
-    """NHWC images (normalized) -> [B, embed_dim]; the patch embedding is a
-    strided convolution, as in the reference tower. ``remat``: see
-    ``layers.transformer``."""
+    """NHWC images (normalized) -> [B, embed_dim]. A ViT's patch embedding is
+    a strided convolution, as in the reference tower (``remat``: see
+    ``layers.transformer``); a ResNet tower ignores ``pool``, ``attn`` and
+    ``remat`` (its attention pool is dense), as the JAX package's does."""
     if not cfg.is_vit:
-        raise NotImplementedError("ResNet towers are not ported yet")
+        return _resnet_encode(params["visual"], cfg, images)
     p = params["visual"]
     w = p["conv_w"]  # HWIO
     x = F.conv2d(images.to(w.dtype).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=cfg.vision_patch_size)
@@ -181,6 +227,58 @@ def encode_image_tokens(params, cfg: ClipConfig, tokens, pool=True, attn="dense"
     return _vit_post_patch(p, cfg, x, pool=pool, attn=attn, remat=remat)
 
 
+def _bottleneck(x, p, stride: int):
+    """ModifiedResNet bottleneck on NCHW (channels_last): 1x1, 3x3, an
+    average pool where it strides, 1x1, and the downsampling shortcut."""
+    out = F.relu(L.batch_norm_2d(L.conv2d(x, p["conv1_w"]), p["bn1"]))
+    out = F.relu(L.batch_norm_2d(L.conv2d(out, p["conv2_w"], padding=1), p["bn2"]))
+    if stride > 1:
+        out = L.avg_pool(out, stride)
+    out = L.batch_norm_2d(L.conv2d(out, p["conv3_w"]), p["bn3"])
+    if "downsample" in p:
+        identity = x if stride == 1 else L.avg_pool(x, stride)
+        identity = L.batch_norm_2d(L.conv2d(identity, p["downsample"]["conv_w"]), p["downsample"]["bn"])
+    else:
+        identity = x
+    return F.relu(out + identity)
+
+
+def _attention_pool(x, p, n_heads: int):
+    """QKV attention pool (`TPT/clip/model.py:58-91`) over an NCHW
+    (channels_last) feature map -> [B, embed_dim]: the spatial mean token
+    first, one query (the mean token's), fp32 logits divided by
+    sqrt(head_dim), probabilities cast to x's dtype. Dense: one query row."""
+    B, C, H, W = x.shape
+    tokens = x.flatten(2).transpose(1, 2)   # [B, HW, C]
+    mean_tok = tokens.float().mean(dim=1, keepdim=True).to(x.dtype)
+    tokens = torch.cat([mean_tok, tokens], dim=1) + p["pos_emb"].to(x.dtype)
+    head_dim = C // n_heads
+    T = tokens.shape[1]
+    q = L.linear(tokens[:, :1], p["q_w"], p["q_b"]).reshape(B, 1, n_heads, head_dim).transpose(1, 2)
+    k = L.linear(tokens, p["k_w"], p["k_b"]).reshape(B, T, n_heads, head_dim).transpose(1, 2)
+    v = L.linear(tokens, p["v_w"], p["v_b"]).reshape(B, T, n_heads, head_dim).transpose(1, 2)
+    logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(head_dim)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = (probs.float() @ v.float()).to(x.dtype)   # [B, heads, 1, head_dim]
+    return L.linear(out.transpose(1, 2).reshape(B, C), p["c_w"], p["c_b"])
+
+
+def _resnet_encode(p, cfg: ClipConfig, images):
+    """NHWC images -> [B, embed_dim] through the ModifiedResNet: a 3-conv
+    stem, an average pool, four groups of bottlenecks (a group's first block
+    strides by 2 past the first group), the attention pool."""
+    stem = p["stem"]
+    x = images.to(stem["conv1_w"].dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    x = F.relu(L.batch_norm_2d(L.conv2d(x, stem["conv1_w"], stride=2, padding=1), stem["bn1"]))
+    x = F.relu(L.batch_norm_2d(L.conv2d(x, stem["conv2_w"], padding=1), stem["bn2"]))
+    x = F.relu(L.batch_norm_2d(L.conv2d(x, stem["conv3_w"], padding=1), stem["bn3"]))
+    x = L.avg_pool(x, 2)
+    for g, blocks in enumerate(p["groups"]):
+        for b, block in enumerate(blocks):
+            x = _bottleneck(x, block, 1 if (b > 0 or g == 0) else 2)
+    return _attention_pool(x, p["attnpool"], cfg.vision_heads)
+
+
 def best_attn(cfg: Optional[ClipConfig] = None, device="cpu") -> str:
     """The attention implementation for a ViT or text tower on ``device``:
     the fused CUDA kernel on the card, the dense plain math on the CPU."""
@@ -209,8 +307,12 @@ def encode_text_embeds(params, cfg: ClipConfig, embeds, eot_index, attn="dense")
 
 
 def encode_text(params, cfg: ClipConfig, tokens, attn="dense"):
-    """Pooled text features from token ids [B, T] (T <= context_length)."""
-    embeds = params["text"]["token_embedding"][tokens]
+    """Pooled text features from token ids [B, T] (T <= context_length). An
+    id past the vocabulary reads its last row, as the JAX package's gather
+    clamps it (the tiny test configs' vocabularies are smaller than the
+    tokenizer's)."""
+    table = params["text"]["token_embedding"]
+    embeds = table[tokens.clamp(max=table.shape[0] - 1)]
     return encode_text_embeds(params, cfg, embeds, tokens.argmax(dim=-1), attn=attn)
 
 
@@ -225,17 +327,22 @@ def normalize(features, dim=-1):
 
 def infer_arch_from_state_dict(shapes: dict) -> ClipConfig:
     """``build_model``'s shape sniffing (`TPT/clip/model.py:399-422`) for
-    ViT checkpoints; ``shapes`` maps state-dict keys to shapes."""
-    if "visual.proj" not in shapes:
-        raise NotImplementedError("ResNet CLIP checkpoints are not ported yet (ViT only)")
-    vision_width = shapes["visual.conv1.weight"][0]
-    vision_layers = len([k for k in shapes if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")])
-    vision_patch = shapes["visual.conv1.weight"][-1]
-    grid = round((shapes["visual.positional_embedding"][0] - 1) ** 0.5)
+    ViT and ResNet checkpoints; ``shapes`` maps state-dict keys to shapes."""
+    if "visual.proj" in shapes:
+        vision_width = shapes["visual.conv1.weight"][0]
+        vision_layers = len([k for k in shapes if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")])
+        vision_patch = shapes["visual.conv1.weight"][-1]
+        image_resolution = vision_patch * round((shapes["visual.positional_embedding"][0] - 1) ** 0.5)
+    else:
+        vision_layers = tuple(len({k.split(".")[2] for k in shapes if k.startswith(f"visual.layer{g}")})
+                              for g in (1, 2, 3, 4))
+        vision_width = shapes["visual.layer1.0.conv1.weight"][0]
+        vision_patch = None
+        image_resolution = 32 * round((shapes["visual.attnpool.positional_embedding"][0] - 1) ** 0.5)
     return ClipConfig(
         name="from-checkpoint",
         embed_dim=shapes["text_projection"][1],
-        image_resolution=vision_patch * grid,
+        image_resolution=image_resolution,
         vision_layers=vision_layers,
         vision_width=vision_width,
         vision_patch_size=vision_patch,

@@ -1,12 +1,15 @@
 """Parameters into the port: from the JAX package's pytree, and from an
-OpenAI-format CLIP state dict (the counterpart of
-``rlcf_tpu/models/convert.py``; ViT checkpoints only for now).
+OpenAI-format CLIP state dict, ViT or ResNet (the counterpart of
+``rlcf_tpu/models/convert.py``).
 
 Layout changes from an OpenAI state dict, as in the JAX package:
 - torch Linear weights [out, in] become [in, out];
 - the attention in_proj (q; k; v stacked rows) becomes a fused [D, 3D] ``qkv_w``;
-- the patch conv goes OIHW -> HWIO;
-- per-layer transformer tensors stack on a leading layer axis.
+- the ViT patch conv goes OIHW -> HWIO;
+- per-layer transformer tensors stack on a leading layer axis;
+- BatchNorm becomes ``{w, b, mean, var}``, the running statistics in fp32.
+A ResNet tower's convolution kernels stay OIHW, in the channels_last memory
+format (``models/layers.py``); from a JAX pytree they go HWIO -> OIHW.
 """
 
 from __future__ import annotations
@@ -27,25 +30,39 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _resnet_conv(w):
+    """An OIHW kernel in the port's layout (channels_last)."""
+    return w.contiguous(memory_format=torch.channels_last)
+
+
 def from_jax_params(tree, cfg: ClipConfig, dtype=None, device="cpu"):
     """The JAX package's CLIP parameter pytree (numpy leaves, the layout of
     ``init_clip_params``/``convert_clip_state_dict``) -> the port's params.
 
-    ``dtype`` casts floating leaves (``logit_scale`` stays fp32)."""
-    if not cfg.is_vit:
-        raise NotImplementedError("ResNet towers are not ported yet")
+    ``dtype`` casts floating leaves (``logit_scale`` and BatchNorm's running
+    statistics stay fp32). A ResNet tower's HWIO kernels become OIHW."""
 
-    def leaf(a):
+    def leaf(a, keep_fp32=False):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has no torch.from_numpy path
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a, copy=True))
-        if dtype is not None and t.is_floating_point() and t.dim() > 0:
+        if dtype is not None and t.is_floating_point() and t.dim() > 0 and not keep_fp32:
             t = t.to(dtype)
         return t.to(device)
 
-    return _tree_map(leaf, tree)
+    def convert(node, key=""):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(convert(v) for v in node)
+        t = leaf(node, keep_fp32=key in ("mean", "var"))
+        return _resnet_conv(t.permute(3, 2, 0, 1)) if key.startswith("conv") and key.endswith("_w") else t
+
+    if cfg.is_vit:
+        return _tree_map(leaf, tree)
+    return {k: convert(v) if k == "visual" else _tree_map(leaf, v) for k, v in tree.items()}
 
 
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
@@ -74,20 +91,41 @@ def _stack_blocks(sd, prefix: str, n_layers: int, cast):
     }
 
 
+def _convert_resnet_visual(sd, cfg: ClipConfig, cast, device):
+    conv = lambda name: _resnet_conv(cast(sd[name]))
+    f32 = lambda name: sd[name].detach().to(device=device, dtype=torch.float32).contiguous()
+
+    def bn(prefix):
+        return {"w": cast(sd[f"{prefix}.weight"]), "b": cast(sd[f"{prefix}.bias"]),
+                "mean": f32(f"{prefix}.running_mean"), "var": f32(f"{prefix}.running_var")}
+
+    stem = {f"conv{i}_w": conv(f"visual.conv{i}.weight") for i in (1, 2, 3)}
+    stem.update({f"bn{i}": bn(f"visual.bn{i}") for i in (1, 2, 3)})
+    groups = []
+    for g, n_blocks in enumerate(cfg.vision_layers, start=1):
+        blocks = []
+        for b in range(n_blocks):
+            pre = f"visual.layer{g}.{b}"
+            block = {f"conv{i}_w": conv(f"{pre}.conv{i}.weight") for i in (1, 2, 3)}
+            block.update({f"bn{i}": bn(f"{pre}.bn{i}") for i in (1, 2, 3)})
+            if f"{pre}.downsample.0.weight" in sd:
+                block["downsample"] = {"conv_w": conv(f"{pre}.downsample.0.weight"), "bn": bn(f"{pre}.downsample.1")}
+            blocks.append(block)
+        groups.append(blocks)
+    ap = "visual.attnpool"
+    attnpool = {"pos_emb": cast(sd[f"{ap}.positional_embedding"])}
+    for name in ("q", "k", "v", "c"):
+        attnpool[f"{name}_w"] = cast(sd[f"{ap}.{name}_proj.weight"]).t().contiguous()
+        attnpool[f"{name}_b"] = cast(sd[f"{ap}.{name}_proj.bias"])
+    return {"stem": stem, "groups": groups, "attnpool": attnpool}
+
+
 def convert_clip_state_dict(sd: Dict, dtype=torch.float32, device="cpu"):
-    """OpenAI CLIP state dict (ViT) -> (params, inferred ClipConfig)."""
+    """OpenAI CLIP state dict (ViT or ResNet) -> (params, inferred ClipConfig)."""
     sd = {k: torch.as_tensor(v) for k, v in sd.items() if k not in ("input_resolution", "context_length", "vocab_size")}
     cfg = infer_arch_from_state_dict({k: tuple(v.shape) for k, v in sd.items()})
     cast = lambda t: t.detach().to(device=device, dtype=dtype).contiguous()
-    visual = {
-        "conv_w": cast(sd["visual.conv1.weight"]).permute(2, 3, 1, 0).contiguous(),
-        "class_emb": cast(sd["visual.class_embedding"]),
-        "pos_emb": cast(sd["visual.positional_embedding"]),
-        "ln_pre_w": cast(sd["visual.ln_pre.weight"]), "ln_pre_b": cast(sd["visual.ln_pre.bias"]),
-        "blocks": _stack_blocks(sd, "visual.transformer", cfg.vision_layers, cast),
-        "ln_post_w": cast(sd["visual.ln_post.weight"]), "ln_post_b": cast(sd["visual.ln_post.bias"]),
-        "proj": cast(sd["visual.proj"]),
-    }
+    visual = _convert_vit_visual(sd, cfg, cast) if cfg.is_vit else _convert_resnet_visual(sd, cfg, cast, device)
     text = {
         "token_embedding": cast(sd["token_embedding.weight"]),
         "positional_embedding": cast(sd["positional_embedding"]),
@@ -99,6 +137,18 @@ def convert_clip_state_dict(sd: Dict, dtype=torch.float32, device="cpu"):
     return {"visual": visual, "text": text, "logit_scale": logit_scale}, cfg
 
 
+def _convert_vit_visual(sd, cfg: ClipConfig, cast):
+    return {
+        "conv_w": cast(sd["visual.conv1.weight"]).permute(2, 3, 1, 0).contiguous(),
+        "class_emb": cast(sd["visual.class_embedding"]),
+        "pos_emb": cast(sd["visual.positional_embedding"]),
+        "ln_pre_w": cast(sd["visual.ln_pre.weight"]), "ln_pre_b": cast(sd["visual.ln_pre.bias"]),
+        "blocks": _stack_blocks(sd, "visual.transformer", cfg.vision_layers, cast),
+        "ln_post_w": cast(sd["visual.ln_post.weight"]), "ln_post_b": cast(sd["visual.ln_post.bias"]),
+        "proj": cast(sd["visual.proj"]),
+    }
+
+
 def load_clip_checkpoint(path: str, dtype=torch.float32, device="cpu"):
-    """Load an OpenAI CLIP .pt checkpoint (ViT) into (params, config)."""
+    """Load an OpenAI CLIP .pt checkpoint (ViT or ResNet) into (params, config)."""
     return convert_clip_state_dict(load_torch_file(path), dtype=dtype, device=device)

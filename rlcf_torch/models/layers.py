@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 
@@ -69,8 +70,10 @@ def causal_mask(length: int, device=None):
 # "dense" (default) or "flash". The JAX package's "flash" is the upstream
 # Pallas flash-attention kernel (``rlcf_tpu/models/layers.py:48``), taken when
 # T is a multiple of 128; here the same switch is served by the port's own
-# hand-written kernel (``ops/attention.py``), which takes T <= 257, so T = 128
-# and 256.
+# hand-written kernels (``ops/attention.py``): the forward takes T <= 577, so
+# T = 128, 256, 384 and 512, the backward T <= 257, so T = 128 and 256. At
+# T = 384 and 512 a call whose result is differentiated raises (the backward
+# there comes with ROADMAP A8 (rest)), as does any T above 577.
 ATTN_IMPL = "dense"
 
 
@@ -95,11 +98,15 @@ def attention_core(qkv, n_heads: int, mask=None, attn: str = "dense"):
     if ATTN_IMPL not in ("dense", "flash"):
         raise ValueError(f"unknown ATTN_IMPL {ATTN_IMPL!r} (\"dense\" or \"flash\")")
     if attn == "fused" or (attn == "dense" and ATTN_IMPL == "flash" and T % 128 == 0):
-        from ..ops.attention import MAX_T, fused_attention
+        from ..ops.attention import MAX_T, MAX_T_BWD, fused_attention
 
         if attn == "dense" and T > MAX_T:
-            raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernel, which takes "
-                             f"T <= {MAX_T} (so T = 128 or 256); got T={T}")
+            raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernels, whose forward takes "
+                             f"T <= {MAX_T} (so T = 128 to 512); got T={T}")
+        if attn == "dense" and T > MAX_T_BWD and torch.is_grad_enabled() and qkv.requires_grad:
+            raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernels, whose backward takes "
+                             f"T <= {MAX_T_BWD} (so T = 128 or 256); got T={T}, a differentiated call; the backward "
+                             f"above T = {MAX_T_BWD} comes with ROADMAP A8 (rest)")
         return fused_attention(qkv, mask, n_heads, scale).reshape(*lead, T, D)
     if attn != "dense":
         raise ValueError(f"unknown attention implementation {attn!r}")
@@ -166,6 +173,48 @@ def transformer(x, blocks, n_heads: int, mask=None, attn: str = "dense", remat=F
         else:
             x = residual_block(x, p, n_heads, mask, attn=attn)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Convolution blocks of the ModifiedResNet towers
+#
+# The JAX package runs them NHWC with HWIO kernels; here a feature map is
+# NCHW in the channels_last memory format (the same bytes as NHWC), and a
+# kernel OIHW in channels_last (physically O, H, W, I): cuDNN's native
+# layouts for bf16 and fp32 convolutions on the card. The towers take and
+# give NHWC at their interface, as the JAX package's do.
+# ---------------------------------------------------------------------------
+
+
+def conv2d(x, w, stride: int = 1, padding: int = 0):
+    """NCHW (channels_last) convolution with an OIHW kernel cast to x's
+    dtype, no bias. The JAX package's 1x1 convolutions with "SAME" padding
+    are ``padding=0`` here."""
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
+
+
+def avg_pool(x, window: int):
+    """Non-overlapping average pool in the JAX package's order: the window
+    summed in fp32, the sum cast to x's dtype, then divided by the window's
+    size in that dtype (in bf16 two roundings, as there)."""
+    summed = F.avg_pool2d(x.float(), window, divisor_override=1).to(x.dtype)
+    return summed / (window * window)
+
+
+def batch_norm_2d(x, p, eps: float = 1e-5, prior=None):
+    """Inference BatchNorm over NCHW with running statistics, computed in
+    fp32 and cast back to x's dtype. ``prior`` (the reference's BN-prior
+    encoder TTA, `TPT/tune_cls_rl.py:35-44`) mixes in the batch's own
+    statistics with population variance: ``prior * running + (1 - prior) *
+    batch``."""
+    mean, var = p["mean"].float(), p["var"].float()
+    if prior is not None:
+        x32 = x.float()
+        mean = prior * mean + (1.0 - prior) * x32.mean(dim=(0, 2, 3))
+        var = prior * var + (1.0 - prior) * x32.var(dim=(0, 2, 3), correction=0)
+    inv = torch.rsqrt(var + eps) * p["w"].float()
+    shift = p["b"].float() - mean * inv
+    return (x.float() * inv[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 def init_transformer_blocks(gen: torch.Generator, n_layers: int, width: int, dtype=torch.float32, device="cpu"):

@@ -21,6 +21,11 @@ Which kernel a CUDA tensor runs is a rule of ``(T, dtype)`` in both
 directions (``forward_variant``, ``backward_variant``), not a fallback: one
 warp per head on ``mma.sync`` for ``T <= 16`` (``mma_short``,
 ``tf32x6_short``), several warps per head above (``mma_long``, ``tf32x3_long``).
+The forward takes ``T <= 577`` (ViT-L/14 at 336 px): in bf16 ``mma_xlong``
+above T = 257, two sweeps over the keys (the row max and sum, then P rounded
+after it is normalised, and P.V); in fp32 ``tf32x3_long`` streams the keys at
+any T. The backward takes ``T <= 257``; longer sequences come with ROADMAP
+A8 (rest).
 fp32 products run on the tensor cores with split operands: 3xTF32 above
 T = 16 (each operand split into two TF32 values, each product three passes),
 six products of a three-way split up to T = 16 (kernels bound by bytes, which
@@ -44,7 +49,9 @@ from . import cuda_build
 
 NEG_BIG = -1e9  # finite stand-in for the causal mask's -inf
 HEAD_DIM = 64   # the kernel's head dimension
-MAX_T = 257     # the kernel's longest sequence (ViT-L/14 at 224 px)
+MAX_T = 577     # the forward kernels' longest sequence (ViT-L/14 at 336 px)
+MAX_T_BWD = 257  # the backward kernels' (ViT-L/14 at 224 px)
+LONG_T = 257    # longest sequence of the bf16 forward that holds whole score rows in registers
 SHORT_T = 16    # longest sequence of the tensor-core kernels' one-warp-per-head regime
 
 # kernel launches by the wrapper, per direction (plain integers), per
@@ -172,31 +179,42 @@ _TF32_LIB_NAME = "rlcf_attention_tf32"
 _BWD_TF32_LIB_NAME = "rlcf_attention_bwd_tf32"
 _MMA_HEADER = ("attention_mma.cuh",)
 _TF32_HEADERS = ("attention_mma.cuh", "attention_tf32.cuh")
-# the kernels of each dtype: (T <= SHORT_T, above)
-_VARIANTS = {torch.bfloat16: ("mma_short", "mma_long"), torch.float32: ("tf32x6_short", "tf32x3_long")}
+# the kernels of each dtype: (T <= SHORT_T, T <= LONG_T, the forward above)
+_VARIANTS = {torch.bfloat16: ("mma_short", "mma_long", "mma_xlong"),
+             torch.float32: ("tf32x6_short", "tf32x3_long", "tf32x3_long")}
 
 
-def _variant(T: int, dtype) -> str:
+def _check_dtype(dtype):
     if dtype not in _VARIANTS:
         raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {dtype}")
-    if not 1 <= T <= MAX_T:
-        raise ValueError(f"fused_attention kernel takes 1 <= T <= {MAX_T}; got T={T}")
-    return _VARIANTS[dtype][0] if T <= SHORT_T else _VARIANTS[dtype][1]
+
+
+def _check_length(T: int, direction: str):
+    if direction == "fwd" and not 1 <= T <= MAX_T:
+        raise ValueError(f"fused_attention forward kernel takes 1 <= T <= {MAX_T}; got T={T}")
+    if direction == "bwd" and not 1 <= T <= MAX_T_BWD:
+        raise ValueError(f"fused_attention backward kernel takes 1 <= T <= {MAX_T_BWD}; got T={T} "
+                         f"(the backward above T = {MAX_T_BWD} comes with ROADMAP A8 (rest))")
 
 
 def forward_variant(T: int, dtype) -> str:
     """The forward kernel a CUDA tensor of this sequence length and dtype
-    runs: ``"mma_short"`` / ``"mma_long"`` (bf16, ``csrc/attention_mma.cu``)
-    or ``"tf32x6_short"`` / ``"tf32x3_long"`` (fp32, ``csrc/attention_tf32.cu``)."""
-    return _variant(T, dtype)
+    runs: ``"mma_short"`` / ``"mma_long"`` / ``"mma_xlong"`` (bf16, T <= 16,
+    257, 577; ``csrc/attention_mma.cu``) or ``"tf32x6_short"`` /
+    ``"tf32x3_long"`` (fp32, T <= 16, 577; ``csrc/attention_tf32.cu``)."""
+    _check_dtype(dtype)
+    _check_length(T, "fwd")
+    return _VARIANTS[dtype][0 if T <= SHORT_T else 1 if T <= LONG_T else 2]
 
 
 def backward_variant(T: int, dtype) -> str:
     """The backward kernel a CUDA tensor of this sequence length and dtype
     runs: ``"mma_short"`` / ``"mma_long"`` (bf16,
     ``csrc/attention_bwd_mma.cu``) or ``"tf32x6_short"`` / ``"tf32x3_long"``
-    (fp32, ``csrc/attention_bwd_tf32.cu``). The same rule as the forward's."""
-    return _variant(T, dtype)
+    (fp32, ``csrc/attention_bwd_tf32.cu``), T <= 16 and T <= 257."""
+    _check_dtype(dtype)
+    _check_length(T, "bwd")
+    return _VARIANTS[dtype][0 if T <= SHORT_T else 1]
 
 
 def build_mma(force: bool = False) -> str:
@@ -227,7 +245,7 @@ def build_bwd_tf32(force: bool = False) -> str:
 def _fwd_lib(dtype):
     lib = ctypes.CDLL(build_tf32() if dtype == torch.float32 else build_mma())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for variant in _VARIANTS[dtype]:
+    for variant in set(_VARIANTS[dtype]):
         fn = getattr(lib, f"rlcf_mha_fwd_{variant}")
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
         fn.restype = ci
@@ -238,7 +256,7 @@ def _fwd_lib(dtype):
 def _bwd_lib(dtype):
     lib = ctypes.CDLL(build_bwd_tf32() if dtype == torch.float32 else build_bwd_mma())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for variant in _VARIANTS[dtype]:
+    for variant in _VARIANTS[dtype][:2]:
         fn = getattr(lib, f"rlcf_mha_bwd_{variant}")
         # the bf16 long kernel takes a scratch for its classification of the mask's tiles
         extra = [vp] if variant == "mma_long" else []
@@ -247,17 +265,15 @@ def _bwd_lib(dtype):
     return lib
 
 
-def _check_cuda_inputs(qkv, n_heads: int, mask):
+def _check_cuda_inputs(qkv, n_heads: int, mask, direction: str):
     if not qkv.is_cuda:
         raise ValueError(f"the CUDA attention kernel needs a CUDA tensor; got one on {qkv.device}")
-    if qkv.dtype not in _VARIANTS:
-        raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {qkv.dtype}")
+    _check_dtype(qkv.dtype)
     if qkv.dim() != 3 or qkv.shape[-1] != 3 * n_heads * HEAD_DIM:
         raise ValueError(f"fused_attention kernel needs qkv [B, T, 3*H*{HEAD_DIM}]; got {tuple(qkv.shape)} "
                          f"with {n_heads} heads")
     B, T, _ = qkv.shape
-    if not 1 <= T <= MAX_T:
-        raise ValueError(f"fused_attention kernel takes 1 <= T <= {MAX_T}; got T={T}")
+    _check_length(T, direction)
     if mask is not None and (tuple(mask.shape) != (T, T) or mask.device != qkv.device):
         raise ValueError(f"mask must be [{T}, {T}] on {qkv.device}; got {tuple(mask.shape)} on {mask.device}")
 
@@ -280,10 +296,10 @@ def _ptr(t):
 def launch_fwd(qkv, mask, n_heads: int, scale: float):
     """Forward kernel on a CUDA tensor: qkv [B, T, 3HD] -> out [B, T, HD].
 
-    The kernel is ``forward_variant(T, dtype)``: bf16 on bf16 operands, fp32
-    on split TF32 operands (three or six tensor-core passes a product), both
-    on the tensor cores. The chosen kernel runs or this raises."""
-    _check_cuda_inputs(qkv, n_heads, mask)
+    The kernel is ``forward_variant(T, dtype)`` (T <= 577): bf16 on bf16
+    operands, fp32 on split TF32 operands (three or six tensor-core passes a
+    product), both on the tensor cores. The chosen kernel runs or this raises."""
+    _check_cuda_inputs(qkv, n_heads, mask, "fwd")
     variant = forward_variant(qkv.shape[1], qkv.dtype)
     qkv = _aligned(qkv)
     mask = prep_mask(mask)
@@ -302,9 +318,9 @@ def launch_fwd(qkv, mask, n_heads: int, scale: float):
 def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
     """Backward kernel on CUDA tensors: (qkv, g [B, T, HD]) -> dqkv [B, T, 3HD].
 
-    The kernel is ``backward_variant(T, dtype)``, on the tensor cores as the
-    forward's. The chosen kernel runs or this raises."""
-    _check_cuda_inputs(qkv, n_heads, mask)
+    The kernel is ``backward_variant(T, dtype)`` (T <= 257), on the tensor
+    cores as the forward's. The chosen kernel runs or this raises."""
+    _check_cuda_inputs(qkv, n_heads, mask, "bwd")
     variant = backward_variant(qkv.shape[1], qkv.dtype)
     qkv = _aligned(qkv)
     g = _aligned(g.to(qkv.dtype))

@@ -1,13 +1,17 @@
-"""Classification test-time adaptation (RLCF / TPT / KD episodes): prompt
-TTA on patch-major u8 views or NHWC views, and encoder TTA on NHWC views
-(the counterpart of ``rlcf_tpu/tasks/classification.py``; zero-shot,
-CoCoOp, serving and the device mesh are not ported yet).
+"""Classification: zero-shot evaluation, single and ensembled, and
+test-time adaptation (RLCF / TPT / KD episodes): prompt TTA on patch-major u8
+views or NHWC views, and encoder TTA on NHWC views (the counterpart of
+``rlcf_tpu/tasks/classification.py``; CoCoOp, serving and the device mesh are
+not ported yet).
 
-Prompt TTA, per group of N test images: the frozen policy ViT encodes all
+Prompt TTA, per group of N test images: the frozen policy encodes all
 views of each image, the lowest-entropy views are selected against the
-initial text features, the frozen reward CLIP scores only those, and N
+initial text features, the frozen reward CLIP (or a confidence-weighted
+ensemble of them, each at its own resolution) scores only those, and N
 episodes of REINFORCE + AdamW on the CoOp context run as one batch: the text
-tower sees all N*C prompts at once, forward and backward.
+tower sees all N*C prompts at once, forward and backward. The policy may be a
+ViT or, on NHWC views, a ModifiedResNet; only the text tower is
+differentiated.
 
 Encoder TTA adapts the policy's visual tower itself against frozen class
 text features: the N episodes' tower weights are stacked on a leading
@@ -17,7 +21,7 @@ and backward over the N episodes' selected views.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,7 +32,9 @@ from ..core import policy as Po
 from ..core.episode import make_optimizer, make_tta_episode, step_loss, take_rows
 from ..data.class_names import assemble_prompts
 from ..data.transforms import CLIP_MEAN, CLIP_STD
+from ..metrics.classification import AccuracyMeter
 from ..models import clip as clip_model
+from ..ops.image_ops import resize_bicubic_align_corners
 from ..tokenizer import tokenize
 
 
@@ -75,27 +81,70 @@ def compute_class_features(params, cfg, classnames: Sequence[str], prompt_prefix
     return clip_model.normalize(torch.cat(feats).float())
 
 
-def reward_resolution_refusal(have: int, want: int) -> NotImplementedError:
-    """The error for a reward tower at another resolution than the views."""
-    return NotImplementedError(
-        f"the reward takes {want} px views and these are {have} px: the reward's input resize comes with ROADMAP "
-        f"A8, together with the longer attention forward that ViT-L/14@336px (T=577) needs")
+def classify_logits(params, cfg, images, class_features, attn: str = "dense"):
+    """Cosine-similarity logits [B, C] of normalized NHWC images."""
+    img = clip_model.normalize(clip_model.encode_image(params, cfg, images, attn=attn).float())
+    return params["logit_scale"].exp().float() * (img @ class_features.T)
+
+
+def resize_bicubic_batch(images, resolution: int):
+    """Per-model input resizing for ensembles (`custom_clip.py:541-543`):
+    bicubic with aligned corners, as torch's."""
+    return resize_bicubic_align_corners(images, resolution)
+
+
+@torch.no_grad()
+def zero_shot_eval(params, cfg, dataset, classnames: Sequence[str], prompt_prefix: str = "a photo of a",
+                   batch_size: int = 64, resolution: int = 224, limit: Optional[int] = None, seed: int = 0) -> dict:
+    """Zero-shot top-1/top-5 over a dataset loader (`TPT/zero_shot.py`)."""
+    return zero_shot_eval_ensemble([(params, cfg)], dataset, classnames, prompt_prefix, batch_size, resolution,
+                                   limit, seed)
+
+
+@torch.no_grad()
+def zero_shot_eval_ensemble(models: List, dataset, classnames: Sequence[str], prompt_prefix: str = "a photo of a",
+                            batch_size: int = 64, resolution: int = 224, limit: Optional[int] = None,
+                            seed: int = 0) -> dict:
+    """Logit-averaged multi-architecture ensemble (`custom_clip.py:555-566`)
+    of ``models``, a list of (params, cfg): each model takes the batch
+    resized to its own resolution. One model is ``zero_shot_eval``."""
+    from ..data.datasets import iter_batches
+
+    device = models[0][0]["logit_scale"].device
+    attn = clip_model.best_attn(None, device)
+    feats = [compute_class_features(p, c, classnames, prompt_prefix, attn=attn) for p, c in models]
+    meter = AccuracyMeter()
+    for images, labels in iter_batches(dataset, batch_size, resolution, shuffle=True, seed=seed, limit=limit):
+        x = torch.as_tensor(images).to(device)
+        logits = [classify_logits(p, c, x if c.image_resolution == resolution else resize_bicubic_batch(
+            x, c.image_resolution), cf, attn) for (p, c), cf in zip(models, feats)]
+        logits = logits[0] if len(logits) == 1 else torch.stack(logits).mean(dim=0)
+        meter.update(logits.cpu().numpy(), labels)
+    return meter.summary()
+
+
+def is_ensemble(reward) -> bool:
+    return hasattr(reward, "members")
 
 
 class PromptTTAClassifier:
-    """CoOp-prompt test-time adaptation with a frozen CLIP reward (ViT policy,
-    single ViT reward).
+    """CoOp-prompt test-time adaptation with a frozen CLIP reward or reward
+    ensemble (``core/reward.py``).
 
     ``setup`` builds the prompt template for a class set (the reference's
     ``reset_classnames``) and caches the reward's class features from the
-    same tokenized prompts; ``adapt_tokens`` (patch-major u8 views) and
-    ``adapt`` (NHWC views) run N episodes at once from the shared initial
-    context.
+    same tokenized prompts; ``adapt_tokens`` (patch-major u8 views: a ViT
+    policy and a single reward) and ``adapt`` (NHWC views: any policy and
+    reward) run N episodes at once from the shared initial context. A
+    reward tower at another resolution than the views gets the selected
+    views resized; an ensemble's similarities are stacked ``[N, M, S, C]``.
     """
 
     def __init__(self, clip_params, clip_cfg, reward, ecfg, ctx_init="a photo of a", n_ctx=4, ctx0=None):
-        if not clip_cfg.is_vit or not reward.cfg.is_vit:
-            raise NotImplementedError("the port runs ViT policy and reward towers only")
+        if is_ensemble(reward) and ecfg.loss not in ("rlcf", "tpt"):
+            raise ValueError(f"loss '{ecfg.loss}' needs single-teacher logits; reward ensembles only support the "
+                             "'rlcf'/'tpt' losses (the reference KD paths use one reward CLIP, "
+                             "`TPT/tpt_cls_rl.py:201-219`)")
         self.clip_params = clip_params
         self.clip_cfg = clip_cfg
         self.reward = reward
@@ -106,7 +155,7 @@ class PromptTTAClassifier:
         self.prompt_state = None
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
-        self.reward_attn = clip_model.best_attn(reward.cfg, self.device)
+        self.reward_attn = clip_model.best_attn(getattr(reward, "cfg", None), self.device)
 
     def setup(self, classnames: Sequence[str]):
         self.prompt_state = P.build_prompt_state(
@@ -161,17 +210,18 @@ class PromptTTAClassifier:
             sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
             sel_views = clip_model.images_from_patch_tokens(
                 normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
-            r_sim = self._reward_sim(sel_views)
+            r_sim = self._reward_sim(sel_views, N, n_keep)
         return img_feats, sel, r_sim.reshape(N, n_keep, -1)
 
-    def _reward_sim(self, views):
-        """Frozen reward similarities [B, C] of normalized NHWC views."""
-        rcfg = self.reward.cfg
-        if views.shape[1] != rcfg.image_resolution:
-            raise reward_resolution_refusal(views.shape[1], rcfg.image_resolution)
-        feats = clip_model.normalize(
-            clip_model.encode_image(self.reward.params, rcfg, views, attn=self.reward_attn).float())
-        return feats @ self.reward.class_features.T
+    def _reward_sim(self, sel_views, N: int, n_keep: int):
+        """Frozen reward similarities of the N * n_keep selected views
+        (normalized NHWC), each tower taking them resized to its own
+        resolution: [N, S, C] for one reward, [N, M, S, C] for an ensemble
+        of M."""
+        if is_ensemble(self.reward):
+            sims = [m.image_sim(sel_views, self.reward_attn).reshape(N, n_keep, -1) for m in self.reward.members]
+            return torch.stack(sims, dim=1)
+        return self.reward.image_sim(sel_views, self.reward_attn).reshape(N, n_keep, -1)
 
     @torch.no_grad()
     def prepare(self, views):
@@ -185,8 +235,7 @@ class PromptTTAClassifier:
         img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
         logits0 = self._logit_scale() * torch.einsum("nbe,ce->nbc", img_feats, self._tf0)
         sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
-        sel_views = take_rows(views, sel)
-        r_sim = self._reward_sim(sel_views.reshape((N * n_keep,) + views.shape[2:])).reshape(N, n_keep, -1)
+        r_sim = self._reward_sim(take_rows(views, sel).reshape((N * n_keep,) + views.shape[2:]), N, n_keep)
         return img_feats, sel, r_sim
 
     def episodes(self, img_feats, sel, reward_sim):
@@ -194,7 +243,7 @@ class PromptTTAClassifier:
         ecfg = self.ecfg
         N, _, E = img_feats.shape
         scale = self._logit_scale()
-        teacher_scale = self.reward.params["logit_scale"].exp().float()
+        teacher_scale = None if is_ensemble(self.reward) else self.reward.params["logit_scale"].exp().float()
         sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, E))  # [N, S, E]
         ctx0 = self.prompt_state.ctx0
         ctx = ctx0.detach()[None].expand(N, *ctx0.shape).clone().requires_grad_(True)
@@ -215,9 +264,15 @@ class PromptTTAClassifier:
 
     # -- entry points ---------------------------------------------------
 
+    def _check_token_mode(self, what: str):
+        if not self.clip_cfg.is_vit or is_ensemble(self.reward):
+            raise ValueError(f"{what} needs token mode: a ViT policy and a single reward model (ResNet policies "
+                             "and reward ensembles take the NHWC adapt() path)")
+
     def adapt(self, views_batch):
         """TTA from NHWC views [N, B, H, W, 3] (numpy or tensor; u8 pixels or
-        normalized floats) -> (final logits [N, C], {"losses", "selected"})."""
+        normalized floats) -> (final logits [N, C], {"losses", "selected"}):
+        any policy (ViT or ResNet), any reward or ensemble."""
         img_feats, sel, r_sim = self.prepare(torch.as_tensor(views_batch).to(self.device))
         logits, losses = self.episodes(img_feats, sel, r_sim)
         return logits, {"losses": losses, "selected": sel}
@@ -227,7 +282,10 @@ class PromptTTAClassifier:
         or tensor) -> (final logits [N, C], {"losses", "selected"}). With
         ``reward_tokens`` (the same views at the reward's patch size) the
         reward tower consumes tokens too; that needs a ViT reward at the view
-        resolution."""
+        resolution; without them a reward at another resolution gets the
+        selected views depatchified and resized. Token mode takes a ViT
+        policy and a single reward, as the JAX package's does."""
+        self._check_token_mode("adapt_tokens")
         pd = self.clip_cfg.vision_patch_size ** 2 * 3
         if policy_tokens.shape[-1] != pd:
             raise ValueError(f"policy patch dim {policy_tokens.shape[-1]} doesn't match the tower (expect {pd})")
@@ -261,6 +319,7 @@ class PromptTTAClassifier:
         at the view resolution, else the selected views depatchified."""
         from ..ops.augmix import fused_views
 
+        self._check_token_mode("adapt_sources_fn")
         pcfg, rcfg = self.clip_cfg, self.reward.cfg
         reward_same = rcfg.is_vit and rcfg.image_resolution == resolution
         fkw = dict(n_views=n_views, resolution=resolution, src_size=src_size, augmix=augmix,
@@ -307,8 +366,9 @@ class EncoderTTAClassifier:
     ``only_norm``) under the REINFORCE/TPT/KD loss, with the recompute step-0
     strategy of ``core/episode.py``; an optional momentum EMA re-anchors the
     episodes' starting point every ``update_freq`` samples. ``remat`` is the
-    visual tower's checkpointing in the steps (``layers.transformer``). ViT
-    policy and a single ViT reward; ``bn_prior`` (ResNet towers) is refused.
+    visual tower's checkpointing in the steps (``layers.transformer``). A ViT
+    policy and a single reward (ViT or ResNet, at any resolution); a ResNet
+    policy and ``bn_prior`` come with ROADMAP A8 (rest).
     """
 
     def __init__(self, clip_params, clip_cfg, reward, ecfg, prompt_prefix: str = "a photo of a",
@@ -321,11 +381,11 @@ class EncoderTTAClassifier:
                 "the reference encoder path, `TPT/tune_cls_rl.py`)"
             )
         if bn_prior is not None:
-            raise NotImplementedError("bn_prior mixes the BatchNorm statistics of ResNet towers, which come with "
-                                      "ROADMAP A8")
-        if not clip_cfg.is_vit or not reward.cfg.is_vit:
-            raise NotImplementedError("the port runs ViT policy and reward towers only; ResNet towers come with "
-                                      "ROADMAP A8")
+            raise NotImplementedError("bn_prior mixes the batch's BatchNorm statistics into a ResNet policy's, "
+                                      "which comes with ROADMAP A8 (rest)")
+        if not clip_cfg.is_vit:
+            raise NotImplementedError("encoder TTA through a ResNet policy comes with ROADMAP A8 (rest); the port "
+                                      "tunes ViT policies, against a ViT or ResNet reward")
         self.clip_params = clip_params
         self.clip_cfg = clip_cfg
         self.reward = reward
@@ -375,12 +435,7 @@ class EncoderTTAClassifier:
     def reward_image_sim(self, views):
         """Frozen reward similarities [N, S, C] of normalized NHWC views [N, S, H, W, 3]."""
         N, S = views.shape[:2]
-        rcfg = self.reward.cfg
-        if views.shape[2] != rcfg.image_resolution:
-            raise reward_resolution_refusal(views.shape[2], rcfg.image_resolution)
-        feats = clip_model.encode_image(self.reward.params, rcfg, views.reshape((N * S,) + views.shape[2:]),
-                                        attn=self.reward_attn)
-        return (clip_model.normalize(feats.float()) @ self.reward.class_features.T).reshape(N, S, -1)
+        return self.reward.image_sim(views.reshape((N * S,) + views.shape[2:]), self.reward_attn).reshape(N, S, -1)
 
     def adapt(self, views_batch, return_adapted: bool = False):
         """views_batch: NHWC [N, B, H, W, 3] (numpy or tensor; u8 pixels or

@@ -35,8 +35,11 @@ def test_backward_variant(T, dtype, want):
 @pytest.mark.parametrize("T,dtype,error", [(0, torch.bfloat16, ValueError), (258, torch.bfloat16, ValueError),
                                            (258, torch.float32, ValueError), (16, torch.float16, TypeError)])
 def test_backward_variant_refuses(T, dtype, error):
-    with pytest.raises(error):
+    """The backward keeps T <= 257 (the forward takes T <= 577); longer
+    sequences name the ROADMAP item that brings them."""
+    with pytest.raises(error) as exc:
         TA.backward_variant(T, dtype)
+    assert T <= TA.MAX_T_BWD or "ROADMAP A8 (rest)" in str(exc.value)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -67,6 +67,27 @@ def test_bf16_forward_sweep(dev, T, H, masked):
     torch.testing.assert_close(got.float(), want, **_tol(torch.bfloat16))
 
 
+XLONG_T = [258, 271, 272, 288, 320, 321, 384, 449, 512, 513, 576, 577]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T", XLONG_T)
+def test_forward_above_257(dev, T, masked, dtype):
+    """The forward at 258 <= T <= 577 (bf16: the two-sweep ``mma_xlong``;
+    fp32: the streamed ``tf32x3_long``) against the plain version, and two
+    launches bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(T * 10 + masked)
+    qkv = torch.randn(2, T, 3 * 16 * 64, device=dev, generator=g).to(dtype)
+    mask = causal_mask(T, dev) if masked else None
+    A.reset_launch_counts()
+    got, again = A.launch_fwd(qkv, mask, 16, 0.125), A.launch_fwd(qkv, mask, 16, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"mma_xlong" if dtype == torch.bfloat16 else "tf32x3_long": 2}
+    torch.testing.assert_close(got.float(), A.fused_attention_reference(qkv, mask, 16, 0.125).float(), **_tol(dtype))
+    assert torch.equal(got, again)
+
+
 def test_bf16_forward_general_mask(dev):
     """An additive mask that is not causal, with one key masked out for every query."""
     g = torch.Generator(device=dev).manual_seed(5)
@@ -220,7 +241,8 @@ def test_bf16_autograd_runs_both_tensor_core_kernels(dev, T):
 @pytest.mark.parametrize("T,masked", [(128, False), (128, True), (256, True)])
 def test_flash_switch_launches_the_kernel(dev, monkeypatch, T, masked, dtype):
     """ATTN_IMPL="flash" sends the dense branch through the kernel at
-    T % 128 == 0 and equals the dense math; T=384 raises."""
+    T % 128 == 0 and equals the dense math; at T=384 a differentiated call
+    raises (the backward takes T <= 257)."""
     from rlcf_torch.models import layers as L
 
     D, H = 256, 4
@@ -236,7 +258,7 @@ def test_flash_switch_launches_the_kernel(dev, monkeypatch, T, masked, dtype):
     assert A.LAUNCHES["fwd"] == 1
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
     with pytest.raises(ValueError, match="257"):
-        L.multi_head_attention(torch.zeros(1, 384, D, device=dev, dtype=dtype), *w, H)
+        L.multi_head_attention(torch.zeros(1, 384, D, device=dev, dtype=dtype, requires_grad=True), *w, H)
 
 
 def test_autograd_function_launches_kernels(dev):
@@ -251,7 +273,7 @@ def test_kernel_refuses_unsupported_shapes(dev):
     with pytest.raises(ValueError):
         A.launch_fwd(torch.randn(2, 8, 3 * 2 * 32, device=dev), None, 2, 0.2)  # head dim 32
     with pytest.raises(ValueError):
-        A.launch_fwd(torch.randn(1, 258, 3 * 64, device=dev), None, 1, 0.125)  # T > 257
+        A.launch_fwd(torch.randn(1, 578, 3 * 64, device=dev), None, 1, 0.125)  # T > 577
     with pytest.raises(TypeError):
         A.launch_fwd(torch.randn(1, 8, 3 * 64, device=dev).half(), None, 1, 0.125)
     with pytest.raises(ValueError):

@@ -77,8 +77,12 @@ def test_flash_switch_refusals(monkeypatch):
         TL.multi_head_attention(x, *w, 1)
     monkeypatch.setattr(TL, "ATTN_IMPL", "flash")
     long_x = torch.zeros(1, 384, 64)
-    with pytest.raises(ValueError, match="257"):
-        TL.multi_head_attention(long_x, *w, 1)
+    # T=384: the kernels' forward serves it, their backward (T <= 257) does not
+    assert TL.multi_head_attention(long_x, *w, 1).shape == (1, 384, 64)
+    with pytest.raises(ValueError, match=r"257.*ROADMAP A8 \(rest\)"):
+        TL.multi_head_attention(long_x.clone().requires_grad_(True), *w, 1)
+    with pytest.raises(ValueError, match="577"):
+        TL.multi_head_attention(torch.zeros(1, 640, 64), *w, 1)
     # attn="fused" is not the switch's business: its plain version takes any T on the CPU
     assert TL.multi_head_attention(long_x, *w, 1, attn="fused").shape == (1, 384, 64)
     assert JL.ATTN_IMPL == "dense"
@@ -95,8 +99,8 @@ def test_forward_variant(T, dtype, want):
 
 
 def test_forward_variant_and_wrapper_refuse():
-    for T in (0, 258, 384):
-        with pytest.raises(ValueError, match="257"):
+    for T in (0, 578, 640):
+        with pytest.raises(ValueError, match="577"):
             TA.forward_variant(T, torch.bfloat16)
     with pytest.raises(TypeError):
         TA.forward_variant(16, torch.float16)

@@ -133,9 +133,9 @@ def test_cli_fused_refusals_match_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,items", [
     (("--viewgen", "fused", "--hard_aug", "1"), ("A16",)),
-    (("--viewgen", "fused", "--resolution", "72"), ("A8", "A16")),
-    (("--viewgen", "native", "--resolution", "72"), ("A8", "A16")),
-    (("--viewgen", "auto", "--resolution", "72"), ("A8", "A16")),
+    (("--viewgen", "fused", "--resolution", "72"), ("A16",)),
+    (("--viewgen", "fused", "--multiple_reward_models", "1"), ("A16",)),
+    (("--viewgen", "device"), ("A16",)),
 ])
 def test_cli_refusals_name_what_the_port_runs(tmp_path, extra, items):
     """A refusal names the view generators the port runs and the ROADMAP items

@@ -78,15 +78,21 @@ def test_nhwc_adapt_matches_jax(towers, loss, u8):
 
 
 def test_nhwc_adapt_refuses_a_reward_at_another_resolution(towers):
-    """The reward's input resize is not ported: the refusal names ROADMAP A8."""
+    """A reward at another resolution takes the selected views resized
+    (``adapt``, and ``adapt_tokens`` without reward tokens); reward tokens
+    patchified at the views' resolution are refused, as the JAX package
+    refuses them (``tests/test_torch_ensemble.py`` holds the resized
+    episodes to JAX's)."""
     from rlcf_torch.models import clip as TC
 
     _, tcfg, _, _, tp, _ = towers
     rcfg = TC.ClipConfig("r", 16, 64, 1, 64, 16, 64, 1, vision_heads_override=2, text_heads_override=2)
     reward = ClipReward(TC.init_clip_params(rcfg), rcfg, RewardConfig(sample_k=2))
     clf = PromptTTAClassifier(tp, tcfg, reward, EpisodeConfig(sample_k=2), ctx_init="a photo of a").setup(CLASSNAMES)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        clf.adapt(np.zeros((1, 4, 32, 32, 3), dtype=np.uint8))
+    logits, aux = clf.adapt(np.zeros((1, 4, 32, 32, 3), dtype=np.uint8))
+    assert logits.shape == (1, len(CLASSNAMES)) and bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="views must be generated at the reward resolution"):
+        clf.adapt_tokens(_tokens(views=4)[:1], _tokens(views=4)[:1])
 
 
 def test_cli_runs_on_cpu(tmp_path):
