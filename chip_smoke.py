@@ -13,14 +13,17 @@ Phases, each fatal:
      (against scaled_dot_product_attention, forward and backward, the
      library's own kernels named); the tensor-core forward and backward, bf16
      and fp32 (split TF32 operands), over the edges of their regimes (T from 1
-     to 257 both directions, the forward on to 577, 8/12/16 heads, masked and
-     not) and for bit-identical repeats, with the error the operand precisions
+     to 577 both directions, 8/12/16 heads, masked and not, general masks)
+     and for bit-identical repeats, with the error the operand precisions
      they could have would give (PRECISION); the forward at the reward
-     ensemble's ViT-L/14@336px (B=24 T=577 H=16) and at zero-shot's shapes; the
-     ATTN_IMPL="flash" switch of models/layers.py at T=128, 256 and 384, with
-     the backward it takes; the AugMix kernel at a flagship
+     ensemble's ViT-L/14@336px (B=24 T=577 H=16), at zero-shot's shapes and at
+     encoder TTA of ViT-L/14@336px (B=64, 6, 1), the backward there (B=6 and
+     24, T=577, H=16: the xlong kernels); the ATTN_IMPL="flash" switch of
+     models/layers.py at T=128, 256 and 384, with the backward it takes, and
+     differentiated at T=384 and 512 (causal); the AugMix kernel at a flagship
      group (4 images x 64 views, 256 -> 224 px) with augmix on and off, on a
-     second seed, and op by op at the identity crop at severities 1 and 2;
+     second seed, and op by op at the identity crop at severities 1 and 2, and
+     at 336 and 448 px (the layout with one plane on chip) the same way;
   4. drive the flagship RLCF prompt TTA through the port's CLI at full width
      (ViT-B/16 policy, ViT-L/14 reward, random weights from a seed, ImageNet-A's
      200 class names on synthetic images, 64 views, group 4, 3 steps): first
@@ -41,6 +44,10 @@ Phases, each fatal:
      gradient of one step's loss in the visual weights through the kernel
      backward to the plain backward's (GRAD), and the fused-attention
      episode to the dense one in fp32 (REFERENCE); print the ENCODER line;
+     then encoder TTA of a ViT-L/14@336px policy at 336 px (bf16 and fp32:
+     the xlong attention backward; GRAD encoder 336, REFERENCE encoder 336,
+     the ENCODER336 line) and of an RN50 policy (bf16, without and with
+     --prior_strength 0.5: the BN prior);
      then prompt TTA with the reference's 3-CLIP reward ensemble
      (--multiple_reward_models 1: ViT-L/14@336px, RN50x64, ViT-L/14, each at
      its own resolution; NHWC views built on the host, --viewgen native), prompt
@@ -89,7 +96,9 @@ ATTENTION_SOURCE = {  # by the key of ops/attention.py::LAUNCH_VARIANTS that a l
     "bwd_mma_short": "rlcf_torch/csrc/attention_bwd_mma.cu", "bwd_mma_long": "rlcf_torch/csrc/attention_bwd_mma.cu",
     "tf32x6_short": "rlcf_torch/csrc/attention_tf32.cu", "tf32x3_long": "rlcf_torch/csrc/attention_tf32.cu",
     "bwd_tf32x6_short": "rlcf_torch/csrc/attention_bwd_tf32.cu",
-    "bwd_tf32x3_long": "rlcf_torch/csrc/attention_bwd_tf32.cu"}
+    "bwd_tf32x3_long": "rlcf_torch/csrc/attention_bwd_tf32.cu",
+    "bwd_mma_xlong": "rlcf_torch/csrc/attention_bwd_mma.cu",
+    "bwd_tf32x3_xlong": "rlcf_torch/csrc/attention_bwd_tf32.cu"}
 # Relative L2 errors of the full-width bf16 gradient check, kernel against plain backward. What the check can
 # resolve is each launch on its own inputs: there the two differ by the bf16 steps that different fp32 sums leave,
 # and GRAD_LAUNCH_LIMIT holds every launch. Down the 12 layers any such difference flips roundings in every later
@@ -98,13 +107,16 @@ ATTENTION_SOURCE = {  # by the key of ops/attention.py::LAUNCH_VARIANTS that a l
 # rounding) and holds the gradients in the prompts and in the context to GRAD_FLOOR_RATIO times it.
 GRAD_LAUNCH_LIMIT, GRAD_FLOOR_RATIO = 1e-3, 2.0
 SWEEP_T = (1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 65, 77, 80, 81, 128, 196, 197, 256, 257)
-# the forward only (the backward takes T <= 257): the edges of the chunks of 64 keys up to ViT-L/14@336px's T
+# above the long kernels: the edges of the chunks of 64 (keys, and in the backward queries) up to ViT-L/14@336px's T
 SWEEP_T_FWD = SWEEP_T + (258, 271, 272, 288, 320, 321, 384, 449, 512, 513, 576, 577)
+SWEEP_T_BWD = SWEEP_T + (258, 321, 385, 448, 513, 576, 577)
 SWEEP_H = (8, 12, 16)
 FLASH_SHAPE = (24, 256, 16)   # B, T, H at which the ATTN_IMPL="flash" route is timed
 SRC_SIZE, RES = 256, 224
 FLAGSHIP_IMAGES, NATIVE_IMAGES, FP32_IMAGES = 16, 8, 8
 ENCODER_IMAGES, ENCODER_FP32_IMAGES = 8, 2   # encoder TTA runs one image a group
+POLICY336, RES336, ENCODER336_IMAGES, ENCODER336_FP32_IMAGES = "ViT-L/14@336px", 336, 3, 1
+RESNET_POLICY, RESNET_IMAGES, BN_PRIOR = "RN50", 4, 0.5
 ENSEMBLE_IMAGES, REWARD336_IMAGES, ZERO_SHOT_IMAGES = 8, 4, 16
 REWARD336 = "ViT-L/14@336px"
 ZERO_SHOT_ARCHS = ("ViT-B/16", "RN50x64", "ViT-L/14@336px")
@@ -117,6 +129,7 @@ AUGMIX_MIX_COST, AUGMIX_FINAL_COST = 2, 4
 # flagship's as the first design of the AugMix kernel gave them on these
 # inputs, and the encoder's group of one image held to the same 0
 AUGMIX_UNEQUAL = {"flagship augmix on": 0, "flagship augmix on, seed 1": 0, "encoder group augmix on": 0}
+LARGE_RES = (336, 448)   # the AugMix kernel's layout with one plane on chip: ViT-L/14@336px's views, RN50x64's
 
 
 def log(msg):
@@ -270,8 +283,8 @@ def check_kernel(direction, B, T, H, dtype, masked, label, kind=None):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
-GENERAL_MASKS = (("key_out", (16, 197)), ("dead_row", (16, 197, 257)), ("block_diagonal", (197, 257)),
-                 ("block_diagonal_dead_row", (197, 257)), ("dead_tail", (197, 257)))
+GENERAL_MASKS = (("key_out", (16, 197, 577)), ("dead_row", (16, 197, 257, 577)), ("block_diagonal", (197, 257, 577)),
+                 ("block_diagonal_dead_row", (197, 257, 577)), ("dead_tail", (197, 257, 577)))
 
 
 def general_mask(kind, T, dev, gen):
@@ -293,28 +306,6 @@ def general_mask(kind, T, dev, gen):
     return mask
 
 
-def rounded_operand_bwd(qkv, g, mask, H, scale, split):
-    """The plain backward with P and dS rounded to bf16 where a tensor core
-    takes them as operands (fp32 products of the rounded values): once, or
-    ``split`` into a bf16 value plus the bf16 value of what that lost."""
-    from rlcf_torch.ops import attention as A
-
-    B, T, W = qkv.shape
-    heads = lambda t: t.float().reshape(B, T, -1, A.HEAD_DIM).transpose(1, 2)
-    (q, k, v), gh = (heads(t) for t in qkv.split(W // 3, dim=-1)), heads(g)
-    s = q @ k.transpose(-1, -2) * scale
-    p = torch.softmax(s if mask is None else s + A.prep_mask(mask), dim=-1)
-    dp = gh @ v.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-
-    def operand(x):
-        hi = x.bfloat16().float()
-        return hi + (x - hi).bfloat16().float() if split else hi
-
-    dq, dk, dv = operand(ds) @ k * scale, operand(ds).transpose(-1, -2) @ q * scale, operand(p).transpose(-1, -2) @ gh
-    return torch.cat([t.transpose(1, 2).reshape(B, T, W // 3) for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
-
-
 # the operand precisions of PRECISION's fp32 lines: one TF32 pass, the long kernels' 3xTF32, the short ones' six products
 TF32_PASSES = (("one TF32 pass", 1), ("3xTF32", 3), ("six products", 6))
 
@@ -325,7 +316,7 @@ def check_sweep(direction, dtype):
     two launches on the same input bit for bit. Then the worst error as a
     share of the tolerance, per regime, of the kernel and of the operand
     precisions it could have: bf16 backward, P and dS rounded once or split
-    into hi + lo (``rounded_operand_bwd``); fp32, both directions, one TF32
+    into hi + lo (``ops/attention.py::bf16_operand_reference_bwd``); fp32, both directions, one TF32
     pass, 3xTF32 or six products of a three-way split
     (``ops/attention.py::tf32_reference``)."""
     from rlcf_torch.models.layers import causal_mask
@@ -354,8 +345,8 @@ def check_sweep(direction, dtype):
             if fp32:
                 others = {name: A.tf32_reference_bwd(qkv, g, mask, H, scale, passes=n) for name, n in TF32_PASSES}
             else:
-                others = {"one rounding": rounded_operand_bwd(qkv, g, mask, H, scale, split=False),
-                          "hi + lo split": rounded_operand_bwd(qkv, g, mask, H, scale, split=True)}
+                others = {"one rounding": A.bf16_operand_reference_bwd(qkv, g, mask, H, scale, split=False),
+                          "hi + lo split": A.bf16_operand_reference_bwd(qkv, g, mask, H, scale, split=True)}
         torch.cuda.synchronize()
         label = f"sweep {direction} {tag} {label} variant={variant}"
         if not torch.equal(got, again):
@@ -366,7 +357,7 @@ def check_sweep(direction, dtype):
         return assert_close(got, want, dtype, direction, label)[0]
 
     tag = "fp32" if fp32 else "bf16"
-    t_values = SWEEP_T_FWD if direction == "fwd" else SWEEP_T
+    t_values = SWEEP_T_FWD if direction == "fwd" else SWEEP_T_BWD
     errs = [case(T, H, causal_mask(T, dev) if masked else None, T * 100 + H, f"T={T} H={H} masked={masked}")
             for T in t_values for H in SWEEP_H for masked in (False, True)]
     errs += [case(T, 12, kind, 5, f"T={T} H=12 general mask {kind}")
@@ -383,9 +374,10 @@ def check_flash_switch():
     """Phase 3, ATTN_IMPL="flash": ``layers.multi_head_attention`` at T=128,
     256 and 384, masked and not, bf16 and fp32, against its dense branch, the
     launch counter showing that the kernel ran; a differentiated call at
-    T=384 raises (the backward takes T <= 257); the switch is set back.
-    Returns the kernels-line entries of the timed shape, forward and the
-    backward that the switch's autograd function takes."""
+    T=384 and 512, causal, whose gradient (through the xlong backward) equals
+    the dense branch's; the switch is set back. Returns the kernels-line
+    entries of the timed shapes, forward and the backward that the switch's
+    autograd function takes (T=256, and 384 and 512 causal)."""
     from rlcf_torch.models import layers as L
     from rlcf_torch.ops import attention as A
 
@@ -411,21 +403,39 @@ def check_flash_switch():
                     label = f"flash switch T={T} {dtype} masked={masked}"
                     max_abs, _ = assert_close(got, want, dtype, "fwd", label)
                     log(f"FLASH {label}: equals the dense branch, max_abs_err={max_abs:.3e}")
-        try:
-            L.multi_head_attention(torch.zeros(1, 384, D, device=dev, requires_grad=True), *[t.float() for t in w], H)
-        except ValueError as e:
-            log(f"FLASH T=384 differentiated raises: {e}")
-        else:
-            raise AssertionError('ATTN_IMPL="flash" took a differentiated call at T=384')
+            for T in (384, 512):   # differentiated, causal: the xlong backward
+                gen = torch.Generator(device=dev).manual_seed(T + 1)
+                x = torch.randn(2, T, D, device=dev, generator=gen).to(dtype)
+                w = [(torch.randn(s, device=dev, generator=gen) * D ** -0.5).to(dtype)
+                     for s in ((D, 3 * D), (3 * D,), (D, D), (D,))]
+                mask, grads = L.causal_mask(T, dev), {}
+                for impl in ("dense", "flash"):
+                    L.ATTN_IMPL = impl
+                    xi = x.clone().requires_grad_(True)
+                    A.reset_launch_counts()
+                    L.multi_head_attention(xi, *w, H, mask).float().sin().sum().backward()
+                    torch.cuda.synchronize()
+                    grads[impl] = (xi.grad, dict(A.LAUNCH_VARIANTS))
+                (got, ran), (want, _) = grads["flash"], grads["dense"]
+                xlong = "bwd_" + A.backward_variant(T, dtype)
+                if not ran.get(xlong):
+                    raise AssertionError(f'ATTN_IMPL="flash" at T={T} did not launch {xlong}: {ran}')
+                rel = rel_l2(got, want)
+                limit = 1e-5 if dtype == torch.float32 else 2**-7
+                log(f"FLASH backward T={T} {dtype} causal through {xlong}: d/dx relative L2 error {rel:.3e} against "
+                    f"the dense branch (limit {limit:g})")
+                if not bool(torch.isfinite(got).all()) or rel > limit:
+                    raise AssertionError(f'ATTN_IMPL="flash" gradient at T={T} disagrees with the dense branch')
     finally:
         L.ATTN_IMPL = "dense"
     B, T, H = FLASH_SHAPE
     entries = [check_kernel("fwd", B, T, H, torch.bfloat16, masked,
                             f"B={B} T={T} H={H} bf16 {'causal' if masked else 'unmasked'}", kind="flash")
                for masked in (True, False)]
-    return entries + [check_kernel("bwd", B, T, H, dtype, True, f"backward B={B} T={T} H={H} {tag} causal",
-                                   kind="flash")
-                      for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))]
+    entries += [check_kernel("bwd", B, T, H, dtype, True, f"backward B={B} T={T} H={H} {tag} causal", kind="flash")
+                for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))]
+    return entries + [check_kernel("bwd", B, t, H, torch.bfloat16, True, f"backward B={B} T={t} H={H} bf16 causal",
+                                   kind="flash") for t in (384, 512)]
 
 
 def augmix_ops(params, R, S):
@@ -453,78 +463,86 @@ def augmix_ops(params, R, S):
     return 3 * total
 
 
+def augmix_compare(label, got, want, max_unequal=None, max_gray=None):
+    """Log the kernel's views against the plain version's; raise past the limits."""
+    d = (got.int() - want.int()).abs()
+    share, worst, unequal = float((d == 0).float().mean()), int(d.max()), int((d != 0).sum())
+    log(f"AUGMIX {label}: unequal pixels {unequal} of {d.numel()}, equal share {share:.6f}, max |d| {worst} gray")
+    if (max_unequal is not None and unequal > max_unequal) or (max_gray is not None and worst > max_gray):
+        raise AssertionError(f"AugMix kernel disagrees with its plain version: {label}")
+    return worst
+
+
 def check_augmix():
     """Phase 3, AugMix: the kernel against its plain version on the same
     sampled parameters. Both sum the crop in float64 in one order and round
     every step alike (the plain version's float64 stand-in for a fused
-    multiply-add could still round twice in rare cases): augmix off at most 1
-    gray; augmix on at most AUGMIX_UNEQUAL pixels unequal, the count the first
-    kernel gave on these inputs; single ops exact at R=224; then the
-    AUGMIX_PHASES line. Returns the kernels-line entries of the flagship's
-    group of 4 images and encoder TTA's group of 1."""
+    multiply-add could still round twice in rare cases). At R=224: augmix off
+    at most 1 gray; augmix on at most AUGMIX_UNEQUAL pixels unequal, the count
+    the first kernel gave on these inputs. At R = 336 and 448 (LARGE_RES, the
+    kernel's layout with one plane on chip and the other in the device
+    scratch), encoder TTA's group of one image: augmix on and off on two
+    seeds each, 0 unequal. Two launches alike everywhere; single ops exact at
+    every R; then the AUGMIX_PHASES line. Returns the kernels-line entries of
+    the flagship's group of 4 images and encoder TTA's group of 1 at each R."""
     from rlcf_torch.ops import augmix as X
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     imgs = torch.randint(0, 256, (GROUP, 3, SRC_SIZE, SRC_SIZE), generator=g, device=dev, dtype=torch.uint8)
-    basew = X.bicubic_matrix(SRC_SIZE, RES, device=dev)
-    shifts = X.op_shift_bounds(1.0, RES)
-
-    def sample(seed, augmix, n):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return X.flatten_params(X.sample_view_params(gen, n, VIEWS, SRC_SIZE, RES, augmix=augmix, device=dev))
-
-    def compare(label, got, want, max_unequal=None, max_gray=None):
-        d = (got.int() - want.int()).abs()
-        share, worst, unequal = float((d == 0).float().mean()), int(d.max()), int((d != 0).sum())
-        log(f"AUGMIX {label}: unequal pixels {unequal} of {d.numel()}, equal share {share:.6f}, max |d| {worst} gray")
-        if (max_unequal is not None and unequal > max_unequal) or (max_gray is not None and worst > max_gray):
-            raise AssertionError(f"AugMix kernel disagrees with its plain version: {label}")
-        return worst
-
+    cases = [(RES, "flagship augmix on", GROUP, 0, True, AUGMIX_UNEQUAL["flagship augmix on"], None, True),
+             (RES, "flagship augmix off", GROUP, 0, False, None, 1, False),
+             (RES, "flagship augmix on, seed 1", GROUP, 1, True, AUGMIX_UNEQUAL["flagship augmix on, seed 1"], None,
+              False),
+             (RES, "encoder group augmix on", 1, 2, True, AUGMIX_UNEQUAL["encoder group augmix on"], None, True)]
+    for R in LARGE_RES:
+        if not X.large_layout(R, SRC_SIZE):
+            raise AssertionError(f"R={R} was meant to take the AugMix kernel's large layout")
+        cases += [(R, f"encoder group R={R} seed {seed} augmix {'on' if augmix else 'off'}", 1, seed, augmix, 0, None,
+                   augmix and seed == 10 + R) for augmix in (True, False) for seed in (10 + R, 11 + R)]
     entries = []
-    for label, n, seed, augmix in (("flagship augmix on", GROUP, 0, True), ("flagship augmix off", GROUP, 0, False),
-                                   ("flagship augmix on, seed 1", GROUP, 1, True),
-                                   ("encoder group augmix on", 1, 2, True)):
-        params = sample(seed, augmix, n)
-        kernel = lambda: X.launch_views(imgs[:n], params, basew, RES, SRC_SIZE, VIEWS, shifts)
-        plain = lambda: X.augmix_views_reference(imgs[:n], params, basew, RES, SRC_SIZE, VIEWS, shifts)
+    for R, label, n, seed, augmix, max_unequal, max_gray, timed in cases:
+        basew, shifts = X.bicubic_matrix(SRC_SIZE, R, device=dev), X.op_shift_bounds(1.0, R)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = X.flatten_params(X.sample_view_params(gen, n, VIEWS, SRC_SIZE, R, augmix=augmix, device=dev))
+        kernel = lambda: X.launch_views(imgs[:n], params, basew, R, SRC_SIZE, VIEWS, shifts)
+        plain = lambda: X.augmix_views_reference(imgs[:n], params, basew, R, SRC_SIZE, VIEWS, shifts)
         got = kernel()
         torch.cuda.synchronize()
         again = kernel()
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"AugMix kernel: two launches on the same input differ ({label})")
-        worst = compare(label, got, plain(), max_unequal=AUGMIX_UNEQUAL[label] if augmix else None,
-                        max_gray=None if augmix else 1)
-        if augmix and seed != 1:   # timed: the flagship's group of 4 and the encoder's group of 1
+        worst = augmix_compare(label, got, plain(), max_unequal=max_unequal, max_gray=max_gray)
+        if timed:   # the flagship's group of 4 and the encoder's group of 1 at each R
             ms, plain_ms = time_ms(kernel, reps=20), time_ms(plain, reps=2, warmup=1)
-            nbytes = n * 3 * SRC_SIZE ** 2 + n * VIEWS * 3 * RES ** 2
-            flops = augmix_ops(params, RES, SRC_SIZE)
+            nbytes = n * 3 * SRC_SIZE ** 2 + n * VIEWS * 3 * R ** 2
+            flops = augmix_ops(params, R, SRC_SIZE)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / CUDA_CORE_FP32_FLOPS * 1e3
-            name = f"augmix[group N={n} V={VIEWS} S={SRC_SIZE} R={RES}]"
+            name = f"augmix[group N={n} V={VIEWS} S={SRC_SIZE} R={R}]"
             log(f"KERNEL {name}: max_abs_err={worst} gray "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call computes AugMix views) "
                 f"bound_ms={max(t_bytes, t_ops):.4f} (bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
-                f"ops {flops / 1e9:.3f} GFLOP fp32 -> {t_ops:.4f} ms)")
+                f"ops {flops / 1e9:.3f} GFLOP fp32 -> {t_ops:.4f} ms) shared bytes {X.shared_bytes(R, SRC_SIZE)}")
             entries.append({"name": name, "route": "cuda", "source": "rlcf_torch/csrc/augmix.cu",
-                            "replaces": REPLACES["augmix"], "shape": ["augmix", n, VIEWS, SRC_SIZE, RES],
+                            "replaces": REPLACES["augmix"], "shape": ["augmix", n, VIEWS, SRC_SIZE, R],
                             "max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                             "library_ms": None})
 
     # one view per op at the identity crop (source = view size), severities 1 and 2
-    src = torch.nn.functional.interpolate(imgs[:1].float(), size=(RES, RES), mode="area").round().to(torch.uint8)
     ops = [op for op in range(9) for _ in range(4)]
-    for severity in (1.0, 2.0):
-        gen = torch.Generator(device=dev).manual_seed(int(severity))
-        params = X.single_op_params(gen, ops, RES, severity, device=dev)
-        eye, sh = X.bicubic_matrix(RES, RES, device=dev), X.op_shift_bounds(severity, RES)
-        got = X.launch_views(src, params, eye, RES, RES, len(ops) + 1, sh)
-        torch.cuda.synchronize()
-        compare(f"single ops at severity {severity:g} R={RES} (36 views, 4 per op)", got,
-                X.augmix_views_reference(src, params, eye, RES, RES, len(ops) + 1, sh), max_unequal=0)
-    augmix_phases(imgs, basew, shifts)
+    for R in (RES, *LARGE_RES):
+        src = torch.nn.functional.interpolate(imgs[:1].float(), size=(R, R), mode="area").round().to(torch.uint8)
+        for severity in (1.0, 2.0):
+            gen = torch.Generator(device=dev).manual_seed(int(severity))
+            params = X.single_op_params(gen, ops, R, severity, device=dev)
+            eye, sh = X.bicubic_matrix(R, R, device=dev), X.op_shift_bounds(severity, R)
+            got = X.launch_views(src, params, eye, R, R, len(ops) + 1, sh)
+            torch.cuda.synchronize()
+            augmix_compare(f"single ops at severity {severity:g} R={R} (36 views, 4 per op)", got,
+                           X.augmix_views_reference(src, params, eye, R, R, len(ops) + 1, sh), max_unequal=0)
+    augmix_phases(imgs, X.bicubic_matrix(SRC_SIZE, RES, device=dev), X.op_shift_bounds(1.0, RES))
     return entries
 
 
@@ -797,22 +815,26 @@ def episode_timing_and_reference(out_dir):
     return out
 
 
-def encoder_argv(out_dir, precision="bf16", limit=ENCODER_IMAGES):
-    """``scripts/rlcf-tune.sh``'s settings: ViT-B/16 policy tuned against a
-    ViT-L/14 reward, 64 views, selection 0.1, sample_k 3, 3 steps at lr 1e-5,
-    momentum EMA re-anchored every 256 images, one image a group, full remat."""
+def encoder_argv(out_dir, precision="bf16", limit=ENCODER_IMAGES, arch=POLICY, res=RES, extra=()):
+    """``scripts/rlcf-tune.sh``'s settings: a policy (ViT-B/16 there) tuned
+    against a ViT-L/14 reward, 64 views, selection 0.1, sample_k 3, 3 steps
+    at lr 1e-5, momentum EMA re-anchored every 256 images, one image a group,
+    full remat; views at ``res``."""
     return [".", "--test_sets", "synthetic", "--synthetic_classes", "A", "--limit", str(limit),
-            "--arch", POLICY, "--reward_arch", REWARD, "--precision", precision, "--device", "cuda",
-            "--batch_size", str(VIEWS), "--selection_p", "0.1", "--sample_k", "3", "--tta_steps", str(STEPS),
-            "--lr", "1e-5", "--momentum_update", "1", "--update_freq", "256", "--episode_group", "1",
-            "--remat", "full", "--seed", "0", "--output", out_dir]
+            "--arch", arch, "--resolution", str(res), "--reward_arch", REWARD, "--precision", precision,
+            "--device", "cuda", "--batch_size", str(VIEWS), "--selection_p", "0.1", "--sample_k", "3",
+            "--tta_steps", str(STEPS), "--lr", "1e-5", "--momentum_update", "1", "--update_freq", "256",
+            "--episode_group", "1", "--remat", "full", "--seed", "0", "--output", out_dir, *extra]
 
 
-def run_encoder(out_dir, limit, precision="bf16"):
+def run_encoder(out_dir, limit, precision="bf16", arch=POLICY, res=RES, path=None, extra=()):
     """Phase 4c: encoder TTA through ``rlcf_torch.cli.tune_cls``; returns its
     numbers (the kernels' launches by shape over the whole run, setup's
-    class features included)."""
+    class features included). A ViT policy must launch the attention
+    backward its T takes; a ResNet policy has none (its attention pool is
+    dense), and its reward's forward goes through the kernel."""
     from rlcf_torch.cli import tune_cls
+    from rlcf_torch.models.clip import get_config
     from rlcf_torch.ops import attention as A
     from rlcf_torch.ops import augmix as X
     from rlcf_torch.tasks.classification import EncoderTTAClassifier
@@ -831,7 +853,8 @@ def run_encoder(out_dir, limit, precision="bf16"):
     X.reset_launch_counts()
     try:
         t0 = time.perf_counter()
-        results = tune_cls.main(encoder_argv(out_dir, precision=precision, limit=limit))
+        results = tune_cls.main(encoder_argv(out_dir, precision=precision, limit=limit, arch=arch, res=res,
+                                             extra=extra))
         wall = time.perf_counter() - t0
     finally:
         EncoderTTAClassifier.adapt = adapt
@@ -839,31 +862,35 @@ def run_encoder(out_dir, limit, precision="bf16"):
     by_shape = {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}
     variants = dict(A.LAUNCH_VARIANTS)
     for shape, logits, losses in seen:
-        if shape != (1, VIEWS, RES, RES, 3) or tuple(logits.shape) != (1, 200) or tuple(losses.shape) != (1, STEPS) \
+        if shape != (1, VIEWS, res, res, 3) or tuple(logits.shape) != (1, 200) or tuple(losses.shape) != (1, STEPS) \
                 or not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"encoder views {shape}, logits {tuple(logits.shape)}, losses {tuple(losses.shape)}: "
-                                 f"not finite [1, 200] and [1, {STEPS}] from [1, {VIEWS}, {RES}, {RES}, 3] views")
-    long_bwd = "bwd_mma_long" if precision == "bf16" else "bwd_tf32x3_long"
-    if len(seen) != limit or launches["augmix"] != limit or not variants.get(long_bwd):
-        raise AssertionError(f"encoder --precision {precision} did not go through the kernels: images={len(seen)} "
-                             f"launches={launches} variants={variants}")
+                                 f"not finite [1, 200] and [1, {STEPS}] from [1, {VIEWS}, {res}, {res}, 3] views")
+    cfg = get_config(arch)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    bwd = "bwd_" + A.backward_variant(cfg.grid_size ** 2 + 1, dtype) if cfg.is_vit else None
+    if len(seen) != limit or launches["augmix"] != limit or not launches["fwd"] or (bwd and not variants.get(bwd)):
+        raise AssertionError(f"encoder {arch} --precision {precision} did not go through the kernels: "
+                             f"images={len(seen)} launches={launches} variants={variants}")
     secs = results["synthetic"]["group_seconds"]
     timed = secs[1:]  # the first image warms up
-    return {"path": "encoder" if precision == "bf16" else f"encoder {precision}", "precision": precision,
-            "images": len(secs), "group_seconds": secs, "img_per_s": len(timed) / sum(timed), "wall_s": wall,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+    path = path or ("encoder" if precision == "bf16" else f"encoder {precision}")
+    return {"path": path, "arch": arch, "resolution": res, "precision": precision, "extra": list(extra),
+            "images": len(secs), "group_seconds": secs, "img_per_s": len(timed) / sum(timed) if timed else None,
+            "wall_s": wall, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
             "launch_variants": variants, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
             "top1": results["synthetic"]["top1"]}
 
 
-def encoder_gradient_check(clf, views):
+def encoder_gradient_check(clf, views, label="encoder"):
     """Phase 4c, bf16 at full width: the gradient of one step's loss in the
-    visual tower's weights (all of them, one vector) through the 12 layers at
-    T=197 on the 6 selected views, the kernel backward against the plain
-    backward on one forward, held to the noise floor as ``gradient_check``."""
+    visual tower's weights (all of them, one vector) through its layers on
+    the 6 selected views, the kernel backward against the plain backward on
+    one forward, held to the noise floor as ``gradient_check``."""
     from rlcf_torch.core import policy as Po
     from rlcf_torch.core.episode import step_loss, take_rows
     from rlcf_torch.core.losses import entropy_per_sample, select_confident_entropy
+    from rlcf_torch.ops import attention as A
     from rlcf_torch.tasks.classification import maybe_normalize_u8
 
     remat, clf.remat = clf.remat, False   # one stored forward whose graph is differentiated three times
@@ -881,71 +908,65 @@ def encoder_gradient_check(clf, views):
         grads, per_launch, launched = grads_through_backwards(loss, leaves)
     finally:
         clf.remat = remat
+    T = clf.clip_cfg.grid_size ** 2 + 1
+    variant = "bwd_" + A.backward_variant(T, torch.bfloat16)
     flat = {name: torch.cat([g.float().flatten() for g in gs]) for name, gs in grads.items()}
     rel, floor = rel_l2(flat["kernel"], flat["plain"]), rel_l2(flat["jittered"], flat["plain"])
-    log(f"GRAD encoder bf16 full width, d loss / d visual weights ({flat['plain'].numel()} of them, {len(leaves)} "
-        f"tensors) through {clf.clip_cfg.vision_layers} layers at B={n_keep} T={clf.clip_cfg.grid_size ** 2 + 1} "
+    log(f"GRAD {label} bf16 full width, d loss / d visual weights ({flat['plain'].numel()} of them, {len(leaves)} "
+        f"tensors) through {clf.clip_cfg.vision_layers} layers at B={n_keep} T={T} "
         f"({launched}), kernel backward against plain backward: per launch on its own inputs, relative L2 error "
         f"{min(per_launch):.3e} to {max(per_launch):.3e} (limit {GRAD_LAUNCH_LIMIT}); relative L2 error {rel:.3e} "
         f"(noise floor {floor:.3e}, limit {GRAD_FLOOR_RATIO:g} x the floor)")
-    if not bool(torch.isfinite(flat["kernel"]).all()) or not launched.get("bwd_mma_long") \
+    if not bool(torch.isfinite(flat["kernel"]).all()) or not launched.get(variant) \
             or max(per_launch) > GRAD_LAUNCH_LIMIT or rel > GRAD_FLOOR_RATIO * floor:
-        raise AssertionError("the encoder gradient through the kernel backward disagrees with the plain backward")
+        raise AssertionError(f"the {label} gradient through the kernel backward disagrees with the plain backward")
     return {"grad_launch_rel_l2_max": max(per_launch), "grad_visual_rel_l2": rel, "grad_visual_noise_floor": floor}
 
 
-def encoder_timing_and_reference(out_dir):
+def encoder_timing_and_reference(out_dir, arch=POLICY, res=RES, label="encoder", by_remat=True):
     """Phase 4c: on one image's views built beforehand, the bf16 encoder
-    episode's ms/img and its device busy share (torch.profiler), the share
-    of visual-tower weights one bf16 episode changed, the GRAD check, and
-    the fused-attention episode held to the dense one in fp32 at full width
-    (REFERENCE: selections equal, logits and losses within 1e-3 x max(|logits|, 1)
-    and 1e-3, the flagship REFERENCE's tolerance)."""
+    episode's ms/img and its device busy share (torch.profiler), with
+    ``by_remat`` the same for each --remat and the share of visual-tower
+    weights one bf16 episode changed, the GRAD check, and the fused-attention
+    episode held to the dense one in fp32 at full width (REFERENCE: selections
+    equal, logits and losses within 1e-3 x max(|logits|, 1) and 1e-3, the
+    flagship REFERENCE's tolerance)."""
     from rlcf_torch.cli import tune_cls
     from rlcf_torch.core import policy as Po
     from rlcf_torch.data.class_names import get_classnames
-    from rlcf_torch.data.datasets import SyntheticDataset
-    from rlcf_torch.ops.augmix import fused_views
 
     names = get_classnames("A")
-    img = SyntheticDataset(n=1, n_classes=200)[0][0]
-    planar = torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).cuda()
-    views = fused_views(planar, torch.Generator(device="cuda").manual_seed(0), n_views=VIEWS, resolution=RES,
-                        src_size=SRC_SIZE).permute(0, 1, 3, 4, 2)
-    clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir)))
+    views = encoder_views(res)
+    clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir, arch=arch, res=res)))
     clf.setup(names)
+    out = time_encoder_episode(clf, views, f"{label} episode (views pre-built, bf16)")
     ep = lambda: clf.adapt(views)[0].float().cpu()
-    ep()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        ep()
-    out = {"episode_ms_per_img": (time.perf_counter() - t0) / 3 * 1e3}
-    out.update(profile_episode(ep, "encoder episode (views pre-built, bf16)"))
-    by_remat = {}
-    for remat, setting in (("save_attn", "save_attn"), ("none", False), ("full", True)):   # the CLI's --remat
-        clf.remat = setting
-        torch.cuda.reset_peak_memory_stats()
-        ep()
-        t0 = time.perf_counter()
-        for _ in range(2):
+    if by_remat:
+        out["by_remat"] = {}
+        for remat, setting in (("save_attn", "save_attn"), ("none", False), ("full", True)):   # the CLI's --remat
+            clf.remat = setting
+            torch.cuda.reset_peak_memory_stats()
             ep()
-        by_remat[remat] = {"episode_ms_per_img": (time.perf_counter() - t0) / 2 * 1e3,
-                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log(f"ENCODER bf16 episode by --remat (views pre-built): {json.dumps(by_remat)}")
-    out["by_remat"] = by_remat
-    anchor = Po.tree_leaves(clf.momentum_state.reset_params)
-    _, aux = clf.adapt(views, return_adapted=True)
-    adapted = [a[0] for a in Po.tree_leaves(aux["adapted"])]
-    changed = sum(int((a != b).sum()) for a, b in zip(adapted, anchor))
-    total = sum(a.numel() for a in anchor)
-    out.update(weights_changed=changed, weights_total=total, weights_changed_share=changed / total)
-    log(f"ENCODER bf16 weights one episode changed (lr 1e-5, 3 AdamW steps, bf16 weights): {changed} of {total}, "
-        f"share {changed / total:.4f}")
-    out.update(encoder_gradient_check(clf, views))
-    del clf, aux, adapted, anchor
+            t0 = time.perf_counter()
+            for _ in range(2):
+                ep()
+            out["by_remat"][remat] = {"episode_ms_per_img": (time.perf_counter() - t0) / 2 * 1e3,
+                                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"ENCODER bf16 episode by --remat (views pre-built): {json.dumps(out['by_remat'])}")
+        anchor = Po.tree_leaves(clf.momentum_state.reset_params)
+        _, aux = clf.adapt(views, return_adapted=True)
+        adapted = [a[0] for a in Po.tree_leaves(aux["adapted"])]
+        changed = sum(int((a != b).sum()) for a, b in zip(adapted, anchor))
+        total = sum(a.numel() for a in anchor)
+        out.update(weights_changed=changed, weights_total=total, weights_changed_share=changed / total)
+        log(f"ENCODER bf16 weights one episode changed (lr 1e-5, 3 AdamW steps, bf16 weights): {changed} of {total}, "
+            f"share {changed / total:.4f}")
+        del aux, adapted, anchor
+    out.update(encoder_gradient_check(clf, views, label))
+    del clf
     torch.cuda.empty_cache()
 
-    clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir, precision="fp32")))
+    clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir, precision="fp32", arch=arch, res=res)))
     clf.setup(names)
     fused_logits, fused_aux = clf.adapt(views)   # the momentum fold moves the EMA only: the next starts alike
     clf.attn = clf.reward_attn = "dense"
@@ -955,11 +976,55 @@ def encoder_timing_and_reference(out_dir):
     d_logits = float((fused_logits - dense_logits).abs().max())
     d_losses = float((fused_aux["losses"] - dense_aux["losses"]).abs().max())
     scale = float(dense_logits.abs().max())
-    log(f"REFERENCE encoder fp32 full width, fused vs dense attention: selections equal={same_sel} "
+    log(f"REFERENCE {label} fp32 full width, fused vs dense attention: selections equal={same_sel} "
         f"max|d logits|={d_logits:.3e} (of max {scale:.3e}) max|d losses|={d_losses:.3e}")
     if not same_sel or d_logits > 1e-3 * max(scale, 1.0) or d_losses > 1e-3:
-        raise AssertionError("fused-attention encoder episode disagrees with the dense episode in fp32")
+        raise AssertionError(f"fused-attention {label} episode disagrees with the dense episode in fp32")
     out.update(fp32_selected_equal=same_sel, fp32_max_abs_logit_diff=d_logits, fp32_max_abs_loss_diff=d_losses)
+    del clf
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_views(res):
+    """One synthetic image's VIEWS views at ``res``, built beforehand by the
+    AugMix kernel: NHWC u8 ``[1, VIEWS, res, res, 3]``."""
+    from rlcf_torch.data.datasets import SyntheticDataset
+    from rlcf_torch.ops.augmix import fused_views
+
+    img = SyntheticDataset(n=1, n_classes=200)[0][0]
+    planar = torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).cuda()
+    return fused_views(planar, torch.Generator(device="cuda").manual_seed(0), n_views=VIEWS, resolution=res,
+                       src_size=SRC_SIZE).permute(0, 1, 3, 4, 2)
+
+
+def time_encoder_episode(clf, views, what):
+    """An encoder episode on views built beforehand: ms/img over three after a
+    warm-up, their peak memory, and one episode's device busy share."""
+    ep = lambda: clf.adapt(views)[0].float().cpu()
+    ep()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ep()
+    out = {"episode_ms_per_img": (time.perf_counter() - t0) / 3 * 1e3,
+           "episode_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out.update(profile_episode(ep, what))
+    return out
+
+
+def resnet_encoder_episode(out_dir, prior):
+    """Phase 4c, an RN50 policy (bf16): the episode on one image's views
+    built beforehand (``time_encoder_episode``), with ``--prior_strength
+    prior`` (None: without)."""
+    from rlcf_torch.cli import tune_cls
+    from rlcf_torch.data.class_names import get_classnames
+
+    extra = () if prior is None else ("--prior_strength", str(prior))
+    clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir, arch=RESNET_POLICY, extra=extra)))
+    clf.setup(get_classnames("A"))
+    out = {"bn_prior": prior, **time_encoder_episode(
+        clf, encoder_views(RES), f"encoder {RESNET_POLICY} episode, bn_prior {prior} (views pre-built, bf16)")}
     del clf
     torch.cuda.empty_cache()
     return out
@@ -1093,8 +1158,10 @@ def main():
     for name in ("rlcf_attention_mma", "rlcf_attention_bwd_mma", "rlcf_attention_tf32", "rlcf_attention_bwd_tf32",
                  "rlcf_augmix"):
         for line in cuda_build.PTXAS[name].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line or "Performance" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"PTXAS {name}: " + line.strip()[:200])
+            elif "Performance" in line:   # the whole line: it names the function at its end
+                log(f"PTXAS {name}: " + line.strip())
     if not results[-1]:
         raise RuntimeError("the host view pipeline (native/rlcf_host.cpp) did not build")
     log(f"BUILD nvcc x5 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
@@ -1118,7 +1185,12 @@ def main():
               ("fwd", ZERO_SHOT_IMAGES, 577, 16, False, "zero-shot 336"),
               ("fwd", ZERO_SHOT_IMAGES, 197, 12, False, "zero-shot B/16"),
               ("fwd", 200, t_text, 16, True, "zero-shot RN50x64 text-setup"),
-              ("fwd", 200, t_text, 12, True, "zero-shot 336 text-setup")]
+              ("fwd", 200, t_text, 12, True, "zero-shot 336 text-setup"),
+              # encoder TTA of ViT-L/14@336px: 64 views selected from, 6 through the steps, view 0 predicted; the
+              # xlong backward at its steps' shape and at the ensemble's batch
+              ("fwd", VIEWS, 577, 16, False, "encoder 336 select"), ("fwd", n_sel, 577, 16, False, "encoder 336 step"),
+              ("fwd", 1, 577, 16, False, "encoder 336 final"), ("bwd", n_sel, 577, 16, False, "encoder 336 step"),
+              ("bwd", GROUP * n_sel, 577, 16, False, "T577")]
     entries = []
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
@@ -1160,6 +1232,37 @@ def main():
     for e in encoder:
         log("ENCODER_PATH " + json.dumps(e))
     paths += encoder
+    encoder336 = [run_encoder(out_dir, ENCODER336_IMAGES, arch=POLICY336, res=RES336, path="encoder 336"),
+                  run_encoder(out_dir, ENCODER336_FP32_IMAGES, "fp32", arch=POLICY336, res=RES336,
+                              path="encoder 336 fp32")]
+    for e in encoder336:
+        log("ENCODER_PATH " + json.dumps(e))
+    enc336, e336 = encoder_timing_and_reference(out_dir, POLICY336, RES336, "encoder 336", by_remat=False), encoder336[0]
+    log("ENCODER336 " + json.dumps({
+        "img_per_s": e336["img_per_s"], "fp32_seconds_first_image": encoder336[1]["group_seconds"][0],
+        "episode_ms_per_img": enc336["episode_ms_per_img"], "device_busy_ms": enc336["profile_device_busy_ms"],
+        "idle_share": enc336["profile_idle_share"], "kernels_per_episode": enc336["profile_kernels"],
+        "peak_mem_gib": e336["peak_mem_gib"], "episode_peak_mem_gib": enc336["episode_peak_mem_gib"],
+        "fp32_peak_mem_gib": encoder336[1]["peak_mem_gib"],
+        "launches_per_image_by_shape": {k: v / e336["images"] for k, v in e336["launches_by_shape"].items()},
+        "fp32_launches_per_image_by_shape": {k: v / encoder336[1]["images"]
+                                             for k, v in encoder336[1]["launches_by_shape"].items()},
+        "launch_note": "per image over the whole run (the class features' text-setup launch once per run); "
+                       "with --remat full each step's backward runs the attention forward again, so the B=6 T=577 "
+                       "forward counts 72 step forwards and 72 recomputed ones an image, the backward 72",
+        **{k: enc336[k] for k in ("grad_visual_rel_l2", "grad_visual_noise_floor", "grad_launch_rel_l2_max",
+                                  "fp32_selected_equal", "fp32_max_abs_logit_diff", "fp32_max_abs_loss_diff")}}))
+    resnet = [run_encoder(out_dir, RESNET_IMAGES, arch=RESNET_POLICY, path=f"encoder {RESNET_POLICY}"),
+              run_encoder(out_dir, RESNET_IMAGES, arch=RESNET_POLICY, path=f"encoder {RESNET_POLICY} bn_prior",
+                          extra=("--prior_strength", str(BN_PRIOR)))]
+    for e in resnet:
+        log("ENCODER_PATH " + json.dumps(e))
+    rn_eps = [resnet_encoder_episode(out_dir, prior) for prior in (None, BN_PRIOR)]
+    log("ENCODER_RN50 " + json.dumps([
+        {"path": e["path"], "img_per_s": e["img_per_s"], "peak_mem_gib": e["peak_mem_gib"], "top1": e["top1"],
+         "launches_per_image_by_shape": {k: v / e["images"] for k, v in e["launches_by_shape"].items()}, **ep}
+        for e, ep in zip(resnet, rn_eps)]))
+    paths += encoder336 + resnet
     ensemble = [run_flagship(out_dir, "native", ENSEMBLE_IMAGES, extra=ENSEMBLE_ARGS, path="ensemble"),
                 run_flagship(out_dir, "fused", REWARD336_IMAGES, reward=REWARD336, path="fused reward 336"),
                 run_zero_shot(out_dir)]
@@ -1201,6 +1304,11 @@ def main():
     for variant in ("mma_long", "tf32x3_long"):   # the long backward: encoder TTA's
         if not any(e["name"].startswith("mha_bwd") and e["variant"] == variant and e["launches"] for e in line):
             raise AssertionError(f"the long backward {variant} was launched no time on a path")
+    # the xlong backward: encoder TTA of ViT-L/14@336px, bf16 and fp32
+    for variant, path in (("mma_xlong", "encoder 336"), ("tf32x3_xlong", "encoder 336 fp32")):
+        if not any(e["name"].startswith("mha_bwd") and e["variant"] == variant and e["launches_by_path"].get(path)
+                   for e in line):
+            raise AssertionError(f"the xlong backward {variant} was launched no time on the path {path}")
     # the forward above T = 257: the ensemble's ViT-L/14@336px, bf16 on the ensemble path, fp32 in its REFERENCE
     for dtype, path in ((torch.bfloat16, "ensemble"), (torch.float32, "ensemble reference fp32")):
         if not launched.get(key336[dtype], {}).get(path):

@@ -3,9 +3,9 @@ family), on the card: the port of ``rlcf_tpu/cli/tune_cls.py``.
 
 Tunes the CLIP visual tower per test image (optionally only its
 normalization affines), with momentum-EMA re-anchoring of the episodes'
-starting point. A ViT policy and a single reward (ViT or ResNet; the views
-resized where it takes another resolution); a ResNet policy comes with
-ROADMAP A8 (rest).
+starting point. A ViT or ResNet policy (``--prior_strength p >= 0``: a
+ResNet's BN-prior statistics) and a single reward (ViT or ResNet; the views
+resized where it takes another resolution).
 
 Views: the JAX entry point draws them with its XLA view generator
 (``rlcf_tpu/data/augment.py::make_view_generator``), whose port is ROADMAP
@@ -21,6 +21,8 @@ Example (random weights, no data; the reference's ``scripts/rlcf-tune.sh``):
       --arch ViT-B/16 --reward_arch ViT-L/14 --tta_steps 3 --lr 1e-5 \\
       --batch_size 64 --selection_p 0.1 --sample_k 3 \\
       --momentum_update 1 --update_freq 256 --episode_group 1
+``--arch ViT-L/14@336px --resolution 336`` tunes the 336 px tower (views
+built at 336 px); ``--arch RN50 [--prior_strength 0.5]`` a ResNet policy.
 Add ``--device cpu`` to run on the CPU.
 """
 
@@ -64,14 +66,8 @@ def refuse_unported(args):
         raise SystemExit("rlcf_torch: --multiple_reward_models: encoder TTA takes a single reward, as the JAX "
                          "package's EncoderTTAClassifier does; the reward ensemble serves prompt TTA "
                          "(rlcf_torch.cli.tta_cls)")
-    from ..models.clip import CLIP_ARCHS
-
-    resnet = not args.clip_checkpoint and args.arch in CLIP_ARCHS and not CLIP_ARCHS[args.arch].is_vit
     waits = {
         "--dp > 1": (args.dp > 1, "episode data parallelism (ROADMAP A14)"),
-        "--prior_strength >= 0": (args.prior_strength >= 0,
-                                  "BN-prior statistics of a ResNet policy (ROADMAP A8 (rest))"),
-        f"--arch {args.arch} (a ResNet policy)": (resnet, "encoder TTA through ResNet towers (ROADMAP A8 (rest))"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
         "--decode native": (args.decode == "native", "the native decoder binding (ROADMAP A15)"),
         "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),
@@ -101,6 +97,7 @@ def build(args):
         params, cfg, reward, ecfg, prompt_prefix=(args.ctx_prefix or "a photo of a").replace("_", " "),
         only_norm=bool(args.tune_norm), momentum_update=bool(args.momentum_update), update_freq=args.update_freq,
         update_w=args.update_w, momentum=args.tta_momentum,
+        bn_prior=None if args.prior_strength < 0 else args.prior_strength,
         remat={"full": True, "save_attn": "save_attn", "none": False}[args.remat],
     )
     return clf, cfg, device

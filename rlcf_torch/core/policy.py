@@ -22,23 +22,31 @@ import torch
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same structure; a leaf
-    that is None in the first tree stays None."""
+    """``fn`` over the leaves of nested dicts and lists (a ResNet's groups of
+    blocks) of the same structure; a leaf that is None in the first tree
+    stays None."""
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(tree_map(fn, *parts) for parts in zip(*trees))
     return None if trees[0] is None else fn(*trees)
 
 
 def tree_leaves(tree):
-    """The non-None leaves of nested dicts, in key order."""
+    """The non-None leaves of nested dicts and lists, in key order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [] if tree is None else [tree]
 
 
 def _paths(tree, prefix=""):
+    """Each leaf's path, as the JAX package writes it (``visual/groups/0/1/bn1/w``)."""
     if isinstance(tree, dict):
         return {k: _paths(v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_paths(v, f"{prefix}{i}/") for i, v in enumerate(tree))
     return prefix[:-1]
 
 
@@ -64,6 +72,8 @@ def merge(selected, rest):
     """Inverse of :func:`partition` (leaf-wise first non-None)."""
     if isinstance(selected, dict):
         return {k: merge(selected[k], rest[k]) for k in selected}
+    if isinstance(selected, (list, tuple)):
+        return type(selected)(merge(a, b) for a, b in zip(selected, rest))
     return selected if selected is not None else rest
 
 

@@ -70,6 +70,33 @@
 // quarter of the columns each, their partial sums added in shared memory in
 // the order of the warps.
 //
+// Longer sequences (258 <= T <= 577: ViT-L/14 at 336 px, T = 24 * 24 + 1,
+// under encoder TTA; ATTN_IMPL="flash" at T = 384 and 512): the long kernel's
+// design would hold Q, K, V and G of a head in shared memory, 295 KB at
+// T = 577 against a CTA's 227 KB. So the work is cut in two launches that keep
+// its properties (no atomics, bit-identical repeats, the same sweeps and
+// arithmetic, the hi + lo split of P and dS):
+//   (a) `mha_bwd_mma_xlong_rows`: CTA = (sequence, head, 128 query rows), two
+//       warpgroups of 64 rows with Q and G staged; K and V stream in chunks
+//       of 64 keys through a ring of three slots (cp.async, two chunks in
+//       flight while one is multiplied), shared by both warpgroups, once for
+//       sweep 1 (row max, row sum, rowsum(dp * P), online) and once for
+//       sweep 2 (dq = dS.K). The rows' statistics go to a [B * H, 3, T]
+//       fp32 scratch in device memory (22 KB a head at T = 577).
+//   (b) `mha_bwd_mma_xlong_keys`: CTA = (sequence, head, 128 keys) with K and
+//       V staged and every row's statistics in shared memory; Q and G stream
+//       through the ring once for sweep 3 (S^T, dP^T, P^T and dS^T from the
+//       statistics, dv += P^T.G, dk += dS^T.Q).
+// Each CTA reads the other two slices once per sweep (three times in all,
+// from L2), against once in the long kernel: 83 KB and 91 KB of shared memory
+// a CTA. A last chunk of 64 that holds fewer rows (at T = 577 = 9 * 64 + 1,
+// one) takes the general path, which predicates the blocks of 16 past T; in
+// launch (b) a chunk of at most 16 queries takes a narrow m64n16 step. The
+// same narrow step in launch (a), a branch inside its loop, made ptxas
+// serialize the warpgroup's wgmma (warning C7520) and was slower. A mask
+// takes the general path on every tile (no tile is skipped: the masks these
+// lengths see are U1's causal one and the checks' own).
+//
 // The mask is a general additive [T, T] fp32 tensor (already clamped to a
 // finite floor by the wrapper).
 //
@@ -946,6 +973,200 @@ int launch_long(const bf16* qkv, const bf16* g, const float* mask, const unsigne
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the longest regime (258 <= T <= 577): the slices streamed, two launches
+//
+// A head's Q, K, V and G no longer fit a CTA's shared memory (295 KB at
+// T = 577), so each launch holds only its own rows' two slices and streams the
+// other two through a ring of three slots, as the forward's mma_xlong streams
+// K and V. The steps on a tile are the long kernel's (rows_step1, rows_step2,
+// keys_step), so the arithmetic is too.
+
+constexpr int kXlWarpgroups = 2;                 // a CTA's warpgroups, 64 rows each, sharing each streamed chunk
+constexpr int kXlThreads = 128 * kXlWarpgroups;
+constexpr int kXlRows = 64 * kXlWarpgroups;      // a CTA's own rows: queries in launch (a), keys in (b)
+constexpr int kXlChunkBytes = 4 * kTileBytes;    // 64 rows of one slice
+constexpr int kXlStages = 3;                     // ring slots, two slices each
+constexpr int kXlStatRows = (kMaxTFwd + 63) / 64 * 64;
+// own rows' two slices | the ring | room to align to 1024 bytes; launch (b) adds the statistics of every row
+constexpr int kXlSmemRows = (2 * kXlWarpgroups * 4 + 2 * kXlStages * 4) * kTileBytes + 1024;
+constexpr int kXlSmemKeys = kXlSmemRows + 3 * kXlStatRows * static_cast<int>(sizeof(float));
+
+// Launch (a): CTA = (sequence, head, kXlRows query rows), a warp 16 of them.
+// Stage j of the ring is K and V chunk j mod nc: sweep 1 (j < nc) the rows'
+// statistics, sweep 2 dq = dS.K * scale. The statistics (row max in base 2,
+// 1 / row sum, rowsum(dp * P)) go to `stats` [B * H, 3, 64 nc] for launch (b).
+template <bool MASKED>
+__global__ void __launch_bounds__(kXlThreads, 1)
+mha_bwd_mma_xlong_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const float* __restrict__ mask,
+                       float* __restrict__ stats, bf16* __restrict__ dqkv, int t, int heads, int nqb, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, w = warp & 3;
+  const int bh = blockIdx.x / nqb, qrow0 = (blockIdx.x % nqb) * kXlRows;
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD, stride = 3 * hd;
+  const int nc = (t + 63) / 64, n16 = (t + 15) / 16;
+  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  unsigned char* qs = smem;
+  unsigned char* gs = qs + kXlRows * kRowBytes;
+  unsigned char* ring = gs + kXlRows * kRowBytes;
+
+  auto issue = [&](int j) {  // one cp.async group a stage, empty past the last
+    if (j < 2 * nc) {
+      unsigned char* slot = ring + (j % kXlStages) * 2 * kXlChunkBytes;
+      const int k0 = 64 * (j % nc);
+      stage_rows(slot, base + hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride, threadIdx.x, kXlThreads);
+      stage_rows(slot + kXlChunkBytes, base + 2 * hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride,
+                 threadIdx.x, kXlThreads);
+    }
+    cp_async_commit();
+  };
+  stage_rows(qs, base + static_cast<size_t>(qrow0) * stride, kXlRows, t - qrow0, stride, threadIdx.x, kXlThreads);
+  stage_rows(gs, g + (static_cast<size_t>(b) * t + qrow0) * hd + h * kD, kXlRows, t - qrow0, hd, threadIdx.x,
+             kXlThreads);
+  issue(0);
+  issue(1);
+
+  float* stat_m = stats + static_cast<size_t>(bh) * 3 * nc * 64;
+  const LongArgs a = {mask, stat_m, stat_m + nc * 64, stat_m + 2 * nc * 64, t, scale * kLog2e, lane};
+  const int row0 = qrow0 + (warp >> 2) * 64 + w * 16, ra = row0 + (lane >> 2), rb = ra + 8, c0 = 2 * (lane & 3);
+  const bool active = row0 < t;  // uniform over the warp; the wgmma are the whole warpgroup's
+  unsigned char* own = qs + (warp >> 2) * 4 * kTileBytes + w * kTileBytes;  // the warp's Q tile
+  uint32_t qa[4][4], ga[4][4];
+  auto next_stage = [&](int j) {  // stage j is in, and every warp is done with stage j - 1, whose slot j + 2 takes
+    cp_async_wait<1>();
+    fence_async_proxy();
+    __syncthreads();
+    issue(j + 2);
+    return smem_u32(ring + (j % kXlStages) * 2 * kXlChunkBytes);
+  };
+
+  // sweep 1: a thread's own columns give it a running max m, and l and dd
+  // relative to it; the quad merges them once at the end
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  for (int j = 0; j < nc; ++j) {
+    const uint32_t kaddr = next_stage(j), vaddr = kaddr + kXlChunkBytes;
+    if (j == 0) {
+      load_q(qa, own, lane);
+      load_q(ga, own + kXlRows * kRowBytes, lane);
+    }
+    const int nb = min(4, n16 - 4 * j);  // blocks of 16 keys the chunk holds (uniform)
+    rows_step1<4, true>(a, qa, ga, kaddr, vaddr, active, !MASKED && (j + 1) * 64 <= t, m, l, dd, ra, rb,
+                        j * 64 + c0, nb);
+  }
+  if (active) merge_statistics(m, l, dd, a.stat_m, a.stat_i, a.stat_d, ra, rb, lane);
+
+  // sweep 2: dq = dS.K * scale
+  float dq[8][4] = {};
+  for (int j = nc; j < 2 * nc; ++j) {
+    const uint32_t kaddr = next_stage(j), vaddr = kaddr + kXlChunkBytes;
+    const int kc = j - nc;
+    rows_step2<4, true>(a, qa, ga, kaddr, vaddr, active, !MASKED && (kc + 1) * 64 <= t, m, l, dd, dq, ra, rb,
+                        kc * 64 + c0, min(4, n16 - 4 * kc));
+  }
+  if (active) {
+    scale_tile(dq, scale);
+    store_tile(dq, own, dqkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(row0) * stride + h * kD,
+               t - row0, stride, lane);
+  }
+}
+
+// Launch (b): CTA = (sequence, head, kXlRows keys), a warp 16 of them. Stage
+// j of the ring is Q and G chunk j: S^T = K.Q^T and dP^T = V.G^T, P^T and dS^T
+// from launch (a)'s statistics (rows >= t read as 0), dv += P^T.G and
+// dk += dS^T.Q. Nothing is summed by atomics: two launches give the same bits.
+template <bool MASKED>
+__global__ void __launch_bounds__(kXlThreads, 1)
+mha_bwd_mma_xlong_keys(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const float* __restrict__ mask,
+                       const float* __restrict__ stats, bf16* __restrict__ dqkv, int t, int heads, int nkb,
+                       float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, w = warp & 3;
+  const int bh = blockIdx.x / nkb, krow0 = (blockIdx.x % nkb) * kXlRows;
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD, stride = 3 * hd;
+  const int nc = (t + 63) / 64, n16 = (t + 15) / 16;
+  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  const bf16* gbase = g + static_cast<size_t>(b) * t * hd + h * kD;
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + kXlRows * kRowBytes;
+  unsigned char* ring = vs + kXlRows * kRowBytes;
+  float* stat_m = reinterpret_cast<float*>(ring + kXlStages * 2 * kXlChunkBytes);
+
+  auto issue = [&](int j) {
+    if (j < nc) {
+      unsigned char* slot = ring + (j % kXlStages) * 2 * kXlChunkBytes;
+      stage_rows(slot, base + static_cast<size_t>(64 * j) * stride, 64, t - 64 * j, stride, threadIdx.x, kXlThreads);
+      stage_rows(slot + kXlChunkBytes, gbase + static_cast<size_t>(64 * j) * hd, 64, t - 64 * j, hd, threadIdx.x,
+                 kXlThreads);
+    }
+    cp_async_commit();
+  };
+  stage_rows(ks, base + hd + static_cast<size_t>(krow0) * stride, kXlRows, t - krow0, stride, threadIdx.x, kXlThreads);
+  stage_rows(vs, base + 2 * hd + static_cast<size_t>(krow0) * stride, kXlRows, t - krow0, stride, threadIdx.x,
+             kXlThreads);
+  const float* src = stats + static_cast<size_t>(bh) * 3 * nc * 64;
+  for (int i = threadIdx.x; i < 3 * nc * 64; i += kXlThreads) {
+    const int row = i % (nc * 64);
+    stat_m[(i / (nc * 64)) * kXlStatRows + row] = row < t ? src[i] : 0.f;
+  }
+  issue(0);
+  issue(1);
+
+  const LongArgs a = {mask, stat_m, stat_m + kXlStatRows, stat_m + 2 * kXlStatRows, t, scale * kLog2e, lane};
+  const int row0 = krow0 + (warp >> 2) * 64 + w * 16, ka = row0 + (lane >> 2), kb8 = ka + 8, c0 = 2 * (lane & 3);
+  const bool active = row0 < t;
+  unsigned char* own = ks + (warp >> 2) * 4 * kTileBytes + w * kTileBytes;  // the warp's K tile
+  uint32_t kf[4][4], vf[4][4];
+  float dv[8][4] = {}, dk[8][4] = {};
+  for (int j = 0; j < nc; ++j) {
+    cp_async_wait<1>();
+    fence_async_proxy();
+    __syncthreads();  // as launch (a); at j = 0 the statistics are in too
+    issue(j + 2);
+    if (j == 0) {
+      load_q(kf, own, lane);
+      load_q(vf, own + kXlRows * kRowBytes, lane);
+    }
+    const int nb = min(4, n16 - 4 * j);
+    const bool plain = !MASKED && (j + 1) * 64 <= t && row0 + 16 <= t;
+    const uint32_t qaddr = smem_u32(ring + (j % kXlStages) * 2 * kXlChunkBytes), gaddr = qaddr + kXlChunkBytes;
+    if (nb == 1) {
+      keys_step<1, true>(a, kf, vf, qaddr, gaddr, active, false, dv, dk, ka, kb8, j * 64 + c0, 1);
+    } else {
+      keys_step<4, true>(a, kf, vf, qaddr, gaddr, active, plain, dv, dk, ka, kb8, j * 64 + c0, nb);
+    }
+  }
+  if (active) {
+    bf16* out = dqkv + (static_cast<size_t>(b) * t + row0) * stride + h * kD;
+    scale_tile(dk, scale);
+    store_tile(dv, own, out + 2 * hd, t - row0, stride, lane);
+    store_tile(dk, own, out + hd, t - row0, stride, lane);
+  }
+}
+
+template <bool MASKED>
+int launch_xlong(const bf16* qkv, const bf16* g, const float* mask, float* stats, bf16* dqkv, int batch, int t,
+                 int heads, float scale, cudaStream_t stream) {
+  static const cudaError_t attr_rows =  // once per kernel and process
+      cudaFuncSetAttribute(mha_bwd_mma_xlong_rows<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmemRows);
+  static const cudaError_t attr_keys =
+      cudaFuncSetAttribute(mha_bwd_mma_xlong_keys<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmemKeys);
+  if (attr_rows != cudaSuccess) return static_cast<int>(attr_rows);
+  if (attr_keys != cudaSuccess) return static_cast<int>(attr_keys);
+  const int nblk = (t + kXlRows - 1) / kXlRows;
+  const long long ctas = static_cast<long long>(batch) * heads * nblk;
+  if (ctas > 0x7fffffffLL) return kBadArgs;
+  mha_bwd_mma_xlong_rows<MASKED><<<static_cast<unsigned>(ctas), kXlThreads, kXlSmemRows, stream>>>(
+      qkv, g, mask, stats, dqkv, t, heads, nblk, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_bwd_mma_xlong_keys<MASKED><<<static_cast<unsigned>(ctas), kXlThreads, kXlSmemKeys, stream>>>(
+      qkv, g, mask, stats, dqkv, t, heads, nblk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -987,6 +1208,22 @@ int rlcf_mha_bwd_mma_long(const void* qkv, const void* g, const void* mask, void
   }
   return tail ? launch_long<false, true>(x, cot, nullptr, nullptr, out, batch, t, heads, scale, s)
               : launch_long<false, false>(x, cot, nullptr, nullptr, out, batch, t, heads, scale, s);
+}
+
+// bf16 only. mask may be null. 17 <= T <= 577 (the wrapper sends 258 <= T <= 577
+// here). stats: scratch of B * H * 3 * 64 * ceil(T / 64) floats, written by the
+// first launch and read by the second.
+int rlcf_mha_bwd_mma_xlong(const void* qkv, const void* g, const void* mask, void* stats, void* dqkv, int batch,
+                           int t, int heads, float scale, void* stream) {
+  if (bad_args(batch, t, heads, kMaxTFwd) || t <= kShortT || stats == nullptr) return kBadArgs;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const bf16* cot = static_cast<const bf16*>(g);
+  const float* m = static_cast<const float*>(mask);
+  float* st = static_cast<float*>(stats);
+  bf16* out = static_cast<bf16*>(dqkv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return m != nullptr ? launch_xlong<true>(x, cot, m, st, out, batch, t, heads, scale, s)
+                      : launch_xlong<false>(x, cot, nullptr, st, out, batch, t, heads, scale, s);
 }
 
 }  // extern "C"

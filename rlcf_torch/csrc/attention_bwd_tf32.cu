@@ -45,6 +45,23 @@
 // (its dP and rowsum(dp * P) are 0); key columns >= T get probability 0;
 // rows >= T are not stored.
 //
+// Longer sequences (258 <= T <= 577: ViT-L/14 at 336 px under encoder TTA,
+// ATTN_IMPL="flash" at T = 384 and 512): two whole padded slices take 322 KB
+// at T = 577, above a CTA's 227 KB. The two phases become two launches with
+// the same arithmetic (3xTF32 on every product, the statistics online in
+// fp32, no atomics, bit-identical repeats):
+//   (a) `mha_bwd_tf32x3_xlong_rows`: CTA = (sequence, head, 128 query rows),
+//       8 warps of 16 rows, Q and G as split A operands in registers; K and
+//       V stream in chunks of 64 rows through a ring of three slots
+//       (cp.async, padded fp32 rows, two chunks in flight), once for the
+//       statistics and once for dq. The statistics go to a [B * H, 3, T] fp32
+//       scratch in device memory.
+//   (b) `mha_bwd_tf32x3_xlong_keys`: CTA = (sequence, head, 128 keys), K and
+//       V in registers, every row's statistics in shared memory; Q and G
+//       stream through the ring once for dv and dk.
+// 104 KB and 112 KB of shared memory a CTA; the registers keep one CTA an SM,
+// as the long kernel's.
+//
 // Short sequences (T <= 16, the text tower's prompts; B=800, H=8 moves 184 MB
 // for 0.6 GFLOP): bytes and per-warp latency. One warp per (sequence, head), 4
 // heads a CTA, no barrier: the warp reads its operand fragments straight from
@@ -234,6 +251,234 @@ mha_bwd_tf32x3_long(const float* __restrict__ qkv, const float* __restrict__ g, 
   }
 }
 
+// ---- the longest regime (258 <= T <= 577): the slices streamed, two launches
+//
+// Two whole padded fp32 slices take 161 KB at T = 577 each, so a CTA holds
+// none: its own 16-row A operands come from device memory into registers (as
+// the long kernel's), and the other two slices stream through a ring of three
+// slots of 64 rows each (cp.async, padded rows), shared by the CTA's 8 warps.
+// The steps on each 16-row block are the long kernel's.
+
+constexpr int kXlWarps = 8;
+constexpr int kXlRows = 16 * kXlWarps;            // a CTA's own rows: queries in launch (a), keys in (b)
+constexpr int kXlChunk = 64;                      // rows of a streamed chunk
+constexpr int kXlSlot = 2 * kXlChunk * kRow;      // floats of a ring slot: two slices' chunks
+constexpr int kXlStages = 3;
+constexpr int kXlStatRows = (kMaxTFwd + 63) / 64 * 64;
+constexpr int kXlSmemRows = kXlStages * kXlSlot * static_cast<int>(sizeof(float));
+constexpr int kXlSmemKeys = kXlSmemRows + 3 * kXlStatRows * static_cast<int>(sizeof(float));
+
+// Launch (a): CTA = (sequence, head, 128 query rows), warp = 16 of them.
+// Stage j of the ring is K and V chunk j mod nc: sweep 1 (j < nc) the rows'
+// statistics online, sweep 2 dq = dS.K. The statistics (max, 1 / sum,
+// rowsum(dp * P)) go to `stats` [B * H, 3, 64 nc] for launch (b).
+__global__ void __launch_bounds__(kXlWarps * 32, 1)
+mha_bwd_tf32x3_xlong_rows(const float* __restrict__ qkv, const float* __restrict__ g, const float* __restrict__ mask,
+                          float* __restrict__ stats, float* __restrict__ dqkv, int t, int heads, int nqb,
+                          float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x / nqb, row0 = (blockIdx.x % nqb) * kXlRows + warp * 16;
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD, nc = (t + 63) / 64;
+  const size_t stride = 3 * static_cast<size_t>(hd);
+  const float* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  const float sc = scale * kLog2e;
+  const int gr = lane >> 2, c0 = 2 * (lane & 3);
+  const bool active = row0 < t;  // uniform over the warp; no product spans warps
+
+  auto issue = [&](int j) {  // one cp.async group a stage, empty past the last
+    if (j < 2 * nc) {
+      float* slot = smem_f + (j % kXlStages) * kXlSlot;
+      const int k0 = kXlChunk * (j % nc);
+      stage_f32(slot, base + hd + k0 * stride, kXlChunk, t - k0, stride, threadIdx.x, kXlWarps * 32);
+      stage_f32(slot + kXlChunk * kRow, base + 2 * hd + k0 * stride, kXlChunk, t - k0, stride, threadIdx.x,
+                kXlWarps * 32);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+
+  SplitA qa[8], ga[8];
+  if (active) {
+    load_rows_a(qa, base + static_cast<size_t>(row0) * stride, t - row0, stride, lane);
+    load_rows_a(ga, g + (static_cast<size_t>(b) * t + row0) * hd + h * kD, t - row0, hd, lane);
+  }
+  float s[2][4], dp[2][4], dq[8][4] = {};
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, da = 0.f, db = 0.f, ila = 0.f, ilb = 0.f, dda = 0.f,
+        ddb = 0.f;
+  for (int j = 0; j < 2 * nc; ++j) {
+    cp_async_wait<1>();
+    __syncthreads();  // stage j is in, and every warp is done with stage j - 1, whose slot stage j + 2 takes
+    issue(j + 2);
+    if (!active) continue;
+    const float* kt = smem_f + (j % kXlStages) * kXlSlot;
+    const float* vt = kt + kXlChunk * kRow;
+    const int kbase = kXlChunk * (j % nc), kend = min(kXlChunk, t - kbase);
+    if (j == nc) {
+      ila = 1.f / quad_sum(la);
+      ilb = 1.f / quad_sum(lb);
+      dda = quad_sum(da) * ila;
+      ddb = quad_sum(db) * ilb;
+    }
+    for (int k0 = 0; k0 < kend; k0 += 16) {
+      scores_and_dp(s, dp, qa, ga, kt, vt, k0, lane);
+      if (j < nc) {  // sweep 1: statistics
+        float bma = -INFINITY, bmb = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          scores_to_log2(s[nt], mask, t, row0 + gr, kbase + k0 + 8 * nt + c0, sc);
+          bma = fmaxf(bma, fmaxf(s[nt][0], s[nt][1]));
+          bmb = fmaxf(bmb, fmaxf(s[nt][2], s[nt][3]));
+        }
+        const float na = fmaxf(ma, quad_max(bma)), nb = fmaxf(mb, quad_max(bmb));
+        const float aa = fast_exp2(ma - na), ab = fast_exp2(mb - nb);
+        ma = na;
+        mb = nb;
+        la *= aa;
+        lb *= ab;
+        da *= aa;
+        db *= ab;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pa = fast_exp2(s[nt][e] - ma), pb = fast_exp2(s[nt][2 + e] - mb);
+            la += pa;
+            lb += pb;
+            da += pa * dp[nt][e];
+            db += pb * dp[nt][2 + e];
+          }
+        }
+      } else {  // sweep 2: dS and dq
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          scores_to_log2(s[nt], mask, t, row0 + gr, kbase + k0 + 8 * nt + c0, sc);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[nt][e] = fast_exp2(s[nt][e] - ma) * ila * (dp[nt][e] - dda);
+            s[nt][2 + e] = fast_exp2(s[nt][2 + e] - mb) * ilb * (dp[nt][2 + e] - ddb);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const SplitA dsa = acc_as_a(s[kk]);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            float b0, b1;
+            ldb_cols(kt, k0 + 8 * kk, 8 * nt, lane, b0, b1);
+            mma3(dq[nt], dsa, b0, b1);
+          }
+        }
+      }
+    }
+  }
+  if (active) {
+    store_rows(dq, dqkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(row0) * stride + h * kD, t - row0,
+               stride, scale, scale, lane);
+    if ((lane & 3) == 0) {
+      float* st = stats + static_cast<size_t>(bh) * 3 * nc * 64;
+      st[row0 + gr] = ma;
+      st[row0 + gr + 8] = mb;
+      st[nc * 64 + row0 + gr] = ila;
+      st[nc * 64 + row0 + gr + 8] = ilb;
+      st[2 * nc * 64 + row0 + gr] = dda;
+      st[2 * nc * 64 + row0 + gr + 8] = ddb;
+    }
+  }
+}
+
+// Launch (b): CTA = (sequence, head, 128 keys), warp = 16 of them. Stage j of
+// the ring is Q and G chunk j: S^T = K.Q^T and dP^T = V.G^T, P^T and dS^T from
+// launch (a)'s statistics (queries >= t give P = 0), dv += P^T.G and
+// dk += dS^T.Q. Two launches give the same bits.
+__global__ void __launch_bounds__(kXlWarps * 32, 1)
+mha_bwd_tf32x3_xlong_keys(const float* __restrict__ qkv, const float* __restrict__ g, const float* __restrict__ mask,
+                          const float* __restrict__ stats, float* __restrict__ dqkv, int t, int heads, int nkb,
+                          float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x / nkb, key0 = (blockIdx.x % nkb) * kXlRows + warp * 16;
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD, nc = (t + 63) / 64;
+  const size_t stride = 3 * static_cast<size_t>(hd);
+  const float* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  const float* gbase = g + static_cast<size_t>(b) * t * hd + h * kD;
+  const float sc = scale * kLog2e;
+  const int gr = lane >> 2, c0 = 2 * (lane & 3);
+  const bool active = key0 < t;
+  float* st_m = smem_f + kXlStages * kXlSlot;
+  float* st_il = st_m + kXlStatRows;
+  float* st_d = st_il + kXlStatRows;
+
+  auto issue = [&](int j) {
+    if (j < nc) {
+      float* slot = smem_f + (j % kXlStages) * kXlSlot;
+      const int q0 = kXlChunk * j;
+      stage_f32(slot, base + q0 * stride, kXlChunk, t - q0, stride, threadIdx.x, kXlWarps * 32);
+      stage_f32(slot + kXlChunk * kRow, gbase + static_cast<size_t>(q0) * hd, kXlChunk, t - q0, hd, threadIdx.x,
+                kXlWarps * 32);
+    }
+    cp_async_commit();
+  };
+  const float* src = stats + static_cast<size_t>(bh) * 3 * nc * 64;
+  for (int i = threadIdx.x; i < 3 * nc * 64; i += kXlWarps * 32) {
+    const int row = i % (nc * 64);
+    st_m[(i / (nc * 64)) * kXlStatRows + row] = row < t ? src[i] : 0.f;
+  }
+  issue(0);
+  issue(1);
+
+  SplitA ka[8], va[8];
+  if (active) {
+    load_rows_a(ka, base + hd + static_cast<size_t>(key0) * stride, t - key0, stride, lane);
+    load_rows_a(va, base + 2 * hd + static_cast<size_t>(key0) * stride, t - key0, stride, lane);
+  }
+  float dk[8][4] = {}, dv[8][4] = {};
+  for (int j = 0; j < nc; ++j) {
+    cp_async_wait<1>();
+    __syncthreads();  // as launch (a); at j = 0 the statistics are in too
+    issue(j + 2);
+    if (!active) continue;
+    const float* qt = smem_f + (j % kXlStages) * kXlSlot;
+    const float* gt = qt + kXlChunk * kRow;
+    const int qbase = kXlChunk * j, qend = min(kXlChunk, t - qbase);
+    for (int q0 = 0; q0 < qend; q0 += 16) {
+      float s[2][4], dpt[2][4];  // S^T and dP^T: rows key0 + gr (+ 8), columns the queries
+      scores_and_dp(s, dpt, ka, va, qt, gt, q0, lane);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = qbase + q0 + 8 * nt + c0 + (e & 1), key = key0 + gr + 8 * (e >> 1);
+          const float mv = mask != nullptr && q < t && key < t ? __ldg(mask + static_cast<size_t>(q) * t + key) : 0.f;
+          const float p = q < t ? fast_exp2(fmaf(mv, kLog2e, s[nt][e] * sc) - st_m[q]) * st_il[q] : 0.f;
+          s[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - st_d[q]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const SplitA pa = acc_as_a(s[kk]), dsa = acc_as_a(dpt[kk]);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          float b0, b1;
+          ldb_cols(gt, q0 + 8 * kk, 8 * nt, lane, b0, b1);
+          mma3(dv[nt], pa, b0, b1);
+          ldb_cols(qt, q0 + 8 * kk, 8 * nt, lane, b0, b1);
+          mma3(dk[nt], dsa, b0, b1);
+        }
+      }
+    }
+  }
+  if (active) {
+    float* dbase = dqkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(key0) * stride + h * kD;
+    store_rows(dk, dbase + hd, t - key0, stride, scale, scale, lane);
+    store_rows(dv, dbase + 2 * hd, t - key0, stride, 1.f, 1.f, lane);
+  }
+}
+
 // Short regime (T <= 16): CTA = (sequence, group of 4 heads), warp = head.
 __global__ void __launch_bounds__(kShortHeads * 32)
 mha_bwd_tf32x6_short(const float* __restrict__ qkv, const float* __restrict__ g, const float* __restrict__ mask,
@@ -368,6 +613,36 @@ int rlcf_mha_bwd_tf32x3_long(const void* qkv, const void* g, const void* mask, v
   mha_bwd_tf32x3_long<<<batch * heads, kLongWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(g), static_cast<const float*>(mask),
       static_cast<float*>(dqkv), t, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32 only. mask may be null. 1 <= T <= 577 (the wrapper sends 258 <= T <= 577
+// here). stats: scratch of B * H * 3 * 64 * ceil(T / 64) floats, written by the
+// first launch and read by the second.
+int rlcf_mha_bwd_tf32x3_xlong(const void* qkv, const void* g, const void* mask, void* stats, void* dqkv, int batch,
+                              int t, int heads, float scale, void* stream) {
+  if (bad_args(batch, t, heads, kMaxTFwd) || stats == nullptr) return kBadArgs;
+  static const cudaError_t attr_rows =  // once per kernel and process
+      cudaFuncSetAttribute(mha_bwd_tf32x3_xlong_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmemRows);
+  static const cudaError_t attr_keys =
+      cudaFuncSetAttribute(mha_bwd_tf32x3_xlong_keys, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmemKeys);
+  if (attr_rows != cudaSuccess) return static_cast<int>(attr_rows);
+  if (attr_keys != cudaSuccess) return static_cast<int>(attr_keys);
+  const int nblk = (t + kXlRows - 1) / kXlRows;
+  const long long ctas = static_cast<long long>(batch) * heads * nblk;
+  if (ctas > 0x7fffffffLL) return kBadArgs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(qkv);
+  const float* cot = static_cast<const float*>(g);
+  const float* m = static_cast<const float*>(mask);
+  float* st = static_cast<float*>(stats);
+  float* out = static_cast<float*>(dqkv);
+  mha_bwd_tf32x3_xlong_rows<<<static_cast<unsigned>(ctas), kXlWarps * 32, kXlSmemRows, s>>>(x, cot, m, st, out, t,
+                                                                                          heads, nblk, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_bwd_tf32x3_xlong_keys<<<static_cast<unsigned>(ctas), kXlWarps * 32, kXlSmemKeys, s>>>(x, cot, m, st, out, t,
+                                                                                          heads, nblk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,8 +19,8 @@ using bf16 = __nv_bfloat16;
 constexpr int kD = 64;             // head dimension
 constexpr int kRowBytes = 128;     // one head row in bf16
 constexpr int kTileBytes = 2048;   // 16 rows
-constexpr int kMaxT = 257;         // longest sequence of the backward kernels (ViT-L/14 at 224 px)
-constexpr int kMaxTFwd = 577;      // of the forward kernels (ViT-L/14 at 336 px)
+constexpr int kMaxT = 257;         // longest sequence of the long backward kernels (ViT-L/14 at 224 px)
+constexpr int kMaxTFwd = 577;      // of the forward kernels and the xlong backward (ViT-L/14 at 336 px)
 constexpr int kShortT = 16;        // longest sequence of the short regime
 constexpr int kBadArgs = 9001;
 constexpr unsigned kFull = 0xffffffffu;

@@ -45,6 +45,13 @@
 //   8 words in flight a thread); the first two chains' results are kept as
 //   u8 in a device scratch buffer, and the f32 mix is formed once, at the
 //   end, in the reference's order.
+// - Views above ~330 px (the 336, 384 and 448 px towers): two planes no
+//   longer fit a CTA's 227 KB (2 x 113 KB at R = 336, 2 x 196 KB at 448).
+//   One plane stays in shared memory, with the crop's strip behind its tables;
+//   the other (the one a warp op writes every other time) goes to the device
+//   scratch as a third plane a CTA, reached through L1 and L2 by the same
+//   code (generic pointers; the instance is a template argument, so the
+//   smaller views' code is what it was). One CTA an SM there.
 // - The crop: its tables (support and float64 weights of every output row
 //   and column) are built once per CTA in the first plane, so no tap
 //   recomputes a weight. The row pass reads source rows 2 bytes at a time,
@@ -107,13 +114,25 @@ struct Shift {    // one warp shift: taps d, d+1 with weights wa = 1 - f, wb = f
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 __host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
-// Shared memory: plane A (the crop's tables, then a working plane), plane B
-// (the crop's float64 strip, then the other working plane), the rotate's
-// shift tables, the histogram, the byte table and the reduction slots.
+// Shared memory, in one of two layouts. Where two planes fit (R up to ~330):
+// plane A (the crop's tables, then a working plane), plane B (the crop's
+// float64 strip, then the other working plane), the rotate's shift tables,
+// the histogram, the byte table and the reduction slots. Above (`large`: R =
+// 331 .. 464, the towers at 336, 384 and 448 px): plane A holds the tables
+// and, behind them, the strip during the crop, then a working plane; plane B
+// lives in the device scratch beside the kept chains (`keep`, three planes a
+// CTA), read and written through the same generic pointers.
 struct Layout {
-  size_t a, b, total;
+  size_t a, b, strip, total;   // b = 0 where plane B is in device memory; strip: its offset in shared memory
   int strip_rows;
+  bool large;
 };
+
+// the strip's rows that fit in `room` bytes, 1 to kStrip
+__host__ __device__ inline int strip_rows_in(size_t room, size_t sp) {
+  const size_t rows = room / (8 * sp);
+  return static_cast<int>(rows < 1 ? 1 : (rows > kStrip ? kStrip : rows));
+}
 
 __host__ __device__ inline Layout layout(int r, int s) {
   const size_t rp = (static_cast<size_t>(r) + 3) & ~static_cast<size_t>(3);
@@ -121,13 +140,22 @@ __host__ __device__ inline Layout layout(int r, int s) {
   const size_t plane = static_cast<size_t>(r) * rp;
   const size_t tables = 2 * align16(8 * static_cast<size_t>(r) * kTaps) +
                         2 * sizeof(Axis) * r + sizeof(int) * r;
-  size_t rows = plane / (8 * sp);
-  rows = rows < 1 ? 1 : (rows > kStrip ? kStrip : rows);
+  const size_t rest = 2 * sizeof(Shift) * r + kBins * sizeof(int) + kBins + 2 * kWarps * sizeof(int) + 16;
   Layout L;
+  L.strip_rows = strip_rows_in(plane, sp);
   L.a = align16(max_sz(plane, tables));
-  L.b = align16(max_sz(plane, 8 * sp * rows));
-  L.total = L.a + L.b + 2 * sizeof(Shift) * r + kBins * sizeof(int) + kBins + 2 * kWarps * sizeof(int) + 16;
-  L.strip_rows = static_cast<int>(rows);
+  L.b = align16(max_sz(plane, 8 * sp * L.strip_rows));
+  L.strip = L.a;
+  L.total = L.a + L.b + rest;
+  L.large = L.total > kMaxSmem;
+  if (L.large) {
+    const size_t t16 = align16(tables);
+    L.strip_rows = strip_rows_in(plane > t16 ? plane - t16 : 0, sp);
+    L.a = align16(max_sz(plane, t16 + 8 * sp * L.strip_rows));
+    L.b = 0;
+    L.strip = t16;
+    L.total = L.a + rest;
+  }
   return L;
 }
 
@@ -144,7 +172,7 @@ struct Params {
   const float* wm;
   const float* m;
   uint8_t* out;
-  uint8_t* keep;    // [N*V*3, 2, R, Rp]: the first two chains' results
+  uint8_t* keep;    // [N*V*3, 2 or 3, R, Rp]: the first two chains' results (and plane B where it is large)
   int v, r, s;
   int ms_ra, ms_rb, ms_sh, ms_tr;   // tap windows: rotate alpha / beta passes, shear, translate
 };
@@ -373,6 +401,8 @@ __device__ int view_of(const Params& P, int k, int nv, int* cost, size_t scratch
 
 // ---- the kernel --------------------------------------------------------------
 
+// LARGE: plane B in device memory (`Layout`)
+template <bool LARGE>
 __global__ void __launch_bounds__(kThreads, 2) augmix_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int r = P.r, s = P.s;
@@ -380,9 +410,10 @@ __global__ void __launch_bounds__(kThreads, 2) augmix_kernel(Params P) {
   const Layout L = layout(r, s);
   const int c = blockIdx.x % 3;
   const int tid = threadIdx.x;
+  const int kept = LARGE ? 3 : 2;   // planes a CTA has in the scratch: the first two chains' results (and plane B)
   unsigned char* plane_a = smem;
-  unsigned char* plane_b = smem + L.a;
-  Shift* rt = reinterpret_cast<Shift*>(plane_b + L.b);   // rotate: alpha shift per row
+  unsigned char* plane_b = LARGE ? P.keep + (static_cast<size_t>(blockIdx.x) * kept + 2) * r * rp : smem + L.a;
+  Shift* rt = reinterpret_cast<Shift*>(smem + L.a + L.b);   // rotate: alpha shift per row
   Shift* ct = rt + r;                                     // rotate: beta shift per column
   int* hist = reinterpret_cast<int*>(ct + r);
   uint8_t* lut = reinterpret_cast<uint8_t*>(hist + kBins);
@@ -405,7 +436,7 @@ __global__ void __launch_bounds__(kThreads, 2) augmix_kernel(Params P) {
   Axis* ay = reinterpret_cast<Axis*>(reinterpret_cast<unsigned char*>(wy) + align16(8 * static_cast<size_t>(r) * kTaps));
   Axis* ax = ay + r;
   int* xsup = reinterpret_cast<int*>(ax + r);
-  double* strip = reinterpret_cast<double*>(plane_b);
+  double* strip = reinterpret_cast<double*>(smem + L.strip);
 
   // ---- 1. crop tables ----
   if (tid == 0) {
@@ -547,7 +578,7 @@ __global__ void __launch_bounds__(kThreads, 2) augmix_kernel(Params P) {
   // reads any word of the plane: a barrier before it) and the block reductions
   uint8_t* cur = plane_a;
   uint8_t* alt = plane_b;
-  uint8_t* keep = P.keep + static_cast<size_t>(blockIdx.x) * 2 * r * rp;
+  uint8_t* keep = P.keep + static_cast<size_t>(blockIdx.x) * kept * r * rp;
   const float cxy = static_cast<float>(r) * 0.5f;
   // padding bytes of this thread's column word (rows padded to a multiple of 4)
   const int valid = min(4, r - 4 * q);
@@ -774,6 +805,18 @@ __global__ void __launch_bounds__(kThreads, 2) augmix_kernel(Params P) {
   }
 }
 
+template <bool LARGE>
+cudaError_t launch_augmix(const Params& P, int ctas, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(augmix_kernel<LARGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(augmix_kernel<LARGE>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  augmix_kernel<LARGE><<<ctas, kThreads, smem, stream>>>(P);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -782,6 +825,10 @@ extern "C" {
 // the card's limit before it launches
 size_t rlcf_augmix_shared_bytes(int r, int s) { return layout(r, s).total; }
 
+// u8 planes of R x round4(R) a CTA keeps in the device scratch at (r, s): 2,
+// or 3 where plane B lives there too
+int rlcf_augmix_keep_planes(int r, int s) { return layout(r, s).large ? 3 : 2; }
+
 int rlcf_augmix_views(const void* src, const void* basew, const void* rrc, const void* flip, const void* depth,
                       const void* ops, const void* p0, const void* p1, const void* ip0, const void* wm, const void* m,
                       void* out, void* keep, int n, int v, int r, int s, int ms_ra, int ms_rb, int ms_sh, int ms_tr,
@@ -789,21 +836,16 @@ int rlcf_augmix_views(const void* src, const void* basew, const void* rrc, const
   if (n < 1 || v < 1 || r < 1 || s < 1 || s > 0xffff || ms_ra < 0 || ms_rb < 0 || ms_sh < 0 || ms_tr < 0 ||
       static_cast<long long>(n) * v * 3 > 0x7fffffffLL || (r + 3) / 4 > kThreads)
     return kBadArgs;
-  const size_t smem = layout(r, s).total;
-  if (smem > kMaxSmem) return kBadArgs;
-  cudaError_t err = cudaFuncSetAttribute(augmix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(augmix_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const Layout L = layout(r, s);
+  if (L.total > kMaxSmem) return kBadArgs;
   Params P{static_cast<const uint8_t*>(src), static_cast<const float*>(basew), static_cast<const float*>(rrc),
            static_cast<const int*>(flip), static_cast<const int*>(depth), static_cast<const int*>(ops),
            static_cast<const float*>(p0), static_cast<const float*>(p1), static_cast<const int*>(ip0),
            static_cast<const float*>(wm), static_cast<const float*>(m), static_cast<uint8_t*>(out),
            static_cast<uint8_t*>(keep), v, r, s, ms_ra, ms_rb, ms_sh, ms_tr};
-  augmix_kernel<<<n * v * 3, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(P);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(L.large ? launch_augmix<true>(P, n * v * 3, L.total, st)
+                                  : launch_augmix<false>(P, n * v * 3, L.total, st));
 }
 
 }  // extern "C"

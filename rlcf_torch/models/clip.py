@@ -6,8 +6,9 @@ transformer blocks stacked on a leading layer axis, ``[in, out]`` linears,
 the ViT patch-embedding conv as HWIO), so ``models/convert.py`` carries JAX
 parameters across unchanged, except the ResNet towers' convolution kernels,
 which are OIHW in the channels_last memory format here (``models/layers.py``).
-Images are NHWC, patch tokens patch-major. Encoder TTA through a ResNet
-policy and its BN-prior statistics come with ROADMAP A8 (rest).
+Images are NHWC, patch tokens patch-major. Both towers take per-episode
+weights (every leaf on a leading episode axis, ``models/layers.py``) for
+encoder TTA; the ResNet towers take the BN-prior statistics too.
 """
 
 from __future__ import annotations
@@ -180,13 +181,16 @@ def _vit_post_patch(p, cfg: ClipConfig, x, pool=True, attn="dense", remat=False)
     return L.linear(x, p["proj"])
 
 
-def encode_image(params, cfg: ClipConfig, images, pool=True, attn="dense", remat=False):
+def encode_image(params, cfg: ClipConfig, images, pool=True, attn="dense", remat=False, bn_prior=None):
     """NHWC images (normalized) -> [B, embed_dim]. A ViT's patch embedding is
     a strided convolution, as in the reference tower (``remat``: see
     ``layers.transformer``); a ResNet tower ignores ``pool``, ``attn`` and
-    ``remat`` (its attention pool is dense), as the JAX package's does."""
+    ``remat`` (its attention pool is dense), as the JAX package's does, and
+    takes ``bn_prior`` (``layers.batch_norm_2d``), which a ViT ignores. A
+    ResNet with per-episode weights takes images ``[N, B, H, W, 3]`` and gives
+    ``[N, B, embed_dim]``."""
     if not cfg.is_vit:
-        return _resnet_encode(params["visual"], cfg, images)
+        return _resnet_encode(params["visual"], cfg, images, bn_prior=bn_prior)
     p = params["visual"]
     w = p["conv_w"]  # HWIO
     x = F.conv2d(images.to(w.dtype).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=cfg.vision_patch_size)
@@ -227,17 +231,18 @@ def encode_image_tokens(params, cfg: ClipConfig, tokens, pool=True, attn="dense"
     return _vit_post_patch(p, cfg, x, pool=pool, attn=attn, remat=remat)
 
 
-def _bottleneck(x, p, stride: int):
+def _bottleneck(x, p, stride: int, bn_prior=None):
     """ModifiedResNet bottleneck on NCHW (channels_last): 1x1, 3x3, an
     average pool where it strides, 1x1, and the downsampling shortcut."""
-    out = F.relu(L.batch_norm_2d(L.conv2d(x, p["conv1_w"]), p["bn1"]))
-    out = F.relu(L.batch_norm_2d(L.conv2d(out, p["conv2_w"], padding=1), p["bn2"]))
+    bn = lambda h, q: L.batch_norm_2d(h, q, prior=bn_prior)
+    out = F.relu(bn(L.conv2d(x, p["conv1_w"]), p["bn1"]))
+    out = F.relu(bn(L.conv2d(out, p["conv2_w"], padding=1), p["bn2"]))
     if stride > 1:
         out = L.avg_pool(out, stride)
-    out = L.batch_norm_2d(L.conv2d(out, p["conv3_w"]), p["bn3"])
+    out = bn(L.conv2d(out, p["conv3_w"]), p["bn3"])
     if "downsample" in p:
         identity = x if stride == 1 else L.avg_pool(x, stride)
-        identity = L.batch_norm_2d(L.conv2d(identity, p["downsample"]["conv_w"]), p["downsample"]["bn"])
+        identity = bn(L.conv2d(identity, p["downsample"]["conv_w"]), p["downsample"]["bn"])
     else:
         identity = x
     return F.relu(out + identity)
@@ -247,35 +252,52 @@ def _attention_pool(x, p, n_heads: int):
     """QKV attention pool (`TPT/clip/model.py:58-91`) over an NCHW
     (channels_last) feature map -> [B, embed_dim]: the spatial mean token
     first, one query (the mean token's), fp32 logits divided by
-    sqrt(head_dim), probabilities cast to x's dtype. Dense: one query row."""
+    sqrt(head_dim), probabilities cast to x's dtype. Dense: one query row.
+    Per-episode weights (``q_w [N, C, C]``) take the N episodes' maps stacked
+    on the channels, ``[B, N*C, H, W]``, and give ``[N, B, embed_dim]``."""
     B, C, H, W = x.shape
-    tokens = x.flatten(2).transpose(1, 2)   # [B, HW, C]
-    mean_tok = tokens.float().mean(dim=1, keepdim=True).to(x.dtype)
-    tokens = torch.cat([mean_tok, tokens], dim=1) + p["pos_emb"].to(x.dtype)
+    if p["q_w"].dim() == 3:
+        N = p["q_w"].shape[0]
+        C //= N
+        tokens, pos = x.reshape(B, N, C, H * W).permute(1, 0, 3, 2), p["pos_emb"][:, None]   # [N, B, HW, C]
+    else:
+        tokens, pos = x.flatten(2).transpose(1, 2), p["pos_emb"]   # [B, HW, C]
+    lead = tokens.shape[:-2]
+    mean_tok = tokens.float().mean(dim=-2, keepdim=True).to(x.dtype)
+    tokens = torch.cat([mean_tok, tokens], dim=-2) + pos.to(x.dtype)
     head_dim = C // n_heads
-    T = tokens.shape[1]
-    q = L.linear(tokens[:, :1], p["q_w"], p["q_b"]).reshape(B, 1, n_heads, head_dim).transpose(1, 2)
-    k = L.linear(tokens, p["k_w"], p["k_b"]).reshape(B, T, n_heads, head_dim).transpose(1, 2)
-    v = L.linear(tokens, p["v_w"], p["v_b"]).reshape(B, T, n_heads, head_dim).transpose(1, 2)
+    heads = lambda t: t.reshape(*t.shape[:-1], n_heads, head_dim).transpose(-2, -3)   # [..., heads, T, head_dim]
+    q = heads(L.linear(tokens[..., :1, :], p["q_w"], p["q_b"]))
+    k = heads(L.linear(tokens, p["k_w"], p["k_b"]))
+    v = heads(L.linear(tokens, p["v_w"], p["v_b"]))
     logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(head_dim)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = (probs.float() @ v.float()).to(x.dtype)   # [B, heads, 1, head_dim]
-    return L.linear(out.transpose(1, 2).reshape(B, C), p["c_w"], p["c_b"])
+    out = (probs.float() @ v.float()).to(x.dtype)   # [..., heads, 1, head_dim]
+    return L.linear(out.transpose(-2, -3).reshape(*lead, C), p["c_w"], p["c_b"])
 
 
-def _resnet_encode(p, cfg: ClipConfig, images):
+def _resnet_encode(p, cfg: ClipConfig, images, bn_prior=None):
     """NHWC images -> [B, embed_dim] through the ModifiedResNet: a 3-conv
     stem, an average pool, four groups of bottlenecks (a group's first block
-    strides by 2 past the first group), the attention pool."""
+    strides by 2 past the first group), the attention pool. Per-episode
+    weights take ``[N, B, H, W, 3]`` (stacked on the channels inside,
+    ``models/layers.py``) and give ``[N, B, embed_dim]``."""
     stem = p["stem"]
-    x = images.to(stem["conv1_w"].dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    x = F.relu(L.batch_norm_2d(L.conv2d(x, stem["conv1_w"], stride=2, padding=1), stem["bn1"]))
-    x = F.relu(L.batch_norm_2d(L.conv2d(x, stem["conv2_w"], padding=1), stem["bn2"]))
-    x = F.relu(L.batch_norm_2d(L.conv2d(x, stem["conv3_w"], padding=1), stem["bn3"]))
+    x = images.to(stem["conv1_w"].dtype)
+    if stem["conv1_w"].dim() == 5:   # per episode: [N, B, H, W, 3] -> [B, N*3, H, W]
+        N, B, H, W, _ = x.shape
+        x = x.permute(1, 0, 4, 2, 3).reshape(B, N * 3, H, W)
+    else:
+        x = x.permute(0, 3, 1, 2)
+    x = x.contiguous(memory_format=torch.channels_last)
+    bn = lambda h, q: L.batch_norm_2d(h, q, prior=bn_prior)
+    x = F.relu(bn(L.conv2d(x, stem["conv1_w"], stride=2, padding=1), stem["bn1"]))
+    x = F.relu(bn(L.conv2d(x, stem["conv2_w"], padding=1), stem["bn2"]))
+    x = F.relu(bn(L.conv2d(x, stem["conv3_w"], padding=1), stem["bn3"]))
     x = L.avg_pool(x, 2)
     for g, blocks in enumerate(p["groups"]):
         for b, block in enumerate(blocks):
-            x = _bottleneck(x, block, 1 if (b > 0 or g == 0) else 2)
+            x = _bottleneck(x, block, 1 if (b > 0 or g == 0) else 2, bn_prior)
     return _attention_pool(x, p["attnpool"], cfg.vision_heads)
 
 

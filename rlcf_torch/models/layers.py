@@ -70,10 +70,9 @@ def causal_mask(length: int, device=None):
 # "dense" (default) or "flash". The JAX package's "flash" is the upstream
 # Pallas flash-attention kernel (``rlcf_tpu/models/layers.py:48``), taken when
 # T is a multiple of 128; here the same switch is served by the port's own
-# hand-written kernels (``ops/attention.py``): the forward takes T <= 577, so
-# T = 128, 256, 384 and 512, the backward T <= 257, so T = 128 and 256. At
-# T = 384 and 512 a call whose result is differentiated raises (the backward
-# there comes with ROADMAP A8 (rest)), as does any T above 577.
+# hand-written kernels (``ops/attention.py``), forward and backward, which take
+# T <= 577: so T = 128, 256, 384 and 512, differentiated or not. Any T above
+# 577 raises.
 ATTN_IMPL = "dense"
 
 
@@ -98,15 +97,11 @@ def attention_core(qkv, n_heads: int, mask=None, attn: str = "dense"):
     if ATTN_IMPL not in ("dense", "flash"):
         raise ValueError(f"unknown ATTN_IMPL {ATTN_IMPL!r} (\"dense\" or \"flash\")")
     if attn == "fused" or (attn == "dense" and ATTN_IMPL == "flash" and T % 128 == 0):
-        from ..ops.attention import MAX_T, MAX_T_BWD, fused_attention
+        from ..ops.attention import MAX_T, fused_attention
 
         if attn == "dense" and T > MAX_T:
-            raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernels, whose forward takes "
+            raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernels, which take "
                              f"T <= {MAX_T} (so T = 128 to 512); got T={T}")
-        if attn == "dense" and T > MAX_T_BWD and torch.is_grad_enabled() and qkv.requires_grad:
-            raise ValueError(f"ATTN_IMPL=\"flash\" is served by the fused attention kernels, whose backward takes "
-                             f"T <= {MAX_T_BWD} (so T = 128 or 256); got T={T}, a differentiated call; the backward "
-                             f"above T = {MAX_T_BWD} comes with ROADMAP A8 (rest)")
         return fused_attention(qkv, mask, n_heads, scale).reshape(*lead, T, D)
     if attn != "dense":
         raise ValueError(f"unknown attention implementation {attn!r}")
@@ -183,20 +178,35 @@ def transformer(x, blocks, n_heads: int, mask=None, attn: str = "dense", remat=F
 # kernel OIHW in channels_last (physically O, H, W, I): cuDNN's native
 # layouts for bf16 and fp32 convolutions on the card. The towers take and
 # give NHWC at their interface, as the JAX package's do.
+#
+# Per-episode weights (a ResNet policy under encoder TTA, where the JAX
+# package vmaps the tower over N episodes): a kernel ``[N, O, I, kh, kw]``,
+# a BatchNorm's leaves ``[N, C]``; the N episodes' feature maps are stacked
+# on the channels, episode-major (``[B, N*C, H, W]``), so that a convolution
+# is grouped by episode and BatchNorm and the average pool, being per
+# channel, are per episode as they stand: a BN prior takes each episode's
+# batch statistics over its own views only, as under the JAX package's vmap.
 # ---------------------------------------------------------------------------
 
 
 def conv2d(x, w, stride: int = 1, padding: int = 0):
     """NCHW (channels_last) convolution with an OIHW kernel cast to x's
     dtype, no bias. The JAX package's 1x1 convolutions with "SAME" padding
-    are ``padding=0`` here."""
+    are ``padding=0`` here. Per-episode kernels ``[N, O, I, kh, kw]`` take
+    ``x [B, N*I, H, W]`` and give ``[B, N*O, H', W']`` (one grouped
+    convolution)."""
+    if w.dim() == 5:
+        n = w.shape[0]
+        w = w.reshape((-1,) + w.shape[2:]).contiguous(memory_format=torch.channels_last)
+        return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding, groups=n)
     return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
 
 
 def avg_pool(x, window: int):
     """Non-overlapping average pool in the JAX package's order: the window
     summed in fp32, the sum cast to x's dtype, then divided by the window's
-    size in that dtype (in bf16 two roundings, as there)."""
+    size in that dtype (in bf16 two roundings, as there). Per channel, so
+    per episode where episodes are stacked on the channels."""
     summed = F.avg_pool2d(x.float(), window, divisor_override=1).to(x.dtype)
     return summed / (window * window)
 
@@ -206,14 +216,16 @@ def batch_norm_2d(x, p, eps: float = 1e-5, prior=None):
     fp32 and cast back to x's dtype. ``prior`` (the reference's BN-prior
     encoder TTA, `TPT/tune_cls_rl.py:35-44`) mixes in the batch's own
     statistics with population variance: ``prior * running + (1 - prior) *
-    batch``."""
-    mean, var = p["mean"].float(), p["var"].float()
+    batch``. Per-episode leaves ``[N, C]`` take ``x [B, N*C, H, W]``; the
+    batch statistics are then each episode's over its own B views."""
+    flat = lambda v: v.reshape(-1).float()
+    mean, var = flat(p["mean"]), flat(p["var"])
     if prior is not None:
         x32 = x.float()
         mean = prior * mean + (1.0 - prior) * x32.mean(dim=(0, 2, 3))
         var = prior * var + (1.0 - prior) * x32.var(dim=(0, 2, 3), correction=0)
-    inv = torch.rsqrt(var + eps) * p["w"].float()
-    shift = p["b"].float() - mean * inv
+    inv = torch.rsqrt(var + eps) * flat(p["w"])
+    shift = flat(p["b"]) - mean * inv
     return (x.float() * inv[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 

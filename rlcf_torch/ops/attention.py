@@ -21,11 +21,14 @@ Which kernel a CUDA tensor runs is a rule of ``(T, dtype)`` in both
 directions (``forward_variant``, ``backward_variant``), not a fallback: one
 warp per head on ``mma.sync`` for ``T <= 16`` (``mma_short``,
 ``tf32x6_short``), several warps per head above (``mma_long``, ``tf32x3_long``).
-The forward takes ``T <= 577`` (ViT-L/14 at 336 px): in bf16 ``mma_xlong``
-above T = 257, two sweeps over the keys (the row max and sum, then P rounded
-after it is normalised, and P.V); in fp32 ``tf32x3_long`` streams the keys at
-any T. The backward takes ``T <= 257``; longer sequences come with ROADMAP
-A8 (rest).
+Both directions take ``T <= 577`` (ViT-L/14 at 336 px). Above T = 257 the
+bf16 forward is ``mma_xlong``, two sweeps over the keys (the row max and sum,
+then P rounded after it is normalised, and P.V); the fp32 forward
+``tf32x3_long`` streams the keys at any T. The backward above T = 257 is
+``mma_xlong`` / ``tf32x3_xlong``: two launches, one per block of query rows
+(the rows' statistics and dq) and one per block of keys (dk and dv), the
+other slices streamed through shared memory, the statistics passed between
+them in a device scratch.
 fp32 products run on the tensor cores with split operands: 3xTF32 above
 T = 16 (each operand split into two TF32 values, each product three passes),
 six products of a three-way split up to T = 16 (kernels bound by bytes, which
@@ -49,9 +52,9 @@ from . import cuda_build
 
 NEG_BIG = -1e9  # finite stand-in for the causal mask's -inf
 HEAD_DIM = 64   # the kernel's head dimension
-MAX_T = 577     # the forward kernels' longest sequence (ViT-L/14 at 336 px)
-MAX_T_BWD = 257  # the backward kernels' (ViT-L/14 at 224 px)
-LONG_T = 257    # longest sequence of the bf16 forward that holds whole score rows in registers
+MAX_T = 577     # the kernels' longest sequence (ViT-L/14 at 336 px)
+MAX_T_BWD = 577  # the backward kernels' (the same)
+LONG_T = 257    # longest sequence of the kernels that hold a head's slices in shared memory (or score rows in registers)
 SHORT_T = 16    # longest sequence of the tensor-core kernels' one-warp-per-head regime
 
 # kernel launches by the wrapper, per direction (plain integers), per
@@ -104,7 +107,8 @@ def fused_attention_reference(qkv, mask, n_heads: int, scale: float):
 
 
 def fused_attention_reference_bwd(qkv, g, mask, n_heads: int, scale: float):
-    """Backward: the explicit fp32 formula of ``_mha_bwd_kernel``."""
+    """Backward: the explicit fp32 formula of ``_mha_bwd_kernel``, at any T
+    (what every backward kernel, the xlong ones too, is held to)."""
     B, T, threeHD = qkv.shape
     q, k, v = _split_heads(qkv, n_heads)
     g = g.float().reshape(B, T, n_heads, -1).transpose(1, 2)
@@ -116,6 +120,28 @@ def fused_attention_reference_bwd(qkv, g, mask, n_heads: int, scale: float):
     dk = (ds.transpose(-1, -2) @ q) * scale
     merge = lambda t: t.transpose(1, 2).reshape(B, T, threeHD // 3)
     return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(qkv.dtype)
+
+
+def bf16_operand_reference_bwd(qkv, g, mask, n_heads: int, scale: float, split: bool = True):
+    """The backward with P and dS rounded to bf16 where the bf16 kernels'
+    tensor cores take them as operands (fp32 products of the rounded values,
+    fp32 sums): ``split`` into a bf16 value plus the bf16 value of what that
+    rounding lost (the kernels' hi + lo), or rounded once. For the tests and
+    the smoke script's PRECISION line."""
+    B, T, threeHD = qkv.shape
+    q, k, v = _split_heads(qkv, n_heads)
+    g = g.float().reshape(B, T, n_heads, -1).transpose(1, 2)
+    p = _probs(q, k, prep_mask(mask), scale)
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+
+    def operand(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+
+    p, ds = operand(p), operand(ds)
+    grads = ((ds @ k) * scale, (ds.transpose(-1, -2) @ q) * scale, p.transpose(-1, -2) @ g)
+    return torch.cat([t.transpose(1, 2).reshape(B, T, threeHD // 3) for t in grads], dim=-1).to(qkv.dtype)
 
 
 def rna_tf32(x):
@@ -179,22 +205,32 @@ _TF32_LIB_NAME = "rlcf_attention_tf32"
 _BWD_TF32_LIB_NAME = "rlcf_attention_bwd_tf32"
 _MMA_HEADER = ("attention_mma.cuh",)
 _TF32_HEADERS = ("attention_mma.cuh", "attention_tf32.cuh")
-# the kernels of each dtype: (T <= SHORT_T, T <= LONG_T, the forward above)
-_VARIANTS = {torch.bfloat16: ("mma_short", "mma_long", "mma_xlong"),
-             torch.float32: ("tf32x6_short", "tf32x3_long", "tf32x3_long")}
+# the kernels of each direction and dtype: (T <= SHORT_T, T <= LONG_T, above);
+# the fp32 forward streams its keys at any T, the fp32 backward above LONG_T is another kernel
+_VARIANTS = {"fwd": {torch.bfloat16: ("mma_short", "mma_long", "mma_xlong"),
+                     torch.float32: ("tf32x6_short", "tf32x3_long", "tf32x3_long")},
+             "bwd": {torch.bfloat16: ("mma_short", "mma_long", "mma_xlong"),
+                     torch.float32: ("tf32x6_short", "tf32x3_long", "tf32x3_xlong")}}
+_XLONG_BWD = ("mma_xlong", "tf32x3_xlong")   # the backward kernels that take a statistics scratch
 
 
 def _check_dtype(dtype):
-    if dtype not in _VARIANTS:
+    if dtype not in _VARIANTS["fwd"]:
         raise TypeError(f"fused_attention kernel takes float32 or bfloat16, not {dtype}")
 
 
 def _check_length(T: int, direction: str):
-    if direction == "fwd" and not 1 <= T <= MAX_T:
-        raise ValueError(f"fused_attention forward kernel takes 1 <= T <= {MAX_T}; got T={T}")
-    if direction == "bwd" and not 1 <= T <= MAX_T_BWD:
-        raise ValueError(f"fused_attention backward kernel takes 1 <= T <= {MAX_T_BWD}; got T={T} "
-                         f"(the backward above T = {MAX_T_BWD} comes with ROADMAP A8 (rest))")
+    limit = MAX_T if direction == "fwd" else MAX_T_BWD
+    if not 1 <= T <= limit:
+        kernels = "the forward kernels'" if direction == "fwd" else "the xlong backward kernels'"
+        raise ValueError(f"fused_attention {'forward' if direction == 'fwd' else 'backward'} kernel takes "
+                         f"1 <= T <= {limit} ({kernels} longest sequence, ViT-L/14 at 336 px); got T={T}")
+
+
+def _variant(T: int, dtype, direction: str) -> str:
+    _check_dtype(dtype)
+    _check_length(T, direction)
+    return _VARIANTS[direction][dtype][0 if T <= SHORT_T else 1 if T <= LONG_T else 2]
 
 
 def forward_variant(T: int, dtype) -> str:
@@ -202,19 +238,15 @@ def forward_variant(T: int, dtype) -> str:
     runs: ``"mma_short"`` / ``"mma_long"`` / ``"mma_xlong"`` (bf16, T <= 16,
     257, 577; ``csrc/attention_mma.cu``) or ``"tf32x6_short"`` /
     ``"tf32x3_long"`` (fp32, T <= 16, 577; ``csrc/attention_tf32.cu``)."""
-    _check_dtype(dtype)
-    _check_length(T, "fwd")
-    return _VARIANTS[dtype][0 if T <= SHORT_T else 1 if T <= LONG_T else 2]
+    return _variant(T, dtype, "fwd")
 
 
 def backward_variant(T: int, dtype) -> str:
     """The backward kernel a CUDA tensor of this sequence length and dtype
-    runs: ``"mma_short"`` / ``"mma_long"`` (bf16,
-    ``csrc/attention_bwd_mma.cu``) or ``"tf32x6_short"`` / ``"tf32x3_long"``
-    (fp32, ``csrc/attention_bwd_tf32.cu``), T <= 16 and T <= 257."""
-    _check_dtype(dtype)
-    _check_length(T, "bwd")
-    return _VARIANTS[dtype][0 if T <= SHORT_T else 1]
+    runs: ``"mma_short"`` / ``"mma_long"`` / ``"mma_xlong"`` (bf16, T <= 16,
+    257, 577; ``csrc/attention_bwd_mma.cu``) or ``"tf32x6_short"`` /
+    ``"tf32x3_long"`` / ``"tf32x3_xlong"`` (fp32; ``csrc/attention_bwd_tf32.cu``)."""
+    return _variant(T, dtype, "bwd")
 
 
 def build_mma(force: bool = False) -> str:
@@ -245,7 +277,7 @@ def build_bwd_tf32(force: bool = False) -> str:
 def _fwd_lib(dtype):
     lib = ctypes.CDLL(build_tf32() if dtype == torch.float32 else build_mma())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for variant in set(_VARIANTS[dtype]):
+    for variant in set(_VARIANTS["fwd"][dtype]):
         fn = getattr(lib, f"rlcf_mha_fwd_{variant}")
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
         fn.restype = ci
@@ -256,10 +288,11 @@ def _fwd_lib(dtype):
 def _bwd_lib(dtype):
     lib = ctypes.CDLL(build_bwd_tf32() if dtype == torch.float32 else build_bwd_mma())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for variant in _VARIANTS[dtype][:2]:
+    for variant in _VARIANTS["bwd"][dtype]:
         fn = getattr(lib, f"rlcf_mha_bwd_{variant}")
-        # the bf16 long kernel takes a scratch for its classification of the mask's tiles
-        extra = [vp] if variant == "mma_long" else []
+        # the bf16 long kernel takes a scratch for its classification of the mask's tiles, the
+        # xlong kernels one for the rows' statistics
+        extra = [vp] if variant == "mma_long" or variant in _XLONG_BWD else []
         fn.argtypes = [vp, vp, vp, *extra, vp, ci, ci, ci, ctypes.c_float, vp]
         fn.restype = ci
     return lib
@@ -318,7 +351,7 @@ def launch_fwd(qkv, mask, n_heads: int, scale: float):
 def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
     """Backward kernel on CUDA tensors: (qkv, g [B, T, HD]) -> dqkv [B, T, 3HD].
 
-    The kernel is ``backward_variant(T, dtype)`` (T <= 257), on the tensor
+    The kernel is ``backward_variant(T, dtype)`` (T <= 577), on the tensor
     cores as the forward's. The chosen kernel runs or this raises."""
     _check_cuda_inputs(qkv, n_heads, mask, "bwd")
     variant = backward_variant(qkv.shape[1], qkv.dtype)
@@ -336,6 +369,10 @@ def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
         # scratch for the kernel's own classification of the mask's 64 x 64 tiles
         classes = None if mask is None else torch.empty(((T + 63) // 64) ** 2, dtype=torch.uint8, device=qkv.device)
         rc = fn(*args[:3], _ptr(classes), *args[3:], stream)
+    elif variant in _XLONG_BWD:
+        # the rows' statistics (max, 1 / sum, rowsum(dp * P)) from the first launch for the second
+        stats = torch.empty(B * n_heads * 3 * ((T + 63) // 64 * 64), dtype=torch.float32, device=qkv.device)
+        rc = fn(*args[:3], _ptr(stats), *args[3:], stream)
     else:
         rc = fn(*args, stream)
     _raise_on(rc, f"backward ({variant})")

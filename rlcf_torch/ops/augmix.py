@@ -372,24 +372,42 @@ def _round4(x: int) -> int:
     return (x + 3) // 4 * 4
 
 
-def shared_bytes(R: int, S: int) -> int:
-    """The kernel's dynamic shared memory at (R, S) (``layout`` in the
-    source): two u8 planes of R rows padded to a multiple of 4 bytes (the
-    first also holds the crop's tables, the second its float64 strip of row
-    sums, up to 32 rows), the rotate's two shift tables, the histogram, the byte
-    table and the reduction slots."""
+def _layout(R: int, S: int):
+    """``layout`` of the source: (shared bytes, whether plane B lives in the
+    device scratch). Two u8 planes of R rows padded to a multiple of 4 bytes
+    (the first also holds the crop's tables, the second its float64 strip of
+    row sums, up to 32 rows), the rotate's two shift tables, the histogram,
+    the byte table and the reduction slots; where that is more than a CTA can
+    have (R above ~330), one plane, with the strip behind the tables, and the
+    second plane in the scratch."""
     a16 = lambda b: (b + 15) // 16 * 16
+    rows = lambda room: max(1, min(_STRIP_ROWS, room // (8 * _round4(S))))
     plane = R * _round4(R)
     tables = 2 * a16(8 * R * _TAPS) + 2 * 16 * R + 4 * R
-    strip_rows = max(1, min(_STRIP_ROWS, plane // (8 * _round4(S))))
-    return (a16(max(plane, tables)) + a16(max(plane, 8 * _round4(S) * strip_rows)) + 2 * 16 * R + 256 * 4 + 256
-            + 2 * (_THREADS // 32) * 4 + 16)
+    rest = 2 * 16 * R + 256 * 4 + 256 + 2 * (_THREADS // 32) * 4 + 16
+    two = a16(max(plane, tables)) + a16(max(plane, 8 * _round4(S) * rows(plane))) + rest
+    if two <= MAX_SHARED_BYTES:
+        return two, False
+    t16 = a16(tables)
+    return a16(max(plane, t16 + 8 * _round4(S) * rows(max(plane - t16, 0)))) + rest, True
 
 
-def keep_bytes(N: int, V: int, R: int) -> int:
+def shared_bytes(R: int, S: int) -> int:
+    """The kernel's dynamic shared memory at (R, S) (``_layout``)."""
+    return _layout(R, S)[0]
+
+
+def large_layout(R: int, S: int) -> bool:
+    """Whether the kernel keeps its second working plane in the device
+    scratch at (R, S): above ~330 px (R = 336, 384, 448 at S = 256)."""
+    return _layout(R, S)[1]
+
+
+def keep_bytes(N: int, V: int, R: int, S: int = 256) -> int:
     """The device scratch the kernel keeps the first two chains' u8 results
-    in: ``[N*V*3, 2, R, round4(R)]``."""
-    return N * V * 3 * 2 * R * _round4(R)
+    in, and its second working plane where ``large_layout``:
+    ``[N*V*3, 2 or 3, R, round4(R)]`` (S: the sources' size, the CLIs' 256)."""
+    return N * V * 3 * (3 if large_layout(R, S) else 2) * R * _round4(R)
 
 
 def build(force: bool = False) -> str:
@@ -407,6 +425,8 @@ def _lib():
     lib.rlcf_augmix_views.restype = ci
     lib.rlcf_augmix_shared_bytes.argtypes = [ci, ci]
     lib.rlcf_augmix_shared_bytes.restype = ctypes.c_size_t
+    lib.rlcf_augmix_keep_planes.argtypes = [ci, ci]
+    lib.rlcf_augmix_keep_planes.restype = ci
     return lib
 
 
@@ -448,7 +468,7 @@ def launch_views(images_planar_u8, params, basew, R: int, S: int, V: int, shifts
     N = images_planar_u8.shape[0]
     dev = images_planar_u8.device
     out = torch.empty((N, V, 3, R, R), dtype=torch.uint8, device=dev)
-    keep = torch.empty(keep_bytes(N, V, R), dtype=torch.uint8, device=dev)  # the first two chains' results
+    keep = torch.empty(keep_bytes(N, V, R, S), dtype=torch.uint8, device=dev)  # kept chains (and plane B)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     rc = _lib().rlcf_augmix_views(
         _ptr(images_planar_u8), _ptr(basew), *(_ptr(params[k]) for k in PARAM_FIELDS), _ptr(out), _ptr(keep),

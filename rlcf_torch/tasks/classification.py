@@ -366,9 +366,13 @@ class EncoderTTAClassifier:
     ``only_norm``) under the REINFORCE/TPT/KD loss, with the recompute step-0
     strategy of ``core/episode.py``; an optional momentum EMA re-anchors the
     episodes' starting point every ``update_freq`` samples. ``remat`` is the
-    visual tower's checkpointing in the steps (``layers.transformer``). A ViT
-    policy and a single reward (ViT or ResNet, at any resolution); a ResNet
-    policy and ``bn_prior`` come with ROADMAP A8 (rest).
+    visual tower's checkpointing in the steps (``layers.transformer``; a
+    ResNet ignores it). A ViT or ResNet policy and a single reward (ViT or
+    ResNet, at any resolution). ``bn_prior`` (a ResNet policy's BN-prior
+    statistics, `tune_cls_rl.py:35-44`) mixes each episode's batch statistics
+    into the running ones in every forward of the episode, with the JAX
+    package's step-0 strategy: the selection forward's batch is the B views,
+    each step's the S selected ones (``core/episode.py``).
     """
 
     def __init__(self, clip_params, clip_cfg, reward, ecfg, prompt_prefix: str = "a photo of a",
@@ -380,12 +384,6 @@ class EncoderTTAClassifier:
                 "ensembles are only supported by PromptTTAClassifier (matching "
                 "the reference encoder path, `TPT/tune_cls_rl.py`)"
             )
-        if bn_prior is not None:
-            raise NotImplementedError("bn_prior mixes the batch's BatchNorm statistics into a ResNet policy's, "
-                                      "which comes with ROADMAP A8 (rest)")
-        if not clip_cfg.is_vit:
-            raise NotImplementedError("encoder TTA through a ResNet policy comes with ROADMAP A8 (rest); the port "
-                                      "tunes ViT policies, against a ViT or ResNet reward")
         self.clip_params = clip_params
         self.clip_cfg = clip_cfg
         self.reward = reward
@@ -394,6 +392,7 @@ class EncoderTTAClassifier:
         self.only_norm = only_norm
         self.momentum_cfg = dict(momentum=momentum, update_freq=update_freq, update_w=update_w)
         self.momentum_update = momentum_update
+        self.bn_prior = bn_prior
         self.remat = remat
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
@@ -418,17 +417,22 @@ class EncoderTTAClassifier:
     def policy_logits(self, trainable, cache, idx):
         """Logits [N, k, C] of the views ``idx [N, k]`` of ``cache["views"]``
         (normalized NHWC [N, B, H, W, 3]) under per-episode visual weights
-        (``trainable``, every leaf ``[N, ...]``); the patch embedding is the
-        token matmul of ``encode_image_tokens``."""
+        (``trainable``, every leaf ``[N, ...]``). A ViT's patch embedding is
+        the token matmul of ``encode_image_tokens``; a ResNet takes the NHWC
+        views, with ``bn_prior``'s statistics over each episode's k views."""
         N, k = idx.shape
         visual = trainable
         if self.only_norm:
             visual = Po.merge(trainable, Po.tree_map(lambda v: v.expand(N, *v.shape), self.frozen_visual))
         views = take_rows(cache["views"], idx)
-        toks = clip_model.patch_tokens_from_images(views.reshape((N * k,) + views.shape[2:]),
-                                                   self.clip_cfg.vision_patch_size)
-        feats = clip_model.encode_image_tokens({"visual": visual}, self.clip_cfg, toks.reshape((N, k) + toks.shape[1:]),
-                                               attn=self.attn, remat=self.remat)
+        if self.clip_cfg.is_vit:
+            toks = clip_model.patch_tokens_from_images(views.reshape((N * k,) + views.shape[2:]),
+                                                       self.clip_cfg.vision_patch_size)
+            feats = clip_model.encode_image_tokens({"visual": visual}, self.clip_cfg,
+                                                   toks.reshape((N, k) + toks.shape[1:]), attn=self.attn,
+                                                   remat=self.remat)
+        else:
+            feats = clip_model.encode_image({"visual": visual}, self.clip_cfg, views, bn_prior=self.bn_prior)
         scale = self.clip_params["logit_scale"].exp().float()
         return scale * torch.einsum("nke,ce->nkc", clip_model.normalize(feats.float()), self.class_features)
 

@@ -26,20 +26,21 @@ from rlcf_torch.ops import cuda_build
 @pytest.mark.parametrize("T,dtype,want", [
     (1, torch.bfloat16, "mma_short"), (16, torch.bfloat16, "mma_short"), (17, torch.bfloat16, "mma_long"),
     (257, torch.bfloat16, "mma_long"), (1, torch.float32, "tf32x6_short"), (16, torch.float32, "tf32x6_short"),
-    (17, torch.float32, "tf32x3_long"), (257, torch.float32, "tf32x3_long"),
+    (17, torch.float32, "tf32x3_long"), (257, torch.float32, "tf32x3_long"), (258, torch.bfloat16, "mma_xlong"),
+    (577, torch.float32, "tf32x3_xlong"),
 ])
 def test_backward_variant(T, dtype, want):
     assert TA.backward_variant(T, dtype) == want
 
 
-@pytest.mark.parametrize("T,dtype,error", [(0, torch.bfloat16, ValueError), (258, torch.bfloat16, ValueError),
-                                           (258, torch.float32, ValueError), (16, torch.float16, TypeError)])
+@pytest.mark.parametrize("T,dtype,error", [(0, torch.bfloat16, ValueError), (578, torch.bfloat16, ValueError),
+                                           (578, torch.float32, ValueError), (16, torch.float16, TypeError)])
 def test_backward_variant_refuses(T, dtype, error):
-    """The backward keeps T <= 257 (the forward takes T <= 577); longer
-    sequences name the ROADMAP item that brings them."""
+    """The backward takes 1 <= T <= 577, as the forward; a longer sequence is
+    refused naming the kernels whose limit it is."""
     with pytest.raises(error) as exc:
         TA.backward_variant(T, dtype)
-    assert T <= TA.MAX_T_BWD or "ROADMAP A8 (rest)" in str(exc.value)
+    assert T <= TA.MAX_T_BWD or "xlong backward kernels' longest sequence" in str(exc.value)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

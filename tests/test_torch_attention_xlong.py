@@ -1,8 +1,9 @@
 """The fused attention forward above T = 257 (ViT-L/14 at 336 px: T = 577),
 on the CPU: which kernel a ``(T, dtype)`` runs on the card, the backward's
-limit, the fp32 kernel's split-TF32 arithmetic emulated in PyTorch at
+routing at T = 258, the fp32 kernel's split-TF32 arithmetic emulated in PyTorch at
 T = 577, and the plain version (what the card's kernels are held to) against
-the JAX package's Pallas kernel in interpret mode at a T above 257.
+the JAX package's Pallas kernel in interpret mode at a T above 257 (the
+backward there: tests/test_torch_attention_xlong_bwd.py).
 
 Tolerances: fp32 1e-5 absolute + 1e-5 relative (the forward kernels' own,
 ``chip_smoke.py`` TOL); bf16 one rounding step of the output (2**-7
@@ -39,11 +40,13 @@ def test_forward_variant_refuses_outside_1_to_577(T, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_still_refuses_258(dtype):
-    """A frozen reward needs no backward: the backward keeps T <= 257 and
-    names the item that brings the rest."""
+    """The backward at T = 258 is no longer refused: past the long kernels
+    (T <= 257) the xlong ones take it, up to the forward's 577; T = 578 is
+    refused (tests/test_torch_attention_xlong_bwd.py covers the new range)."""
     assert TA.backward_variant(257, dtype) in ("mma_long", "tf32x3_long")
-    with pytest.raises(ValueError, match=r"257.*ROADMAP A8 \(rest\)"):
-        TA.backward_variant(258, dtype)
+    assert TA.backward_variant(258, dtype) in ("mma_xlong", "tf32x3_xlong")
+    with pytest.raises(ValueError, match="577"):
+        TA.backward_variant(578, dtype)
 
 
 def test_wrapper_refuses_a_cpu_tensor_at_577():

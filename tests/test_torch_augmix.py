@@ -271,6 +271,22 @@ def test_kernel_layout_holds_planes_tables_and_strip(R, S):
     assert planes >= 2 * R * r4 and planes >= max(R * r4, tables) + 8 * (-(-S // 4) * 4)
 
 
+@pytest.mark.parametrize("R", [336, 384, 448])
+def test_kernel_layout_keeps_one_plane_on_chip_above_330(R):
+    """The 336, 384 and 448 px towers' views (S = 256, the CLIs' sources):
+    two planes do not fit a CTA, so the kernel keeps one u8 plane in shared
+    memory, the crop's tables and a float64 strip of at least one row behind
+    them, and its second plane in the device scratch (three planes a view and
+    channel there); the flagship's 224 px keeps both planes on chip."""
+    r4 = -(-R // 4) * 4
+    tables = 2 * 8 * R * T._TAPS + 2 * 16 * R + 4 * R
+    rest = 2 * 16 * R + 256 * 4 + 256 + 2 * (T._THREADS // 32) * 4 + 16
+    assert T.large_layout(R, 256) and not T.large_layout(224, 256) and not T.large_layout(320, 256)
+    assert 2 * R * r4 + rest > T.MAX_SHARED_BYTES >= T.shared_bytes(R, 256)
+    assert T.shared_bytes(R, 256) - rest >= max(R * r4, tables + 8 * 256)
+    assert T.keep_bytes(1, 64, R) == 64 * 3 * 3 * R * r4
+
+
 def test_keep_buffer_is_two_u8_planes_per_view():
     """The device scratch: the first two chains' u8 results, half the f32 mix
     buffer of the first design (154 MB at a flagship group)."""

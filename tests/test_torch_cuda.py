@@ -212,6 +212,27 @@ def test_bf16_backward_at_full_batch(dev, B, T, H, masked):
                                **_tol(torch.bfloat16, bwd=True))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_kind", [None, "causal", "dead_row"])
+@pytest.mark.parametrize("T", [258, 321, 385, 448, 513, 576, 577])
+def test_xlong_backward_matches_plain(dev, T, mask_kind, dtype):
+    """The backward above T = 257 (``mma_xlong`` / ``tf32x3_xlong``, two
+    launches) against the plain backward, with the edges of its chunks of 64
+    and the one-row tail of T = 577; two launches give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    qkv = torch.randn(2, T, 3 * 16 * 64, device=dev, generator=g).to(dtype)
+    cot = torch.randn(2, T, 16 * 64, device=dev, generator=g).to(dtype)
+    mask = None if mask_kind is None else causal_mask(T, dev) if mask_kind == "causal" else \
+        _general_mask(mask_kind, T, dev, g)
+    want = A.fused_attention_reference_bwd(qkv, cot, mask, 16, 0.125).float()
+    A.reset_launch_counts()
+    got = A.launch_bwd(qkv, cot, mask, 16, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"bwd_" + ("mma_xlong" if dtype == torch.bfloat16 else "tf32x3_xlong"): 1}
+    torch.testing.assert_close(got.float(), want, **_tol(dtype, bwd=True))
+    assert torch.equal(got, A.launch_bwd(qkv, cot, mask, 16, 0.125))
+
+
 @pytest.mark.parametrize("H", [2, 12])
 @pytest.mark.parametrize("T,mask_kind", FP32_CASES)
 def test_fp32_backward_sweep_on_the_tf32_kernels(dev, T, H, mask_kind):
@@ -242,7 +263,7 @@ def test_bf16_autograd_runs_both_tensor_core_kernels(dev, T):
 def test_flash_switch_launches_the_kernel(dev, monkeypatch, T, masked, dtype):
     """ATTN_IMPL="flash" sends the dense branch through the kernel at
     T % 128 == 0 and equals the dense math; at T=384 a differentiated call
-    raises (the backward takes T <= 257)."""
+    runs the xlong backward."""
     from rlcf_torch.models import layers as L
 
     D, H = 256, 4
@@ -257,8 +278,10 @@ def test_flash_switch_launches_the_kernel(dev, monkeypatch, T, masked, dtype):
     torch.cuda.synchronize()
     assert A.LAUNCHES["fwd"] == 1
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
-    with pytest.raises(ValueError, match="257"):
-        L.multi_head_attention(torch.zeros(1, 384, D, device=dev, dtype=dtype, requires_grad=True), *w, H)
+    x384 = torch.zeros(1, 384, D, device=dev, dtype=dtype, requires_grad=True)
+    L.multi_head_attention(x384, *w, H).float().sum().backward()
+    torch.cuda.synchronize()
+    assert A.LAUNCH_VARIANTS["bwd_" + A.backward_variant(384, dtype)] == 1 and bool(torch.isfinite(x384.grad).all())
 
 
 def test_autograd_function_launches_kernels(dev):
@@ -277,7 +300,7 @@ def test_kernel_refuses_unsupported_shapes(dev):
     with pytest.raises(TypeError):
         A.launch_fwd(torch.randn(1, 8, 3 * 64, device=dev).half(), None, 1, 0.125)
     with pytest.raises(ValueError):
-        A.launch_bwd(torch.randn(1, 258, 3 * 64, device=dev), torch.randn(1, 258, 64, device=dev), None, 1, 0.125)
+        A.launch_bwd(torch.randn(1, 578, 3 * 64, device=dev), torch.randn(1, 578, 64, device=dev), None, 1, 0.125)
     with pytest.raises(ValueError, match="cotangent"):
         A.launch_bwd(torch.randn(1, 8, 3 * 64, device=dev), torch.randn(1, 8, 32, device=dev), None, 1, 0.125)
 
@@ -348,6 +371,58 @@ def test_encoder_bf16_episode_runs_the_long_backward(dev):
     assert A.LAUNCH_VARIANTS["bwd_mma_long"] == 3 * 2 and A.LAUNCH_VARIANTS["mma_long"] > 0
     assert logits.shape == (2, 5) and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux["losses"]).all())
     assert card.momentum_state.counter == 0   # two episodes folded with update_freq 2: re-anchored
+
+
+def _tune_cls_argv(tmp_path, *extra):
+    return [".", "--device", "cuda", "--test_sets", "synthetic", "--limit", "1", "--precision", "bf16",
+            "--batch_size", "64", "--tta_steps", "3", "--sample_k", "3", "--lr", "1e-5", "--episode_group", "1",
+            "--output", str(tmp_path), *extra]
+
+
+@pytest.mark.parametrize("prior", [None, "0.5"])
+def test_tune_cls_resnet_policy_on_the_card(dev, tmp_path, prior):
+    """tune_cls through test-tiny-rn (grouped per-episode convolutions on the
+    card), with and without the BN prior: one image, finite results; the
+    views from the AugMix kernel, the reward through the attention kernels."""
+    from rlcf_torch.cli import tune_cls
+
+    X.reset_launch_counts()
+    A.reset_launch_counts()
+    extra = ("--prior_strength", prior) if prior else ()
+    r = tune_cls.main(_tune_cls_argv(tmp_path, "--arch", "test-tiny-rn", "--reward_arch", "test-small",
+                                     "--resolution", "64", *extra))
+    torch.cuda.synchronize()
+    assert r["synthetic"]["n"] == 1 and X.LAUNCHES["augmix"] == 1 and A.LAUNCHES["fwd"] > 0
+
+
+def test_tune_cls_vit_l14_336_on_the_card(dev, tmp_path):
+    """tune_cls through ViT-L/14@336px at 336 px (views from the AugMix
+    kernel's large layout), one image: every step's backward through the 24
+    layers runs ``mma_xlong``, 72 launches."""
+    from rlcf_torch.cli import tune_cls
+
+    X.reset_launch_counts()
+    A.reset_launch_counts()
+    r = tune_cls.main(_tune_cls_argv(tmp_path, "--arch", "ViT-L/14@336px", "--resolution", "336", "--reward_arch",
+                                     "ViT-L/14", "--selection_p", "0.1", "--remat", "full"))
+    torch.cuda.synchronize()
+    assert r["synthetic"]["n"] == 1 and X.LAUNCHES["augmix"] == 1
+    assert A.LAUNCH_VARIANTS["bwd_mma_xlong"] == 24 * 3 and A.LAUNCH_SHAPES[("bwd", 6, 577, 16, "torch.bfloat16")] == 72
+
+
+def test_tta_cls_fused_views_at_336_on_the_card(dev, tmp_path):
+    """Prompt TTA in token mode at 336 px (ViT-L/14@336px policy, 336 % 14 = 0):
+    one group of 4 images whose views the AugMix kernel builds in its large
+    layout; the reward (ViT-L/14) takes them depatchified and resized."""
+    from rlcf_torch.cli import tta_cls
+
+    X.reset_launch_counts()
+    r = tta_cls.main([".", "--device", "cuda", "--test_sets", "synthetic", "--limit", "4", "--viewgen", "fused",
+                      "--arch", "ViT-L/14@336px", "--resolution", "336", "--reward_arch", "ViT-L/14",
+                      "--precision", "bf16", "--batch_size", "64", "--tta_steps", "1", "--sample_k", "3",
+                      "--episode_group", "4", "--output", str(tmp_path)])
+    torch.cuda.synchronize()
+    assert r["synthetic"]["n"] == 4 and X.LAUNCH_SHAPES[("augmix", 4, 64, 256, 336)] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -479,10 +554,42 @@ def test_augmix_odd_and_small_shapes_match_plain(dev, S, R, severity):
     assert _unequal(got, X.augmix_views_reference(imgs, params, basew, R, S, V, shifts)) == 0
 
 
-@pytest.mark.parametrize("R,S", [(224, 256), (223, 255), (64, 64), (32, 48), (300, 320), (480, 512)])
+@pytest.mark.parametrize("R,S", [(224, 256), (223, 255), (64, 64), (32, 48), (300, 320), (480, 512), (336, 256),
+                                 (448, 256), (448, 448)])
 def test_augmix_shared_bytes_is_the_sources(dev, R, S):
-    """``shared_bytes`` (the wrapper's check) is the source's own layout."""
+    """``shared_bytes`` (the wrapper's check) is the source's own layout, and
+    so is where its second plane lives (the scratch's planes a CTA)."""
     assert X._lib().rlcf_augmix_shared_bytes(R, S) == X.shared_bytes(R, S)
+    assert X._lib().rlcf_augmix_keep_planes(R, S) == (3 if X.large_layout(R, S) else 2)
+
+
+@pytest.mark.parametrize("R", [336, 448])
+@pytest.mark.parametrize("augmix,seed", [(True, 0), (True, 1), (False, 0), (False, 1)])
+def test_augmix_large_views_match_plain(dev, R, augmix, seed):
+    """Views at 336 and 448 px from 256 px sources (the layout with one plane
+    on chip): one image, 16 views, 0 unequal pixels, two launches alike."""
+    V, S = 16, 256
+    imgs = _sources(dev, 1, S, seed=seed)
+    params = X.flatten_params(X.sample_view_params(torch.Generator(device=dev).manual_seed(seed + R), 1, V, S, R,
+                                                   augmix=augmix, device=dev))
+    basew, shifts = X.bicubic_matrix(S, R, device=dev), X.op_shift_bounds(1.0, R)
+    got, again = (X.launch_views(imgs, params, basew, R, S, V, shifts) for _ in range(2))
+    torch.cuda.synchronize()
+    assert X.large_layout(R, S) and torch.equal(got, again)
+    assert _unequal(got, X.augmix_views_reference(imgs, params, basew, R, S, V, shifts)) == 0
+
+
+@pytest.mark.parametrize("R", [336, 448])
+@pytest.mark.parametrize("severity", [1.0, 2.0])
+def test_augmix_large_single_ops_match_plain(dev, R, severity):
+    """Every op, 4 views each, at the identity crop at 336 and 448 px: 0 unequal."""
+    src = _sources(dev, 1, R, seed=R)
+    ops = [op for op in range(9) for _ in range(4)]
+    params = X.single_op_params(torch.Generator(device=dev).manual_seed(int(severity)), ops, R, severity, device=dev)
+    eye, sh = X.bicubic_matrix(R, R, device=dev), X.op_shift_bounds(severity, R)
+    got = X.launch_views(src, params, eye, R, R, len(ops) + 1, sh)
+    torch.cuda.synchronize()
+    assert _unequal(got, X.augmix_views_reference(src, params, eye, R, R, len(ops) + 1, sh)) == 0
 
 
 def test_augmix_kernel_refuses_too_large_views(dev):

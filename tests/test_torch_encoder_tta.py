@@ -2,7 +2,8 @@
 (``core/episode.py::make_tta_episode``, both step-0 strategies, every loss),
 ``EncoderTTAClassifier.adapt`` at N=2 against JAX's vmapped episodes (u8 and
 float views, only_norm, momentum across two calls, rlcf/tpt/kd), the three
-``remat`` settings, and the ``tune_cls`` entry point.
+``remat`` settings, and the ``tune_cls`` entry point (a ResNet policy:
+tests/test_torch_encoder_resnet.py).
 
 Tolerances (fp32): logits and losses within atol 2e-4 + rtol 1e-3,
 selections equal. Adapted weights: every element within 2.1 * lr * steps of
@@ -253,11 +254,9 @@ def test_encoder_refuses_what_the_port_does_not_run(towers):
     reward = ClipReward(t["trp"], t["tcfg"], RewardConfig())
     with pytest.raises(ValueError, match="single ClipReward"):
         EncoderTTAClassifier(t["tp"], t["tcfg"], object(), ecfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(rest\)"):
-        EncoderTTAClassifier(t["tp"], t["tcfg"], reward, ecfg, bn_prior=0.5)
+    # a ResNet policy and bn_prior are taken (tests/test_torch_encoder_resnet.py holds them to JAX)
     rn = TC.get_config("test-tiny-rn")
-    with pytest.raises(NotImplementedError, match=r"ResNet policy comes with ROADMAP A8 \(rest\)"):
-        EncoderTTAClassifier(TC.init_clip_params(rn), rn, reward, ecfg)
+    assert EncoderTTAClassifier(TC.init_clip_params(rn), rn, reward, ecfg, bn_prior=0.5).bn_prior == 0.5
     # a reward at another resolution takes the views resized
     big = TC.ClipConfig("r", 16, 64, 1, 64, 16, 64, 1, vision_heads_override=2, text_heads_override=2)
     other = ClipReward(TC.init_clip_params(big), big, RewardConfig())
@@ -316,8 +315,8 @@ def test_tune_cls_cpu_drive_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--dp", "2"), "A14"), (("--prior_strength", "0.5"), "A8"), (("--arch", "RN50"), "A8"),
-    (("--hard_aug", "1"), "A16"), (("--decode", "native"), "A15"), (("--download", "1"), "A15")])
+    (("--dp", "2"), "A14"), (("--hard_aug", "1"), "A16"), (("--decode", "native"), "A15"),
+    (("--download", "1"), "A15")])
 def test_tune_cls_refusals_name_their_roadmap_item(tmp_path, extra, item):
     from rlcf_torch.cli import tune_cls
 

@@ -77,10 +77,11 @@ def test_flash_switch_refusals(monkeypatch):
         TL.multi_head_attention(x, *w, 1)
     monkeypatch.setattr(TL, "ATTN_IMPL", "flash")
     long_x = torch.zeros(1, 384, 64)
-    # T=384: the kernels' forward serves it, their backward (T <= 257) does not
+    # T=384: the kernels serve it in both directions (the backward above T = 257 is the xlong one)
     assert TL.multi_head_attention(long_x, *w, 1).shape == (1, 384, 64)
-    with pytest.raises(ValueError, match=r"257.*ROADMAP A8 \(rest\)"):
-        TL.multi_head_attention(long_x.clone().requires_grad_(True), *w, 1)
+    grad_x = long_x.clone().requires_grad_(True)
+    TL.multi_head_attention(grad_x, *w, 1).sum().backward()
+    assert grad_x.grad.shape == (1, 384, 64)
     with pytest.raises(ValueError, match="577"):
         TL.multi_head_attention(torch.zeros(1, 640, 64), *w, 1)
     # attn="fused" is not the switch's business: its plain version takes any T on the CPU
