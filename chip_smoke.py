@@ -20,10 +20,11 @@ Phases, each fatal:
      encoder TTA of ViT-L/14@336px (B=64, 6, 1), the backward there (B=6 and
      24, T=577, H=16: the xlong kernels); the ATTN_IMPL="flash" switch of
      models/layers.py at T=128, 256 and 384, with the backward it takes, and
-     differentiated at T=384 and 512 (causal); the AugMix kernel at a flagship
-     group (4 images x 64 views, 256 -> 224 px) with augmix on and off, on a
-     second seed, and op by op at the identity crop at severities 1 and 2, and
-     at 336 and 448 px (the layout with one plane on chip) the same way;
+     differentiated at T=384 and 512 (causal), both directions timed there;
+     the AugMix kernel at a flagship group (4 images x 64 views, 256 -> 224
+     px) with augmix on and off, on a second seed, and op by op at the
+     identity crop at severities 1 and 2, and at 336 and 448 px (the layout
+     with one plane on chip) the same way;
   4. drive the flagship RLCF prompt TTA through the port's CLI at full width
      (ViT-B/16 policy, ViT-L/14 reward, random weights from a seed, ImageNet-A's
      200 class names on synthetic images, 64 views, group 4, 3 steps): first
@@ -377,7 +378,8 @@ def check_flash_switch():
     T=384 and 512, causal, whose gradient (through the xlong backward) equals
     the dense branch's; the switch is set back. Returns the kernels-line
     entries of the timed shapes, forward and the backward that the switch's
-    autograd function takes (T=256, and 384 and 512 causal)."""
+    autograd function takes (T=256, and 384 and 512 causal both ways, bf16 and
+    fp32)."""
     from rlcf_torch.models import layers as L
     from rlcf_torch.ops import attention as A
 
@@ -434,6 +436,8 @@ def check_flash_switch():
                for masked in (True, False)]
     entries += [check_kernel("bwd", B, T, H, dtype, True, f"backward B={B} T={T} H={H} {tag} causal", kind="flash")
                 for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))]
+    entries += [check_kernel("fwd", B, t, H, dtype, True, f"B={B} T={t} H={H} {tag} causal", kind="flash")
+                for t in (384, 512) for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))]
     return entries + [check_kernel("bwd", B, t, H, torch.bfloat16, True, f"backward B={B} T={t} H={H} bf16 causal",
                                    kind="flash") for t in (384, 512)]
 

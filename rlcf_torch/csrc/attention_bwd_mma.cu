@@ -73,29 +73,32 @@
 // Longer sequences (258 <= T <= 577: ViT-L/14 at 336 px, T = 24 * 24 + 1,
 // under encoder TTA; ATTN_IMPL="flash" at T = 384 and 512): the long kernel's
 // design would hold Q, K, V and G of a head in shared memory, 295 KB at
-// T = 577 against a CTA's 227 KB. So the work is cut in two launches that keep
-// its properties (no atomics, bit-identical repeats, the same sweeps and
-// arithmetic, the hi + lo split of P and dS):
-//   (a) `mha_bwd_mma_xlong_rows`: CTA = (sequence, head, 128 query rows), two
-//       warpgroups of 64 rows with Q and G staged; K and V stream in chunks
-//       of 64 keys through a ring of three slots (cp.async, two chunks in
-//       flight while one is multiplied), shared by both warpgroups, once for
-//       sweep 1 (row max, row sum, rowsum(dp * P), online) and once for
-//       sweep 2 (dq = dS.K). The rows' statistics go to a [B * H, 3, T]
-//       fp32 scratch in device memory (22 KB a head at T = 577).
-//   (b) `mha_bwd_mma_xlong_keys`: CTA = (sequence, head, 128 keys) with K and
-//       V staged and every row's statistics in shared memory; Q and G stream
-//       through the ring once for sweep 3 (S^T, dP^T, P^T and dS^T from the
-//       statistics, dv += P^T.G, dk += dS^T.Q).
-// Each CTA reads the other two slices once per sweep (three times in all,
-// from L2), against once in the long kernel: 83 KB and 91 KB of shared memory
-// a CTA. A last chunk of 64 that holds fewer rows (at T = 577 = 9 * 64 + 1,
-// one) takes the general path, which predicates the blocks of 16 past T; in
-// launch (b) a chunk of at most 16 queries takes a narrow m64n16 step. The
-// same narrow step in launch (a), a branch inside its loop, made ptxas
-// serialize the warpgroup's wgmma (warning C7520) and was slower. A mask
-// takes the general path on every tile (no tile is skipped: the masks these
-// lengths see are U1's causal one and the checks' own).
+// T = 577 against a CTA's 227 KB. What bounds it: its 12 products of T^2 x 64
+// (P and dS enter as hi + lo, and the rows' statistics must precede dS), at
+// the rate that the waits between dependent steps leave them. An earlier
+// design streamed the other slices through a ring with a CTA-wide
+// barrier a chunk and read K and V from L2 twice (0.2521 ms at B=6 T=577
+// H=16 on an H100 80GB HBM3 at 700 W). So the long kernel's sweeps are cut at
+// its barrier into two launches, each holding whole the two slices it sweeps
+// over:
+//   (a) `mha_bwd_mma_xlong_rows`: CTA = (sequence, head, two blocks of 64 query
+//       rows), a warpgroup each, with those rows' Q and G and the head's whole
+//       K and V (203 KB at T = 577): sweep 1 (the rows' statistics, online)
+//       and sweep 2 (dq = dS.K) on the long kernel's steps; the statistics go
+//       to a [B * H, 3, 64 ceil(T / 64)] fp32 scratch for (b);
+//   (b) `mha_bwd_mma_xlong_keys`: CTA = (sequence, head, two blocks of 64 keys)
+//       with those keys' K and V, the head's whole Q and G and every row's
+//       statistics (226 KB): sweep 3 (dv += P^T.G, dk += dS^T.Q).
+// Each launch loads its slices once by cp.async, each chunk of 64 rows counted
+// by an mbarrier: a warpgroup starts on the first chunk, and no CTA-wide
+// barrier separates its tiles. The tails and masks are the long kernel's: a
+// block of at most 16 rows (T = 577: one) goes to its warpgroup's four warps on
+// mma.sync, the 16 columns past the whole blocks to a narrow wgmma step outside
+// the loop over tiles; under a mask the first small kernel classifies the
+// 64 x 64 tiles and both launches skip the dead ones (a causal T = 512 visits
+// 36 of 64) and take the plain ones on the fast path. No atomics: two
+// launches give the same bits. Rows past T read row T - 1 (finite values that
+// get weight 0 or are not stored).
 //
 // The mask is a general additive [T, T] fp32 tensor (already clamped to a
 // finite floor by the wrapper).
@@ -343,15 +346,16 @@ __device__ __forceinline__ void two_scores(float (&x)[NJ][2][4], float (&y)[NJ][
 constexpr int kTileDead = 0;   // every entry at the floor: P = 0 exactly, the tile is skipped
 constexpr int kTilePlain = 1;  // no mask entry but 0 and no row or column >= t: the fast path
 constexpr int kTileMixed = 2;  // anything else: the general path
+constexpr int kMaxBlocks = (kMaxTFwd + 63) / 64;  // blocks of 64 along either axis, up to T = 577
 
 // classes[i * nblk + j] for query block i (one CTA each) and key block j. A
 // block with a row that has no entry above the floor keeps all its tiles (its
 // softmax is uniform over the floor entries).
 __global__ void __launch_bounds__(256)
 mask_tile_classes(const float* __restrict__ mask, int t, int nblk, unsigned char* __restrict__ classes) {
-  __shared__ int dead[5], zero[5], dead_row;
+  __shared__ int dead[kMaxBlocks], zero[kMaxBlocks], dead_row;
   const int i = blockIdx.x, row = i * 64 + (threadIdx.x >> 2), part = threadIdx.x & 3;
-  if (threadIdx.x < 5) dead[threadIdx.x] = zero[threadIdx.x] = 1;
+  if (threadIdx.x < kMaxBlocks) dead[threadIdx.x] = zero[threadIdx.x] = 1;
   if (threadIdx.x == 0) dead_row = 0;
   __syncthreads();
   int live = 0;
@@ -704,19 +708,20 @@ __device__ __forceinline__ void sum_partials(const float* parts, float factor, b
   }
 }
 
-// Sweeps 1 and 2 of the tail's query rows (from row0 = 64 nwhole) against the
-// whole key tiles and the tail's own: their statistics and dq. `parts`: four
-// partial tiles and, behind them, the warps' partial statistics.
+// Sweeps 1 and 2 of the tail's query rows (from row0 = 64 nwhole, staged in
+// `qtile` and `gtile`) against the whole key tiles and the tail's own: their
+// statistics and dq. `parts`: four partial tiles and, behind them, the warps'
+// partial statistics.
 template <bool MASKED>
 __device__ __forceinline__ void tail_rows(const LongArgs& a, const unsigned char* __restrict__ classes, int nwhole,
-                                          const unsigned char* qs, const unsigned char* gs, uint32_t kaddr,
+                                          const unsigned char* qtile, const unsigned char* gtile, uint32_t kaddr,
                                           uint32_t vaddr, float* parts, bf16* out, int stride, float scale, int w) {
   const int g8 = a.lane >> 2, row0 = nwhole * 64, ra = row0 + g8, rb = ra + 8, c0 = 2 * (a.lane & 3);
   const unsigned char* cls = MASKED ? classes + nwhole * (nwhole + 1) : nullptr;  // the tail's row of tile classes
   float* pstat = parts + 4 * 1024;  // [warp][m | l | dd][16 rows], in the half that sweep 3 will use
   uint32_t qa[4][4], ga[4][4];
-  load_q(qa, qs + nwhole * 4 * kTileBytes, a.lane);
-  load_q(ga, gs + nwhole * 4 * kTileBytes, a.lane);
+  load_q(qa, qtile, a.lane);
+  load_q(ga, gtile, a.lane);
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
   for (int kt = w; kt <= nwhole; kt += 4) {
@@ -778,17 +783,18 @@ __device__ __forceinline__ void tail_rows(const LongArgs& a, const unsigned char
   sum_partials(parts, scale, out + static_cast<size_t>(row0) * stride, a.t - row0, stride, w, a.lane);
 }
 
-// Sweep 3 of the tail's keys (from row0 = 64 nwhole) against the whole query
-// tiles and the tail's own: dv and dk. `parts`: twice four partial tiles.
+// Sweep 3 of the tail's keys (from row0 = 64 nwhole, staged in `ktile` and
+// `vtile`) against the whole query tiles and the tail's own: dv and dk.
+// `parts`: twice four partial tiles.
 template <bool MASKED>
 __device__ __forceinline__ void tail_keys(const LongArgs& a, const unsigned char* __restrict__ classes, int nwhole,
-                                          const unsigned char* ks, const unsigned char* vs, uint32_t qaddr,
+                                          const unsigned char* ktile, const unsigned char* vtile, uint32_t qaddr,
                                           uint32_t gaddr, float* parts, bf16* out, int stride, int hd, float scale,
                                           int w) {
   const int row0 = nwhole * 64, ka = row0 + (a.lane >> 2), kb8 = ka + 8, c0 = 2 * (a.lane & 3);
   uint32_t kf[4][4], vf[4][4];
-  load_q(kf, ks + nwhole * 4 * kTileBytes, a.lane);
-  load_q(vf, vs + nwhole * 4 * kTileBytes, a.lane);
+  load_q(kf, ktile, a.lane);
+  load_q(vf, vtile, a.lane);
   float dv[8][4] = {}, dk[8][4] = {};
   for (int qt = w; qt <= nwhole; qt += 4) {
     if (MASKED && classes[qt * (nwhole + 1) + nwhole] == kTileDead) continue;
@@ -916,7 +922,7 @@ mha_bwd_mma_long(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const
     }
   }
   if (TAIL && wg == 1) {
-    tail_rows<MASKED>(a, classes, nwhole, qs, gs, kaddr, vaddr, parts, out, stride, scale, w);
+    tail_rows<MASKED>(a, classes, nwhole, qs + tail_off, gs + tail_off, kaddr, vaddr, parts, out, stride, scale, w);
   }
   __syncthreads();  // every row's statistics are in shared memory
 
@@ -949,7 +955,8 @@ mha_bwd_mma_long(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const
     }
   }
   if (TAIL && wg == 1) {
-    tail_keys<MASKED>(a, classes, nwhole, ks, vs, qaddr, gaddr, parts, out, stride, hd, scale, w);
+    tail_keys<MASKED>(a, classes, nwhole, ks + tail_off, vs + tail_off, qaddr, gaddr, parts, out, stride, hd, scale,
+                      w);
   }
 }
 
@@ -973,197 +980,282 @@ int launch_long(const bf16* qkv, const bf16* g, const float* mask, const unsigne
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the longest regime (258 <= T <= 577): the slices streamed, two launches
+// ---- the longest regime (258 <= T <= 577): the long kernel's sweeps in two launches
 //
-// A head's Q, K, V and G no longer fit a CTA's shared memory (295 KB at
-// T = 577), so each launch holds only its own rows' two slices and streams the
-// other two through a ring of three slots, as the forward's mma_xlong streams
-// K and V. The steps on a tile are the long kernel's (rows_step1, rows_step2,
-// keys_step), so the arithmetic is too.
+// A head's Q, K, V and G no longer fit a CTA's shared memory (295 KB at T = 577), so the long kernel's three
+// sweeps are cut at its barrier: launch (a) holds two blocks of query rows' Q and G and the head's whole K
+// and V (sweeps 1 and 2: the rows' statistics, which go to a device scratch, and dq), launch (b) two blocks
+// of keys' K and V and the head's whole Q and G with every row's statistics (sweep 3: dk and dv). Each
+// launch loads the slices it holds whole once, by cp.async, each chunk of 64 rows counted by an mbarrier,
+// so that a warpgroup starts on the first chunk while the others arrive and no CTA-wide barrier separates
+// its tiles; the steps on a tile, the tile classes of a mask, the narrow step and the tail block on mma.sync
+// are the long kernel's.
 
-constexpr int kXlWarpgroups = 2;                 // a CTA's warpgroups, 64 rows each, sharing each streamed chunk
-constexpr int kXlThreads = 128 * kXlWarpgroups;
-constexpr int kXlRows = 64 * kXlWarpgroups;      // a CTA's own rows: queries in launch (a), keys in (b)
-constexpr int kXlChunkBytes = 4 * kTileBytes;    // 64 rows of one slice
-constexpr int kXlStages = 3;                     // ring slots, two slices each
-constexpr int kXlStatRows = (kMaxTFwd + 63) / 64 * 64;
-// own rows' two slices | the ring | room to align to 1024 bytes; launch (b) adds the statistics of every row
-constexpr int kXlSmemRows = (2 * kXlWarpgroups * 4 + 2 * kXlStages * 4) * kTileBytes + 1024;
-constexpr int kXlSmemKeys = kXlSmemRows + 3 * kXlStatRows * static_cast<int>(sizeof(float));
+constexpr int kXlStatRows = kMaxBlocks * 64;  // rows of a head's statistics, in the scratch and in shared memory
+constexpr int kXlOwnBar = kMaxBlocks;         // the mbarrier of the CTA's own two blocks (after one a chunk)
 
-// Launch (a): CTA = (sequence, head, kXlRows query rows), a warp 16 of them.
-// Stage j of the ring is K and V chunk j mod nc: sweep 1 (j < nc) the rows'
-// statistics, sweep 2 dq = dS.K * scale. The statistics (row max in base 2,
-// 1 / row sum, rowsum(dp * P)) go to `stats` [B * H, 3, 64 nc] for launch (b).
-template <bool MASKED>
-__global__ void __launch_bounds__(kXlThreads, 1)
-mha_bwd_mma_xlong_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const float* __restrict__ mask,
-                       float* __restrict__ stats, bf16* __restrict__ dqkv, int t, int heads, int nqb, float scale) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, w = warp & 3;
-  const int bh = blockIdx.x / nqb, qrow0 = (blockIdx.x % nqb) * kXlRows;
-  const int b = bh / heads, h = bh % heads;
-  const int hd = heads * kD, stride = 3 * hd;
-  const int nc = (t + 63) / 64, n16 = (t + 15) / 16;
-  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
-  unsigned char* qs = smem;
-  unsigned char* gs = qs + kXlRows * kRowBytes;
-  unsigned char* ring = gs + kXlRows * kRowBytes;
+// rows of a slice held whole: the whole blocks of 64, then the tail's 16 rows
+__host__ __device__ __forceinline__ int xl_rows_held(int t, bool tail) {
+  return tail ? t / 64 * 64 + 16 : (t + 63) / 64 * 64;
+}
 
-  auto issue = [&](int j) {  // one cp.async group a stage, empty past the last
-    if (j < 2 * nc) {
-      unsigned char* slot = ring + (j % kXlStages) * 2 * kXlChunkBytes;
-      const int k0 = 64 * (j % nc);
-      stage_rows(slot, base + hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride, threadIdx.x, kXlThreads);
-      stage_rows(slot + kXlChunkBytes, base + 2 * hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride,
-                 threadIdx.x, kXlThreads);
-    }
-    cp_async_commit();
-  };
-  stage_rows(qs, base + static_cast<size_t>(qrow0) * stride, kXlRows, t - qrow0, stride, threadIdx.x, kXlThreads);
-  stage_rows(gs, g + (static_cast<size_t>(b) * t + qrow0) * hd + h * kD, kXlRows, t - qrow0, hd, threadIdx.x,
-             kXlThreads);
-  issue(0);
-  issue(1);
+// Launch (a) (`rows`) or (b): two own blocks | the other two slices whole | (b) the statistics | the tail's
+// partial tiles | the visit lists | the mbarriers | room to align to 1024 bytes
+__host__ __device__ __forceinline__ int xl_smem_bytes(int t, bool tail, bool rows) {
+  return 2 * 128 * kRowBytes + 2 * xl_rows_held(t, tail) * kRowBytes + (rows ? 0 : 3 * kXlStatRows * 4) +
+         (tail ? (rows ? 4 * 1024 + 4 * 48 : 8 * 1024) * 4 : 0) + 32 + 8 * (kMaxBlocks + 1) + 1024;
+}
 
-  float* stat_m = stats + static_cast<size_t>(bh) * 3 * nc * 64;
-  const LongArgs a = {mask, stat_m, stat_m + nc * 64, stat_m + 2 * nc * 64, t, scale * kLog2e, lane};
-  const int row0 = qrow0 + (warp >> 2) * 64 + w * 16, ra = row0 + (lane >> 2), rb = ra + 8, c0 = 2 * (lane & 3);
-  const bool active = row0 < t;  // uniform over the warp; the wgmma are the whole warpgroup's
-  unsigned char* own = qs + (warp >> 2) * 4 * kTileBytes + w * kTileBytes;  // the warp's Q tile
-  uint32_t qa[4][4], ga[4][4];
-  auto next_stage = [&](int j) {  // stage j is in, and every warp is done with stage j - 1, whose slot j + 2 takes
-    cp_async_wait<1>();
-    fence_async_proxy();
-    __syncthreads();
-    issue(j + 2);
-    return smem_u32(ring + (j % kXlStages) * 2 * kXlChunkBytes);
-  };
-
-  // sweep 1: a thread's own columns give it a running max m, and l and dd
-  // relative to it; the quad merges them once at the end
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
-  for (int j = 0; j < nc; ++j) {
-    const uint32_t kaddr = next_stage(j), vaddr = kaddr + kXlChunkBytes;
-    if (j == 0) {
-      load_q(qa, own, lane);
-      load_q(ga, own + kXlRows * kRowBytes, lane);
-    }
-    const int nb = min(4, n16 - 4 * j);  // blocks of 16 keys the chunk holds (uniform)
-    rows_step1<4, true>(a, qa, ga, kaddr, vaddr, active, !MASKED && (j + 1) * 64 <= t, m, l, dd, ra, rb,
-                        j * 64 + c0, nb);
-  }
-  if (active) merge_statistics(m, l, dd, a.stat_m, a.stat_i, a.stat_d, ra, rb, lane);
-
-  // sweep 2: dq = dS.K * scale
-  float dq[8][4] = {};
-  for (int j = nc; j < 2 * nc; ++j) {
-    const uint32_t kaddr = next_stage(j), vaddr = kaddr + kXlChunkBytes;
-    const int kc = j - nc;
-    rows_step2<4, true>(a, qa, ga, kaddr, vaddr, active, !MASKED && (kc + 1) * 64 <= t, m, l, dd, dq, ra, rb,
-                        kc * 64 + c0, min(4, n16 - 4 * kc));
-  }
-  if (active) {
-    scale_tile(dq, scale);
-    store_tile(dq, own, dqkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(row0) * stride + h * kD,
-               t - row0, stride, lane);
+// The CTA's two own blocks (slice bases `a_src`, `b_src` with row strides `sa`, `sb`, from row 128 pair) and
+// the other two slices (`c_src`, `d_src`, strides `sc`, `sd`) chunk by chunk, each chunk's arrival on its own
+// mbarrier, all issued at once (issuing each chunk just before its first use was slower: 0.1843 against
+// 0.1613 ms at B=6, the loads then on the sweeps' path); rows past t read row t - 1 (finite values that take
+// weight 0 or are not stored).
+__device__ __forceinline__ void xl_load(unsigned char* own_a, unsigned char* own_b, unsigned char* all_c,
+                                        unsigned char* all_d, const bf16* a_src, size_t sa, const bf16* b_src,
+                                        size_t sb, const bf16* c_src, size_t sc, const bf16* d_src, size_t sd, int t,
+                                        int pair, int held, uint32_t bars) {
+  const int tid = threadIdx.x, r0 = 128 * pair;
+  copy_rows(own_a, a_src + static_cast<size_t>(r0) * sa, 0, 128, t - 1 - r0, sa, tid, kLongThreads);
+  copy_rows(own_b, b_src + static_cast<size_t>(r0) * sb, 0, 128, t - 1 - r0, sb, tid, kLongThreads);
+  cp_async_arrive(bars + 8 * kXlOwnBar);
+  for (int j = 0; 64 * j < held; ++j) {
+    const int r1 = min(64 * j + 64, held);
+    copy_rows(all_c, c_src, 64 * j, r1, t - 1, sc, tid, kLongThreads);
+    copy_rows(all_d, d_src, 64 * j, r1, t - 1, sd, tid, kLongThreads);
+    cp_async_arrive(bars + 8 * j);
   }
 }
 
-// Launch (b): CTA = (sequence, head, kXlRows keys), a warp 16 of them. Stage
-// j of the ring is Q and G chunk j: S^T = K.Q^T and dP^T = V.G^T, P^T and dS^T
-// from launch (a)'s statistics (rows >= t read as 0), dv += P^T.G and
-// dk += dS^T.Q. Nothing is summed by atomics: two launches give the same bits.
-template <bool MASKED>
-__global__ void __launch_bounds__(kXlThreads, 1)
-mha_bwd_mma_xlong_keys(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const float* __restrict__ mask,
-                       const float* __restrict__ stats, bf16* __restrict__ dqkv, int t, int heads, int nkb,
-                       float scale) {
+// the chunk of the held slices at `bar` is in, for the tensor cores
+__device__ __forceinline__ void xl_wait(uint32_t bar) {
+  mbar_wait(bar, 0);
+  fence_async_proxy();
+}
+
+// Under a mask, the list of tiles a block visits (the long kernel's: [0] how many whole tiles, [1..] tile
+// index | class << 4), [11] whether it visits the tail; `by_key`: the block is one of keys.
+__device__ __forceinline__ void xl_visit_list(unsigned char* list, const unsigned char* __restrict__ classes, int own,
+                                              int nwhole, int nblk, bool by_key) {
+  int n = 0;
+  for (int other = 0; other < nblk; ++other) {
+    const int cls = by_key ? classes[other * nblk + own] : classes[own * nblk + other];
+    if (other == nwhole) {
+      list[11] = cls != kTileDead;
+    } else if (cls != kTileDead) {
+      list[++n] = static_cast<unsigned char>(other | cls << 4);
+    }
+  }
+  list[0] = static_cast<unsigned char>(n);
+}
+
+// Launch (a): CTA = (sequence, head, pair of query blocks), warpgroup wg the block 2 pair + wg (a warp 16 of
+// its rows), or the tail block on its four warps. The statistics (row max in base 2, 1 / row sum,
+// rowsum(dp * P)) go to `stats` [B * H, 3, 64 nblk] for launch (b).
+template <bool MASKED, bool TAIL>
+__global__ void __launch_bounds__(kLongThreads, 1)
+mha_bwd_mma_xlong_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const float* __restrict__ mask,
+                       const unsigned char* __restrict__ classes, float* __restrict__ stats,
+                       bf16* __restrict__ dqkv, int t, int heads, int npairs, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, w = warp & 3;
-  const int bh = blockIdx.x / nkb, krow0 = (blockIdx.x % nkb) * kXlRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, w = warp & 3;
+  const int bh = blockIdx.x / npairs, pair = blockIdx.x % npairs;
   const int b = bh / heads, h = bh % heads;
   const int hd = heads * kD, stride = 3 * hd;
-  const int nc = (t + 63) / 64, n16 = (t + 15) / 16;
+  const int nblk = (t + 63) / 64, nwhole = TAIL ? nblk - 1 : nblk, held = xl_rows_held(t, TAIL), n16 = (t + 15) / 16;
+  const int qb = 2 * pair + wg;  // this warpgroup's block of query rows
+
+  unsigned char* qs = smem;
+  unsigned char* gs = qs + 128 * kRowBytes;
+  unsigned char* ks = gs + 128 * kRowBytes;
+  unsigned char* vs = ks + held * kRowBytes;
+  float* parts = reinterpret_cast<float*>(vs + held * kRowBytes);
+  unsigned char(*visit)[12] =
+      reinterpret_cast<unsigned char(*)[12]>(reinterpret_cast<unsigned char*>(parts) + (TAIL ? 4288 * 4 : 0));
+  const uint32_t bars = smem_u32(visit + 2) + 8;  // 8-byte aligned behind the two 12-byte lists
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kXlOwnBar; ++i) mbar_init(bars + 8 * i, kLongThreads);
+  }
+  if (MASKED && threadIdx.x < 2 && 2 * pair + threadIdx.x < nwhole) {
+    xl_visit_list(visit[threadIdx.x], classes, 2 * pair + threadIdx.x, nwhole, nblk, false);
+  }
+  __syncthreads();
+
+  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+  xl_load(qs, gs, ks, vs, base, stride, g + static_cast<size_t>(b) * t * hd + h * kD, hd, base + hd, stride,
+          base + 2 * hd, stride, t, pair, held, bars);
+
+  const uint32_t kaddr = smem_u32(ks), vaddr = smem_u32(vs);
+  float* stat_m = stats + static_cast<size_t>(bh) * 3 * nblk * 64;
+  const LongArgs a = {mask, stat_m, stat_m + nblk * 64, stat_m + 2 * nblk * 64, t, scale * kLog2e, lane};
+  const int g8 = lane >> 2, c0 = 2 * (lane & 3);
+  const uint32_t tail_off = nwhole * 4 * kTileBytes;  // the tail's 16 key rows
+  bf16* out = dqkv + static_cast<size_t>(b) * t * stride + h * kD;
+  unsigned char* own = qs + (wg * 4 + w) * kTileBytes;  // the warp's Q tile (then its output's staging)
+  mbar_wait(bars + 8 * kXlOwnBar, 0);
+
+  if (qb < nwhole) {
+    const int row0 = qb * 64 + w * 16, ra = row0 + g8, rb = ra + 8;
+    const bool active = row0 < t;  // uniform over the warp; the wgmma are the whole warpgroup's
+    const unsigned char* list = visit[wg];
+    const bool tail_too = TAIL && (!MASKED || list[11]);
+    uint32_t qa[4][4], ga[4][4];
+    load_q(qa, own, lane);
+    load_q(ga, gs + (wg * 4 + w) * kTileBytes, lane);
+
+    // sweep 1: a thread's own columns give it a running max m, and l and dd relative to it; the quad merges
+    // them once at the end. Each key chunk is waited for before its first use.
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+    const int ntiles = MASKED ? list[0] : nwhole;
+    for (int i = 0; i < ntiles; ++i) {
+      int kt;
+      bool plain;
+      visited_tile<MASKED>(list, i, true, t, kt, plain);
+      xl_wait(bars + 8 * kt);
+      const uint32_t off = kt * 4 * kTileBytes;
+      rows_step1<4, true>(a, qa, ga, kaddr + off, vaddr + off, active, plain, m, l, dd, ra, rb, kt * 64 + c0,
+                          min(4, n16 - 4 * kt));
+    }
+    if (tail_too) {
+      xl_wait(bars + 8 * nwhole);
+      rows_step1<1, true>(a, qa, ga, kaddr + tail_off, vaddr + tail_off, active, false, m, l, dd, ra, rb,
+                          nwhole * 64 + c0, 1);
+    }
+    if (active) merge_statistics(m, l, dd, a.stat_m, a.stat_i, a.stat_d, ra, rb, lane);
+
+    // sweep 2: dq = dS.K * scale
+    float dq[8][4] = {};
+    for (int i = 0; i < ntiles; ++i) {
+      int kt;
+      bool plain;
+      visited_tile<MASKED>(list, i, true, t, kt, plain);
+      const uint32_t off = kt * 4 * kTileBytes;
+      rows_step2<4, true>(a, qa, ga, kaddr + off, vaddr + off, active, plain, m, l, dd, dq, ra, rb, kt * 64 + c0,
+                          min(4, n16 - 4 * kt));
+    }
+    if (tail_too) {
+      rows_step2<1, true>(a, qa, ga, kaddr + tail_off, vaddr + tail_off, active, false, m, l, dd, dq, ra, rb,
+                          nwhole * 64 + c0, 1);
+    }
+    if (active) {
+      scale_tile(dq, scale);
+      store_tile(dq, own, out + static_cast<size_t>(row0) * stride, t - row0, stride, lane);
+    }
+  } else if (TAIL && qb == nwhole) {  // the tail's rows: this warpgroup's four warps on mma.sync
+    for (int j = 0; j <= nwhole; ++j) mbar_wait(bars + 8 * j, 0);
+    tail_rows<MASKED>(a, classes, nwhole, qs + wg * 4 * kTileBytes, gs + wg * 4 * kTileBytes, kaddr, vaddr, parts,
+                      out, stride, scale, w);
+  }
+}
+
+// Launch (b): CTA = (sequence, head, pair of key blocks), warpgroup wg the block 2 pair + wg, or the tail
+// block. S^T = K.Q^T and dP^T = V.G^T, P^T and dS^T from launch (a)'s statistics (rows >= t read as 0),
+// dv += P^T.G and dk += dS^T.Q. Nothing is summed by atomics: two launches give the same bits.
+template <bool MASKED, bool TAIL>
+__global__ void __launch_bounds__(kLongThreads, 1)
+mha_bwd_mma_xlong_keys(const bf16* __restrict__ qkv, const bf16* __restrict__ g, const float* __restrict__ mask,
+                       const unsigned char* __restrict__ classes, const float* __restrict__ stats,
+                       bf16* __restrict__ dqkv, int t, int heads, int npairs, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, w = warp & 3;
+  const int bh = blockIdx.x / npairs, pair = blockIdx.x % npairs;
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD, stride = 3 * hd;
+  const int nblk = (t + 63) / 64, nwhole = TAIL ? nblk - 1 : nblk, held = xl_rows_held(t, TAIL), n16 = (t + 15) / 16;
+  const int kb = 2 * pair + wg;  // this warpgroup's block of keys
+
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + 128 * kRowBytes;
+  unsigned char* qs = vs + 128 * kRowBytes;
+  unsigned char* gs = qs + held * kRowBytes;
+  float* stat_m = reinterpret_cast<float*>(gs + held * kRowBytes);
+  float* parts = stat_m + 3 * kXlStatRows;
+  unsigned char(*visit)[12] =
+      reinterpret_cast<unsigned char(*)[12]>(reinterpret_cast<unsigned char*>(parts) + (TAIL ? 8 * 1024 * 4 : 0));
+  const uint32_t bars = smem_u32(visit + 2) + 8;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kXlOwnBar; ++i) mbar_init(bars + 8 * i, kLongThreads);
+  }
+  if (MASKED && threadIdx.x < 2 && 2 * pair + threadIdx.x < nwhole) {
+    xl_visit_list(visit[threadIdx.x], classes, 2 * pair + threadIdx.x, nwhole, nblk, true);
+  }
+  const float* src = stats + static_cast<size_t>(bh) * 3 * nblk * 64;
+  for (int i = threadIdx.x; i < 3 * nblk * 64; i += kLongThreads) {
+    const int row = i % (nblk * 64);
+    stat_m[(i / (nblk * 64)) * kXlStatRows + row] = row < t ? src[i] : 0.f;
+  }
+  __syncthreads();
+
   const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
   const bf16* gbase = g + static_cast<size_t>(b) * t * hd + h * kD;
-  unsigned char* ks = smem;
-  unsigned char* vs = ks + kXlRows * kRowBytes;
-  unsigned char* ring = vs + kXlRows * kRowBytes;
-  float* stat_m = reinterpret_cast<float*>(ring + kXlStages * 2 * kXlChunkBytes);
+  xl_load(ks, vs, qs, gs, base + hd, stride, base + 2 * hd, stride, base, stride, gbase, hd, t, pair, held, bars);
 
-  auto issue = [&](int j) {
-    if (j < nc) {
-      unsigned char* slot = ring + (j % kXlStages) * 2 * kXlChunkBytes;
-      stage_rows(slot, base + static_cast<size_t>(64 * j) * stride, 64, t - 64 * j, stride, threadIdx.x, kXlThreads);
-      stage_rows(slot + kXlChunkBytes, gbase + static_cast<size_t>(64 * j) * hd, 64, t - 64 * j, hd, threadIdx.x,
-                 kXlThreads);
-    }
-    cp_async_commit();
-  };
-  stage_rows(ks, base + hd + static_cast<size_t>(krow0) * stride, kXlRows, t - krow0, stride, threadIdx.x, kXlThreads);
-  stage_rows(vs, base + 2 * hd + static_cast<size_t>(krow0) * stride, kXlRows, t - krow0, stride, threadIdx.x,
-             kXlThreads);
-  const float* src = stats + static_cast<size_t>(bh) * 3 * nc * 64;
-  for (int i = threadIdx.x; i < 3 * nc * 64; i += kXlThreads) {
-    const int row = i % (nc * 64);
-    stat_m[(i / (nc * 64)) * kXlStatRows + row] = row < t ? src[i] : 0.f;
-  }
-  issue(0);
-  issue(1);
-
+  const uint32_t qaddr = smem_u32(qs), gaddr = smem_u32(gs);
   const LongArgs a = {mask, stat_m, stat_m + kXlStatRows, stat_m + 2 * kXlStatRows, t, scale * kLog2e, lane};
-  const int row0 = krow0 + (warp >> 2) * 64 + w * 16, ka = row0 + (lane >> 2), kb8 = ka + 8, c0 = 2 * (lane & 3);
-  const bool active = row0 < t;
-  unsigned char* own = ks + (warp >> 2) * 4 * kTileBytes + w * kTileBytes;  // the warp's K tile
-  uint32_t kf[4][4], vf[4][4];
-  float dv[8][4] = {}, dk[8][4] = {};
-  for (int j = 0; j < nc; ++j) {
-    cp_async_wait<1>();
-    fence_async_proxy();
-    __syncthreads();  // as launch (a); at j = 0 the statistics are in too
-    issue(j + 2);
-    if (j == 0) {
-      load_q(kf, own, lane);
-      load_q(vf, own + kXlRows * kRowBytes, lane);
+  const int g8 = lane >> 2, c0 = 2 * (lane & 3);
+  const uint32_t tail_off = nwhole * 4 * kTileBytes;  // the tail's 16 query rows
+  bf16* out = dqkv + static_cast<size_t>(b) * t * stride + h * kD;
+  unsigned char* own = ks + (wg * 4 + w) * kTileBytes;  // the warp's K tile (then its outputs' staging)
+  mbar_wait(bars + 8 * kXlOwnBar, 0);
+
+  if (kb < nwhole) {
+    const int row0 = kb * 64 + w * 16, ka = row0 + g8, kb8 = ka + 8;
+    const bool active = row0 < t;
+    const unsigned char* list = visit[wg];
+    uint32_t kf[4][4], vf[4][4];
+    load_q(kf, own, lane);
+    load_q(vf, vs + (wg * 4 + w) * kTileBytes, lane);
+    float dv[8][4] = {}, dk[8][4] = {};
+    const int ntiles = MASKED ? list[0] : nwhole;
+    for (int i = 0; i < ntiles; ++i) {
+      int qt;
+      bool plain;
+      visited_tile<MASKED>(list, i, row0 + 16 <= t, t, qt, plain);
+      xl_wait(bars + 8 * qt);
+      const uint32_t off = qt * 4 * kTileBytes;
+      keys_step<4, true>(a, kf, vf, qaddr + off, gaddr + off, active, plain, dv, dk, ka, kb8, qt * 64 + c0,
+                         min(4, n16 - 4 * qt));
     }
-    const int nb = min(4, n16 - 4 * j);
-    const bool plain = !MASKED && (j + 1) * 64 <= t && row0 + 16 <= t;
-    const uint32_t qaddr = smem_u32(ring + (j % kXlStages) * 2 * kXlChunkBytes), gaddr = qaddr + kXlChunkBytes;
-    if (nb == 1) {
-      keys_step<1, true>(a, kf, vf, qaddr, gaddr, active, false, dv, dk, ka, kb8, j * 64 + c0, 1);
-    } else {
-      keys_step<4, true>(a, kf, vf, qaddr, gaddr, active, plain, dv, dk, ka, kb8, j * 64 + c0, nb);
+    if (TAIL && (!MASKED || list[11])) {
+      xl_wait(bars + 8 * nwhole);
+      keys_step<1, true>(a, kf, vf, qaddr + tail_off, gaddr + tail_off, active, false, dv, dk, ka, kb8,
+                         nwhole * 64 + c0, 1);
     }
-  }
-  if (active) {
-    bf16* out = dqkv + (static_cast<size_t>(b) * t + row0) * stride + h * kD;
-    scale_tile(dk, scale);
-    store_tile(dv, own, out + 2 * hd, t - row0, stride, lane);
-    store_tile(dk, own, out + hd, t - row0, stride, lane);
+    if (active) {
+      scale_tile(dk, scale);
+      store_tile(dv, own, out + static_cast<size_t>(row0) * stride + 2 * hd, t - row0, stride, lane);
+      store_tile(dk, own, out + static_cast<size_t>(row0) * stride + hd, t - row0, stride, lane);
+    }
+  } else if (TAIL && kb == nwhole) {  // the tail's keys: this warpgroup's four warps on mma.sync
+    for (int j = 0; j <= nwhole; ++j) mbar_wait(bars + 8 * j, 0);
+    tail_keys<MASKED>(a, classes, nwhole, ks + wg * 4 * kTileBytes, vs + wg * 4 * kTileBytes, qaddr, gaddr, parts,
+                      out, stride, hd, scale, w);
   }
 }
 
-template <bool MASKED>
-int launch_xlong(const bf16* qkv, const bf16* g, const float* mask, float* stats, bf16* dqkv, int batch, int t,
-                 int heads, float scale, cudaStream_t stream) {
-  static const cudaError_t attr_rows =  // once per kernel and process
-      cudaFuncSetAttribute(mha_bwd_mma_xlong_rows<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmemRows);
+template <bool MASKED, bool TAIL>
+int launch_xlong(const bf16* qkv, const bf16* g, const float* mask, const unsigned char* classes, float* stats,
+                 bf16* dqkv, int batch, int t, int heads, float scale, cudaStream_t stream) {
+  static const cudaError_t attr_rows =  // once per kernel and process, at the largest T
+      cudaFuncSetAttribute(mha_bwd_mma_xlong_rows<MASKED, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           xl_smem_bytes(kMaxTFwd, true, true));
   static const cudaError_t attr_keys =
-      cudaFuncSetAttribute(mha_bwd_mma_xlong_keys<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmemKeys);
+      cudaFuncSetAttribute(mha_bwd_mma_xlong_keys<MASKED, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           xl_smem_bytes(kMaxTFwd, true, false));
   if (attr_rows != cudaSuccess) return static_cast<int>(attr_rows);
   if (attr_keys != cudaSuccess) return static_cast<int>(attr_keys);
-  const int nblk = (t + kXlRows - 1) / kXlRows;
-  const long long ctas = static_cast<long long>(batch) * heads * nblk;
+  const int units = (TAIL ? t / 64 : (t + 63) / 64) + (TAIL ? 1 : 0);
+  const int npairs = (units + 1) / 2;
+  const long long ctas = static_cast<long long>(batch) * heads * npairs;
   if (ctas > 0x7fffffffLL) return kBadArgs;
-  mha_bwd_mma_xlong_rows<MASKED><<<static_cast<unsigned>(ctas), kXlThreads, kXlSmemRows, stream>>>(
-      qkv, g, mask, stats, dqkv, t, heads, nblk, scale);
+  mha_bwd_mma_xlong_rows<MASKED, TAIL><<<static_cast<unsigned>(ctas), kLongThreads, xl_smem_bytes(t, TAIL, true),
+                                         stream>>>(qkv, g, mask, classes, stats, dqkv, t, heads, npairs, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mha_bwd_mma_xlong_keys<MASKED><<<static_cast<unsigned>(ctas), kXlThreads, kXlSmemKeys, stream>>>(
-      qkv, g, mask, stats, dqkv, t, heads, nblk, scale);
+  mha_bwd_mma_xlong_keys<MASKED, TAIL><<<static_cast<unsigned>(ctas), kLongThreads, xl_smem_bytes(t, TAIL, false),
+                                         stream>>>(qkv, g, mask, classes, stats, dqkv, t, heads, npairs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1210,20 +1302,31 @@ int rlcf_mha_bwd_mma_long(const void* qkv, const void* g, const void* mask, void
               : launch_long<false, false>(x, cot, nullptr, nullptr, out, batch, t, heads, scale, s);
 }
 
-// bf16 only. mask may be null. 17 <= T <= 577 (the wrapper sends 258 <= T <= 577
-// here). stats: scratch of B * H * 3 * 64 * ceil(T / 64) floats, written by the
-// first launch and read by the second.
-int rlcf_mha_bwd_mma_xlong(const void* qkv, const void* g, const void* mask, void* stats, void* dqkv, int batch,
-                           int t, int heads, float scale, void* stream) {
-  if (bad_args(batch, t, heads, kMaxTFwd) || t <= kShortT || stats == nullptr) return kBadArgs;
+// bf16 only. 258 <= T <= 577. mask may be null; with a mask, tile_classes is scratch of ceil(T / 64)^2
+// bytes that a first small kernel fills. stats: scratch of B * H * 3 * 64 * ceil(T / 64) floats, written by
+// the first launch and read by the second.
+int rlcf_mha_bwd_mma_xlong(const void* qkv, const void* g, const void* mask, void* tile_classes, void* stats,
+                           void* dqkv, int batch, int t, int heads, float scale, void* stream) {
+  if (bad_args(batch, t, heads, kMaxTFwd) || t <= kMaxT || stats == nullptr ||
+      (mask != nullptr && tile_classes == nullptr)) {
+    return kBadArgs;
+  }
   const bf16* x = static_cast<const bf16*>(qkv);
   const bf16* cot = static_cast<const bf16*>(g);
   const float* m = static_cast<const float*>(mask);
+  unsigned char* classes = static_cast<unsigned char*>(tile_classes);
   float* st = static_cast<float*>(stats);
   bf16* out = static_cast<bf16*>(dqkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return m != nullptr ? launch_xlong<true>(x, cot, m, st, out, batch, t, heads, scale, s)
-                      : launch_xlong<false>(x, cot, nullptr, st, out, batch, t, heads, scale, s);
+  const bool tail = t % 64 >= 1 && t % 64 <= 16;
+  if (m != nullptr) {
+    const int nblk = (t + 63) / 64;
+    mask_tile_classes<<<nblk, 256, 0, s>>>(m, t, nblk, classes);
+    return tail ? launch_xlong<true, true>(x, cot, m, classes, st, out, batch, t, heads, scale, s)
+                : launch_xlong<true, false>(x, cot, m, classes, st, out, batch, t, heads, scale, s);
+  }
+  return tail ? launch_xlong<false, true>(x, cot, nullptr, nullptr, st, out, batch, t, heads, scale, s)
+              : launch_xlong<false, false>(x, cot, nullptr, nullptr, st, out, batch, t, heads, scale, s);
 }
 
 }  // extern "C"

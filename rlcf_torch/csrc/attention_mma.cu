@@ -52,25 +52,49 @@
 //     leaves as 16-byte pieces, 128 contiguous bytes a row.
 //
 // Longer sequences (258 <= T <= 577: ViT-L/14 at 336 px, T = 24 * 24 + 1, the
-// first tower of the reward ensemble): a warp's whole score rows no longer fit
-// in registers (37 blocks of 16 keys, 296 fp32 a thread), and an online softmax
-// would round the unnormalised P, another function. So two sweeps over the
-// keys per block of 128 query rows (`mha_fwd_mma_xlong`):
-//   * sweep 1 computes S chunk by chunk (64 keys a chunk, wgmma as above) and
-//     keeps only each row's running max and sum (the sum rescaled when the max
-//     grows); sweep 2 computes S again, forms P = 2^(v - max) / sum with the
-//     final max and sum, rounds it to bf16 and accumulates P.V in fp32. The
-//     function is the long kernel's; the second Q.K^T adds half again to the
-//     products;
-//   * a CTA is two warpgroups, 128 query rows, that share each chunk of K
-//     and V: half the traffic from L2 into shared memory of one warpgroup a
-//     CTA, which was slower at the ensemble's shape (PERF.md, PR 8);
-//   * K and V stream through a ring of three shared-memory slots fed by
-//     cp.async, each slot one chunk of K (sweep 1) or of K and V (sweep 2),
-//     two chunks in flight while one is multiplied: 65 KB a CTA, so that
-//     two CTAs share an SM whatever T is (one head's whole K and V at T = 577
-//     would take 144 KB and leave one CTA an SM);
-//   * the last chunk multiplies only the blocks of 16 keys it holds.
+// first tower of the reward ensemble and of zero-shot, encoder TTA of it; U1 at
+// T = 384 and 512): a warp's whole score rows would take 296 fp32 registers a
+// thread, and an online softmax would round the unnormalised P, another
+// function. What bounds it on this card: one exp2 a score (128 M at the
+// ensemble's B=24 H=16: ~35 us of the SMs' exp2 units) and two products (33
+// GFLOP: ~35 us of tensor cores), in steps that depend on each other with one
+// CTA of 8 warps an SM. Per block of 64 query rows (clock64 stamps, H100 80GB
+// HBM3 at 700 W, PERF.md §6): issuing Q.K^T ~1600 cycles (the warps stall
+// on the tensor cores' queue), the exp2 and sums ~4200 (the exp2 units' floor
+// is ~2400), the row statistics' exchange ~750, P.V ~1800, the output ~500.
+// The design (`mha_fwd_mma_xlong`):
+//   * one sweep over the keys: a CTA's two warpgroups take the same 64 query
+//     rows and each half the key blocks (19 + 19 at T = 577), so that a thread
+//     keeps its part of the score rows in registers (152 fp32; 254 registers).
+//     S = Q.K^T is issued 64 keys at a time, one commit group each, and each
+//     chunk's max, exp2 and sum start as soon as its products are in
+//     (e = 2^(v - m_c) against the thread's running max m_c at that chunk).
+//     The two warps that hold the same rows exchange their row max and sum in
+//     shared memory behind a named barrier of their own; P = e 2^(m_c - m) / l
+//     is normalised, then rounded to bf16, and P.V runs in two halves (the
+//     second half's P formed while the first half's products run). Two
+//     products and one exp2 a score, where two sweeps took three and two. The
+//     two partial P.V meet in shared memory, handed over from one warp to the
+//     other on a second named barrier, and are added in one order, o0 + o1: no
+//     atomics, repeats give the same bits. Tried and slower: three warpgroups
+//     of 13 blocks (168 registers a thread spilled), each chunk's products
+//     issued just before the chunk before it is worked on (the issue stalls in
+//     the exp2 work), the warpgroups issuing in turn (the exp2 units are
+//     shared: the wait adds, nothing overlaps);
+//   * a CTA loads the head's whole K and V once (156 KB at T = 577: one CTA an
+//     SM) by cp.async, each chunk of 64 keys of both warpgroups counted by its
+//     own mbarrier, so that the first products start on the first chunk, and
+//     takes several consecutive blocks of 64 query rows of the head (as many as
+//     make the fewest rounds of CTAs over the SMs: the whole head at B=24, two
+//     blocks at B=1), each block's Q loaded while the block before runs. Rows
+//     past T read row T - 1: finite values that get weight 0 (key columns >= T
+//     get -inf) or are not stored (query rows), so no tile row is written by a
+//     plain store that the tensor cores would have to be fenced against;
+//   * the ragged edge: T = 64 n + (1 to 16) (577 = 9 * 64 + 1) ends in a block
+//     of at most 16 query rows that a 64-row wgmma would pay for in full; the
+//     CTA's 8 warps take it on mma.sync, each a fifth of the key blocks with no
+//     branch between them, their rows' max and sum and their partial P.V summed
+//     in shared memory in the order of the warps (~4600 cycles, half a block).
 //
 // Short sequences (T <= 16, the text tower's prompts): per-CTA and per-launch
 // overhead, not arithmetic: a head's whole attention is one m16 tile, 8
@@ -300,187 +324,479 @@ mha_fwd_mma_short(const bf16* __restrict__ qkv, const float* __restrict__ mask, 
   store_tile(o, qs, out + static_cast<size_t>(b) * t * hd + h * kD, t, hd, lane);
 }
 
-// ---- the longer regime (258 <= T <= 577): two sweeps over chunks of 64 keys
+// ---- the longer regime (258 <= T <= 577): one sweep, the keys split between two warpgroups
 
-constexpr int kXlWarpgroups = 2;  // a CTA's warpgroups, 64 query rows each, sharing each K and V chunk
-constexpr int kXlMinBlocks = 2;   // CTAs an SM should hold
-constexpr int kXlThreads = 128 * kXlWarpgroups;
-constexpr int kXlRows = 64 * kXlWarpgroups;
-constexpr int kXlChunkBytes = 4 * kTileBytes;  // 64 key rows
-constexpr int kXlStages = 3;                     // ring slots, each a K chunk and a V chunk
-// Q, the ring, room to align to 1024 bytes
-constexpr int kXlSmem = (4 * kXlWarpgroups + 2 * kXlStages * 4) * kTileBytes + 1024;
+constexpr int kXlThreads = 256;      // two warpgroups on the same 64 query rows, each with its own key blocks
+constexpr int kXlWarps = 8;
+constexpr int kXlTailBlocks = 5;     // key blocks of 16 a warp takes in a tail block (8 warps, up to 40 blocks)
+constexpr int kXlPartStride = 72;    // floats a row of a warp's partial P.V rows (64, padded against bank conflicts)
+constexpr int kXlExchange = 8192;    // floats: four warps' partial rows, or eight 16 x 64 tail partials
+constexpr int kXlStats = 512;        // floats: two blocks' row max and sum, [block & 1][wg][max | sum][64 rows]
+constexpr int kXlBars = 8;           // mbarriers: up to 5 steps of K, V, two Q buffers
+constexpr int kXlVBar = 5, kXlQBar = 6;
 
-// S = Q.K^T for the chunk's KB blocks of 16 keys (one m64n64 product a depth
-// step for a whole chunk, else KB m64n16 ones), then v = s * scale * log2(e)
-// (+ mask * log2(e)); columns >= t get -inf. Rows ra = row0 + lane / 4 and
-// ra + 8, columns k0 + 16 kb + 8 nt + 2 (lane % 4) and the next.
-template <int KB>
-__device__ __forceinline__ void xl_scores(float (&s)[4][2][4], const uint32_t (&qa)[4][4], uint32_t kaddr,
-                                          const float* __restrict__ mask, int t, int ra, int k0, float c, int lane) {
+// K and V (2 KBW blocks of 16 rows each) | two Q buffers of 64 rows | the exchange | row statistics | the
+// mbarriers | room to align to 1024 bytes
+constexpr int xl_smem_bytes(int kbw) {
+  return 2 * (2 * kbw) * kTileBytes + 2 * 4 * kTileBytes + kXlExchange * 4 + kXlStats * 4 + kXlBars * 8 + 1024;
+}
+
+// until at most n (0..4) committed groups are in flight; n a constant once the caller's loop is unrolled
+__device__ __forceinline__ void wgmma_wait_upto(int n) {
+  switch (n) {
+    case 0: asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); break;
+    case 1: asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); break;
+    case 2: asm volatile("wgmma.wait_group.sync.aligned 2;\n" ::: "memory"); break;
+    case 3: asm volatile("wgmma.wait_group.sync.aligned 3;\n" ::: "memory"); break;
+    default: asm volatile("wgmma.wait_group.sync.aligned 4;\n" ::: "memory"); break;
+  }
+}
+
+// pins accumulators behind the wait above: the compiler may not move their use before it
+__device__ __forceinline__ void fence_regs(float* x, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Warp w of one warpgroup and warp w of the other, which hold the same 16 query rows, meet on named
+// barriers of their own: 1 + w where both wait (the rows' statistics), 5 + w where one hands its partial
+// P.V over and the other waits. Each barrier's uses alternate between the same two warps in one order.
+constexpr int kXlStatsBar = 1, kXlPartBar = 5;
+__device__ __forceinline__ void pair_sync(int id) { asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void pair_arrive(int id) { asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory"); }
+
+// S = Q.K^T for chunk `ch` of the warpgroup's key blocks (4 blocks of 16, or the last chunk's `nb`), once
+// its keys are in: one commit group
+template <int KBW>
+__device__ __forceinline__ void xl_issue(float (&s)[KBW][2][4], const uint32_t (&qa)[4][4], uint32_t kaddr,
+                                         uint32_t kbar, int ch, int nb) {
+  mbar_wait(kbar, 0);  // at once after the CTA's first block
+  fence_async_proxy();
   wgmma_fence();
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if constexpr (KB == 4) {
-      wgmma_n64<0>(&s[0][0][0], qa[k], wgmma_desc(kaddr + k * 32), k > 0);
+    if (nb == 4) {
+      wgmma_n64<0>(&s[4 * ch][0][0], qa[k], wgmma_desc(kaddr + 4 * ch * kTileBytes + k * 32), k > 0);
     } else {
 #pragma unroll
-      for (int kb = 0; kb < KB; ++kb) {
-        wgmma_n16(&s[kb][0][0], qa[k], wgmma_desc(kaddr + kb * kTileBytes + k * 32), k > 0);
+      for (int j = 0; j < nb; ++j) {
+        wgmma_n16(&s[4 * ch + j][0][0], qa[k], wgmma_desc(kaddr + (4 * ch + j) * kTileBytes + k * 32), k > 0);
       }
     }
   }
   wgmma_commit();
-  wgmma_wait();
-  const int rb = ra + 8;
+}
+
+// One block of 64 query rows (`qa`: this warp's 16 rows) against all keys: the warpgroup's KBW key blocks
+// from `kb0` (at `kaddr`, `vaddr`), its partial O = P.V left in `o` (for rows row0 + 16 w ..). S = Q.K^T is
+// issued chunk by chunk (64 keys, one commit group each) and each chunk's max, exp2 and sum start once its
+// products are in: e = 2^(v - m_c) with m_c the thread's running max at chunk c, and l = sum 2^(v - m) kept
+// online. After the two warps of the rows meet in `rst`, P = e 2^(m_c - m) / l: normalised, then rounded to
+// bf16.
+template <int KBW, bool MASKED>
+__device__ __forceinline__ void xl_rows(float (&o)[8][4], const uint32_t (&qa)[4][4], uint32_t kaddr, uint32_t vaddr,
+                                        uint32_t kbars, uint32_t vbar, const float* __restrict__ mask, float* rst,
+                                        int t, int nkb, int kb0, int row0, int wg, int w, float c, int lane) {
+  constexpr int NC = (KBW + 3) / 4;  // chunks of up to 4 blocks of 16 keys
+  float s[KBW][2][4];
+  constexpr int kLast = KBW - 4 * (NC - 1);
 #pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
+  for (int ch = 0; ch < NC; ++ch) xl_issue<KBW>(s, qa, kaddr, kbars + 8 * ch, ch, ch < NC - 1 ? 4 : kLast);
+  const int ra = row0 + w * 16 + (lane >> 2), rb = ra + 8;
+  float mrun[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mc[NC][2];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+  for (int ch = 0; ch < NC; ++ch) {
+    const int nb = ch < NC - 1 ? 4 : kLast;
+    wgmma_wait_upto(NC - 1 - ch);
+    fence_regs(&s[4 * ch][0][0], 8 * nb);
+    const int kbc = kb0 + 4 * ch;  // the chunk's first key block
+    // fast: no mask and no key column >= t in the chunk (uniform over the warpgroup)
+    const bool fast = !MASKED && 16 * (kbc + nb) <= t;
+    float cm[2] = {-INFINITY, -INFINITY};
+    if (fast) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + 16 * kb + 8 * nt + 2 * (lane & 3) + e;
-        float xa = 0.f, xb = 0.f;
-        if (mask != nullptr && col < t) {
-          if (ra < t) xa = __ldg(mask + static_cast<size_t>(ra) * t + col);
-          if (rb < t) xb = __ldg(mask + static_cast<size_t>(rb) * t + col);
+      for (int j = 0; j < nb; ++j) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          cm[0] = fmaxf(cm[0], fmaxf(s[4 * ch + j][nt][0], s[4 * ch + j][nt][1]));
+          cm[1] = fmaxf(cm[1], fmaxf(s[4 * ch + j][nt][2], s[4 * ch + j][nt][3]));
         }
-        s[kb][nt][e] = col < t ? fmaf(xa, kLog2e, s[kb][nt][e] * c) : -INFINITY;
-        s[kb][nt][2 + e] = col < t ? fmaf(xb, kLog2e, s[kb][nt][2 + e] * c) : -INFINITY;
+      }
+      cm[0] *= c;
+      cm[1] *= c;
+    } else {
+#pragma unroll
+      for (int j = 0; j < nb; ++j) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 16 * (kbc + j) + 8 * nt + 2 * (lane & 3) + e;
+            float xa = 0.f, xb = 0.f;
+            if (MASKED && col < t) {
+              if (ra < t) xa = __ldg(mask + static_cast<size_t>(ra) * t + col);
+              if (rb < t) xb = __ldg(mask + static_cast<size_t>(rb) * t + col);
+            }
+            float& va = s[4 * ch + j][nt][e];
+            float& vb = s[4 * ch + j][nt][2 + e];
+            va = col < t ? fmaf(xa, kLog2e, va * c) : -INFINITY;
+            vb = col < t ? fmaf(xb, kLog2e, vb * c) : -INFINITY;
+            cm[0] = fmaxf(cm[0], va);
+            cm[1] = fmaxf(cm[1], vb);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // every thread has a key < t in its first chunk, so m is finite from there on
+      const float nm = fmaxf(mrun[r], cm[r]);
+      l[r] *= fast_exp2(mrun[r] - nm);
+      mrun[r] = mc[ch][r] = nm;
+    }
+#pragma unroll
+    for (int j = 0; j < nb; ++j) {
+      if (kbc + j < nkb) {  // uniform: a block past the keys has e = 0
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = s[4 * ch + j][nt][e];
+            x = fast_exp2(fast ? fmaf(x, c, -mrun[e >> 1]) : x - mrun[e >> 1]);
+            l[e >> 1] += x;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) s[4 * ch + j][nt][0] = s[4 * ch + j][nt][1] = s[4 * ch + j][nt][2] =
+            s[4 * ch + j][nt][3] = 0.f;
       }
     }
   }
-}
 
-// Sweep 1: the rows' running max m and sum l (the thread's own columns; the
-// quad's four partial sums share one max).
-template <int KB>
-__device__ __forceinline__ void xl_stats(const float (&s)[4][2][4], float (&m)[2], float (&l)[2]) {
-  float cm[2] = {-INFINITY, -INFINITY};
+  // the rows' max and sum: the quad's threads, then the two warps of the rows through `rst`
+  // ([wg][max | sum][64 rows], this block's half)
+  const int la = w * 16 + (lane >> 2), lb = la + 8;
 #pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      cm[0] = fmaxf(cm[0], fmaxf(s[kb][nt][0], s[kb][nt][1]));
-      cm[1] = fmaxf(cm[1], fmaxf(s[kb][nt][2], s[kb][nt][3]));
-    }
+  for (int r = 0; r < 2; ++r) {
+    const float mq = quad_max(mrun[r]);
+    l[r] = quad_sum(l[r] * fast_exp2(mrun[r] - mq));
+    mrun[r] = mq;
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // key 0 is in chunk 0, so m is finite from there on
-    const float nm = fmaxf(m[r], quad_max(cm[r]));
-    l[r] *= fast_exp2(m[r] - nm);
-    m[r] = nm;
+  if ((lane & 3) == 0) {
+    rst[wg * 128 + la] = mrun[0];
+    rst[wg * 128 + 64 + la] = l[0];
+    rst[wg * 128 + lb] = mrun[1];
+    rst[wg * 128 + 64 + lb] = l[1];
   }
+  pair_sync(kXlStatsBar + w);
+  float f[NC][2];
 #pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? lb : la;
+    const float m0 = rst[row], l0 = rst[64 + row], m1 = rst[128 + row], l1 = rst[192 + row];
+    const float m = fmaxf(m0, m1);  // the same operations in both warpgroups: the same bits
+    const float inv = fast_rcp(fmaf(l1, fast_exp2(m1 - m), l0 * fast_exp2(m0 - m)));
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        l[0] += fast_exp2(s[kb][nt][e] - m[0]);
-        l[1] += fast_exp2(s[kb][nt][2 + e] - m[1]);
-      }
-    }
+    for (int ch = 0; ch < NC; ++ch) f[ch][r] = fast_exp2(mc[ch][r] - m) * inv;
   }
-}
 
-// Sweep 2: P = 2^(v - m) / l rounded to bf16 as the A operands of P.V, and
-// O += P.V over the chunk's KB blocks of keys.
-template <int KB>
-__device__ __forceinline__ void xl_pv(float (&o)[8][4], const float (&s)[4][2][4], const float (&m)[2],
-                                      const float (&il)[2], uint32_t vaddr) {
-  uint32_t p[4][4];
+  // P.V in two halves: the second half's P is formed while the first half's products run
+  uint32_t p[KBW][4];
+  mbar_wait(vbar, 0);
+  fence_async_proxy();
+  constexpr int kHalf = KBW / 2;
 #pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      p[kb][2 * nt] = pack_bf16(fast_exp2(s[kb][nt][0] - m[0]) * il[0], fast_exp2(s[kb][nt][1] - m[0]) * il[0]);
-      p[kb][2 * nt + 1] = pack_bf16(fast_exp2(s[kb][nt][2] - m[1]) * il[1], fast_exp2(s[kb][nt][3] - m[1]) * il[1]);
-    }
+  for (int kb = 0; kb < kHalf; ++kb) {
+    const float fa = f[kb / 4][0], fb = f[kb / 4][1];
+    p[kb][0] = pack_bf16(s[kb][0][0] * fa, s[kb][0][1] * fa);
+    p[kb][1] = pack_bf16(s[kb][0][2] * fb, s[kb][0][3] * fb);
+    p[kb][2] = pack_bf16(s[kb][1][0] * fa, s[kb][1][1] * fa);
+    p[kb][3] = pack_bf16(s[kb][1][2] * fb, s[kb][1][3] * fb);
   }
   wgmma_fence();
 #pragma unroll
-  for (int kb = 0; kb < KB; ++kb) wgmma_n64<1>(&o[0][0], p[kb], wgmma_desc(vaddr + kb * kTileBytes), 1);
+  for (int kb = 0; kb < kHalf; ++kb) wgmma_n64<1>(&o[0][0], p[kb], wgmma_desc(vaddr + kb * kTileBytes), kb > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kb = kHalf; kb < KBW; ++kb) {
+    const float fa = f[kb / 4][0], fb = f[kb / 4][1];
+    p[kb][0] = pack_bf16(s[kb][0][0] * fa, s[kb][0][1] * fa);
+    p[kb][1] = pack_bf16(s[kb][0][2] * fb, s[kb][0][3] * fb);
+    p[kb][2] = pack_bf16(s[kb][1][0] * fa, s[kb][1][1] * fa);
+    p[kb][3] = pack_bf16(s[kb][1][2] * fb, s[kb][1][3] * fb);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kb = kHalf; kb < KBW; ++kb) wgmma_n64<1>(&o[0][0], p[kb], wgmma_desc(vaddr + kb * kTileBytes), 1);
   wgmma_commit();
   wgmma_wait();
 }
 
-// CTA = kXlWarpgroups warpgroups = (sequence, head, block of kXlRows query
-// rows), a warp owns 16 of the rows; the warpgroups share the ring. Stage j of
-// the ring is K chunk j for j < nc (sweep 1) and K and V chunk j - nc after
-// (sweep 2); Q joins stage 0's cp.async group.
-__global__ void __launch_bounds__(kXlThreads, kXlMinBlocks)
-mha_fwd_mma_xlong(const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out, int t,
-                  int heads, int nqb, float scale) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.x / nqb, qrow0 = (blockIdx.x % nqb) * kXlRows;
-  const int b = bh / heads, h = bh % heads;
-  const int hd = heads * kD;
-  const size_t stride = 3 * static_cast<size_t>(hd);
-  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
-  unsigned char* qs = smem;
-  unsigned char* ring = qs + 4 * kXlWarpgroups * kTileBytes;
-  const int nc = (t + 63) / 64;
-
-  auto issue = [&](int j) {  // one cp.async group a stage, empty past the last
-    if (j < 2 * nc) {
-      unsigned char* slot = ring + (j % kXlStages) * 2 * kXlChunkBytes;
-      const int k0 = 64 * (j < nc ? j : j - nc);
-      stage_rows(slot, base + hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride, threadIdx.x, kXlThreads);
-      if (j >= nc) {
-        stage_rows(slot + kXlChunkBytes, base + 2 * hd + static_cast<size_t>(k0) * stride, 64, t - k0, stride,
-                   threadIdx.x, kXlThreads);
+// A block of at most 16 query rows (T = 64 n + 1 .. 16: at T = 577 one row), which a block of 64 on wgmma
+// would pay for in full: the CTA's 8 warps on mma.sync, warp W with the key blocks W, W + 8, .. (at most
+// 5; a block past the keys reads the last one and gives it weight 0, so that no branch separates the
+// blocks' products). Each warp's rows' max and sum meet in `rst` ([warp][max | sum][16]), its partial P.V
+// in `xch` (16 x 64 a warp); the partials are summed in the order of the warps.
+template <bool MASKED>
+__device__ __forceinline__ void xl_tail(const uint32_t (&qa)[4][4], uint32_t kaddr, uint32_t vaddr,
+                                        const float* __restrict__ mask, float* rst, float* xch, bf16* __restrict__ orow,
+                                        int t, int nkb, int row0, int hd, float c, int warp, int lane) {
+  const int la = lane >> 2, ra = row0 + la, rb = ra + 8;
+  float s[kXlTailBlocks][2][4];
+  __syncthreads();  // every warp is done with the whole blocks' statistics and partials
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kXlTailBlocks; ++j) {
+    const int kb = warp + kXlWarps * j;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) s[j][nt][0] = s[j][nt][1] = s[j][nt][2] = s[j][nt][3] = 0.f;
+    mma_scores(s[j], qa, kaddr + min(kb, nkb - 1) * kTileBytes, lane);
+  }
+#pragma unroll
+  for (int j = 0; j < kXlTailBlocks; ++j) {
+    const int kb = warp + kXlWarps * j;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 16 * kb + 8 * nt + 2 * (lane & 3) + e;
+        float xa = 0.f, xb = 0.f;
+        if (MASKED && col < t) {
+          if (ra < t) xa = __ldg(mask + static_cast<size_t>(ra) * t + col);
+          if (rb < t) xb = __ldg(mask + static_cast<size_t>(rb) * t + col);
+        }
+        s[j][nt][e] = col < t ? fmaf(xa, kLog2e, s[j][nt][e] * c) : -INFINITY;
+        s[j][nt][2 + e] = col < t ? fmaf(xb, kLog2e, s[j][nt][2 + e] * c) : -INFINITY;
+        m[0] = fmaxf(m[0], s[j][nt][e]);
+        m[1] = fmaxf(m[1], s[j][nt][2 + e]);
       }
     }
-    cp_async_commit();
-  };
-  stage_rows(qs, base + static_cast<size_t>(qrow0) * stride, kXlRows, t - qrow0, stride, threadIdx.x, kXlThreads);
-  issue(0);
-  issue(1);
+  }
+  float l[2] = {0.f, 0.f};
+  m[0] = quad_max(m[0]);  // finite: key block `warp` < 8 holds keys < t
+  m[1] = quad_max(m[1]);
+#pragma unroll
+  for (int j = 0; j < kXlTailBlocks; ++j) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += s[j][nt][e] = fast_exp2(s[j][nt][e] - m[e >> 1]);
+    }
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  if ((lane & 3) == 0) {
+    rst[warp * 32 + la] = m[0];
+    rst[warp * 32 + 16 + la] = l[0];
+    rst[warp * 32 + la + 8] = m[1];
+    rst[warp * 32 + 16 + la + 8] = l[1];
+  }
+  __syncthreads();
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = la + 8 * r;
+    float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int x = 0; x < kXlWarps; ++x) mx = fmaxf(mx, rst[x * 32 + row]);
+#pragma unroll
+    for (int x = 0; x < kXlWarps; ++x) sum = fmaf(rst[x * 32 + 16 + row], fast_exp2(rst[x * 32 + row] - mx), sum);
+    f[r] = fast_exp2(m[r] - mx) * fast_rcp(sum);
+  }
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kXlTailBlocks; ++j) {
+    const int kb = warp + kXlWarps * j;
+    uint32_t p[4];
+    p[0] = pack_bf16(s[j][0][0] * f[0], s[j][0][1] * f[0]);
+    p[1] = pack_bf16(s[j][0][2] * f[1], s[j][0][3] * f[1]);
+    p[2] = pack_bf16(s[j][1][0] * f[0], s[j][1][1] * f[0]);
+    p[3] = pack_bf16(s[j][1][2] * f[1], s[j][1][3] * f[1]);
+    mma_rows(o, p, vaddr + min(kb, nkb - 1) * kTileBytes, lane);
+  }
+  float* part = xch + warp * 1024;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    *reinterpret_cast<float2*>(part + la * 64 + 8 * nt + 2 * tq) = make_float2(o[nt][0], o[nt][1]);
+    *reinterpret_cast<float2*>(part + (la + 8) * 64 + 8 * nt + 2 * tq) = make_float2(o[nt][2], o[nt][3]);
+  }
+  __syncthreads();
+  const int tid = warp * 32 + lane, row = tid >> 4, col = (tid & 15) * 4;  // a thread 4 of the 16 x 64 outputs
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int x = 0; x < kXlWarps; ++x) {
+    const float4 v = *reinterpret_cast<const float4*>(xch + x * 1024 + row * 64 + col);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  if (row0 + row < t) {
+    *reinterpret_cast<uint2*>(orow + static_cast<size_t>(row) * hd + col) =
+        make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+  }
+}
 
-  const int row0 = qrow0 + warp * 16, ra = row0 + (lane >> 2);
+// CTA = (sequence, head, `per_cta` consecutive units), a unit a block of 64 query rows or the tail block of
+// at most 16; `units` per (sequence, head). The head's whole K and V are loaded once (cp.async, each chunk of
+// both warpgroups counted by its own mbarrier, V by one) and stay while the CTA's units run; each unit's Q is
+// loaded into one of two buffers while the unit before runs.
+template <int KBW, bool MASKED>
+__global__ void __launch_bounds__(kXlThreads, 1)
+mha_fwd_mma_xlong(const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out, int t,
+                  int heads, int units, int per_cta, int ctas_per_head, float scale) {
+  constexpr int NC = (KBW + 3) / 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2, w = warp & 3;
+  const int bh = blockIdx.x / ctas_per_head, u0 = (blockIdx.x % ctas_per_head) * per_cta;
+  const int u1 = min(u0 + per_cta, units);
+  const int b = bh / heads, h = bh % heads;
+  const int hd = heads * kD, nkb = (t + 15) / 16;
+  const bool tail = t % 64 >= 1 && t % 64 <= 16;
+  const int nwhole = units - (tail ? 1 : 0);
+  const size_t stride = 3 * static_cast<size_t>(hd);
+  const bf16* base = qkv + static_cast<size_t>(b) * t * stride + h * kD;
+
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + 2 * KBW * kTileBytes;
+  unsigned char* qbuf = vs + 2 * KBW * kTileBytes;
+  float* xch = reinterpret_cast<float*>(qbuf + 8 * kTileBytes);
+  float* rst = xch + kXlExchange;
+  const uint32_t bars = smem_u32(rst + kXlStats);
+  if (tid == 0) {
+    for (int i = 0; i < kXlBars; ++i) mbar_init(bars + 8 * i, kXlThreads);
+  }
+  __syncthreads();
+
+  // the first unit's Q, then K chunk by chunk for both warpgroups, then V; every thread arrives on every barrier
+  auto load_q_rows = [&](int u, int buf) {
+    copy_rows(qbuf + buf * 4 * kTileBytes, base + static_cast<size_t>(64 * u) * stride, 0, 64, t - 1 - 64 * u, stride,
+              tid, kXlThreads);
+    cp_async_arrive(bars + 8 * (kXlQBar + buf));
+  };
+  load_q_rows(u0, 0);
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch) {
+    const int r1 = 16 * min(4 * ch + 4, KBW);
+    copy_rows(ks, base + hd, 64 * ch, r1, t - 1, stride, tid, kXlThreads);  // the first warpgroup's keys
+    copy_rows(ks, base + hd, 16 * KBW + 64 * ch, 16 * KBW + r1, t - 1, stride, tid, kXlThreads);  // the second's
+    cp_async_arrive(bars + 8 * ch);
+  }
+  for (int ch = NC; ch < kXlVBar; ++ch) cp_async_arrive(bars + 8 * ch);  // steps this KBW does not have
+  copy_rows(vs, base + 2 * hd, 0, 32 * KBW, t - 1, stride, tid, kXlThreads);
+  cp_async_arrive(bars + 8 * kXlVBar);
+
   const float c = scale * kLog2e;
-  uint32_t qa[4][4];
-  float s[4][2][4];
-  float o[8][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, il[2];
-  for (int j = 0; j < 2 * nc; ++j) {
-    cp_async_wait<1>();
-    fence_async_proxy();
-    __syncthreads();  // stage j is in, and every warp is done with stage j - 1, whose slot stage j + 2 takes
-    issue(j + 2);
-    if (j == 0) load_q(qa, qs + warp * kTileBytes, lane);
-    const uint32_t slot = smem_u32(ring + (j % kXlStages) * 2 * kXlChunkBytes);
-    const int k0 = 64 * (j < nc ? j : j - nc);
-    const int nkb = min(4, (t - k0 + 15) / 16);  // blocks of 16 keys the chunk holds (uniform)
-    if (j == nc) {
-      il[0] = 1.f / quad_sum(l[0]);
-      il[1] = 1.f / quad_sum(l[1]);
-    }
-#define RLCF_XL_CHUNK(KB)                                       \
-  xl_scores<KB>(s, qa, slot, mask, t, ra, k0, c, lane);         \
-  if (j < nc) {                                                 \
-    xl_stats<KB>(s, m, l);                                      \
-  } else {                                                      \
-    xl_pv<KB>(o, s, m, il, slot + kXlChunkBytes);               \
-  }
-    if (nkb == 4) {
-      RLCF_XL_CHUNK(4)
-    } else if (nkb == 3) {
-      RLCF_XL_CHUNK(3)
-    } else if (nkb == 2) {
-      RLCF_XL_CHUNK(2)
+  const uint32_t kaddr = smem_u32(ks) + wg * KBW * kTileBytes, vaddr = smem_u32(vs) + wg * KBW * kTileBytes;
+  for (int i = 0; u0 + i < u1; ++i) {
+    const int u = u0 + i, buf = i & 1;
+    mbar_wait(bars + 8 * (kXlQBar + buf), (i >> 1) & 1);
+    uint32_t qa[4][4];  // the tail's 16 rows for every warp, else the warp's own 16
+    load_q(qa, qbuf + buf * 4 * kTileBytes + (u == nwhole ? 0 : w * kTileBytes), lane);
+    // the next block's Q into the other buffer: every thread has read it for the block before, since this
+    // block's Q completed only once every thread had issued it, after its own reading
+    if (u + 1 < u1) load_q_rows(u + 1, buf ^ 1);
+    bf16* orow = out + (static_cast<size_t>(b) * t + 64 * u) * hd + h * kD;
+    if (u == nwhole) {  // the tail block (uniform)
+      for (int ch = 0; ch <= kXlVBar; ++ch) mbar_wait(bars + 8 * ch, 0);
+      xl_tail<MASKED>(qa, smem_u32(ks), smem_u32(vs), mask, rst, xch, orow, t, nkb, 64 * u, hd, c, warp, lane);
     } else {
-      RLCF_XL_CHUNK(1)
+      float o[8][4];
+      xl_rows<KBW, MASKED>(o, qa, kaddr, vaddr, bars, bars + 8 * kXlVBar, mask,
+                           rst + (i & 1) * 256, t, nkb, wg * KBW, 64 * u, wg, w, c, lane);
+      // rows of warps 0 and 1 are finished by warpgroup 0, of warps 2 and 3 by warpgroup 1: the other
+      // warpgroup's warp of the same rows hands its partial over through `xch` (and does not wait);
+      // o0 + o1 either way, the same bits
+      float* part = xch + w * 16 * kXlPartStride;
+      const int g = lane >> 2, tq = lane & 3;
+      const bool give = (w >> 1) != wg;
+      if (give) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          *reinterpret_cast<float2*>(part + g * kXlPartStride + 8 * nt + 2 * tq) = make_float2(o[nt][0], o[nt][1]);
+          *reinterpret_cast<float2*>(part + (g + 8) * kXlPartStride + 8 * nt + 2 * tq) =
+              make_float2(o[nt][2], o[nt][3]);
+        }
+        pair_arrive(kXlPartBar + w);
+      } else {
+        pair_sync(kXlPartBar + w);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 x = *reinterpret_cast<const float2*>(part + g * kXlPartStride + 8 * nt + 2 * tq);
+          const float2 y = *reinterpret_cast<const float2*>(part + (g + 8) * kXlPartStride + 8 * nt + 2 * tq);
+          o[nt][0] += x.x;
+          o[nt][1] += x.y;
+          o[nt][2] += y.x;
+          o[nt][3] += y.y;
+        }
+        const int row0 = 64 * u + 16 * w;
+        store_tile(o, reinterpret_cast<unsigned char*>(part), orow + static_cast<size_t>(16 * w) * hd, t - row0,
+                   hd, lane);
+      }
     }
-#undef RLCF_XL_CHUNK
   }
-  if (row0 < t) {
-    store_tile(o, qs + warp * kTileBytes, out + (static_cast<size_t>(b) * t + row0) * hd + h * kD, t - row0, hd,
-               lane);
+}
+
+// units of 64 query rows a CTA takes: the fewest rounds of CTAs over the SMs, a round costing its CTAs'
+// units plus one for loading K and V
+int xl_units_per_cta(long long heads_total, int units) {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+                                                  cudaSuccess) {
+      n = 132;
+    }
+    return n;
+  }();
+  int best = 1;
+  long long best_cost = -1;
+  for (int g = 1; g <= units; ++g) {
+    const long long ctas = heads_total * ((units + g - 1) / g);
+    const long long cost = (ctas + sms - 1) / sms * (g + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
   }
+  return best;
+}
+
+template <int KBW, bool MASKED>
+int launch_xlong(const bf16* qkv, const float* mask, bf16* out, int batch, int t, int heads, float scale,
+                 cudaStream_t stream) {
+  constexpr int kSmem = xl_smem_bytes(KBW);
+  static const cudaError_t attr =  // once per kernel and process
+      cudaFuncSetAttribute(mha_fwd_mma_xlong<KBW, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int tail = t % 64 >= 1 && t % 64 <= 16 ? 1 : 0;
+  const int units = (tail ? t / 64 : (t + 63) / 64) + tail;
+  const long long bh = static_cast<long long>(batch) * heads;
+  const int per_cta = xl_units_per_cta(bh, units);
+  const int ctas_per_head = (units + per_cta - 1) / per_cta;
+  const long long ctas = bh * ctas_per_head;
+  if (ctas > 0x7fffffffLL) return kBadArgs;
+  mha_fwd_mma_xlong<KBW, MASKED><<<static_cast<unsigned>(ctas), kXlThreads, kSmem, stream>>>(
+      qkv, mask, out, t, heads, units, per_cta, ctas_per_head, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MASKED>
+int launch_xlong_for(const bf16* qkv, const float* mask, bf16* out, int batch, int t, int heads, float scale,
+                     cudaStream_t stream) {
+  // key blocks a warpgroup holds: 2 KBW >= ceil(T / 16), the second warpgroup's first block inside T
+  if (t <= 384) return launch_xlong<12, MASKED>(qkv, mask, out, batch, t, heads, scale, stream);
+  if (t <= 512) return launch_xlong<16, MASKED>(qkv, mask, out, batch, t, heads, scale, stream);
+  return launch_xlong<19, MASKED>(qkv, mask, out, batch, t, heads, scale, stream);
 }
 
 template <int KB, int MINB>
@@ -518,19 +834,16 @@ int rlcf_mha_fwd_mma_long(const void* qkv, const void* mask, void* out, int batc
   return launch_long<17, 2>(x, m, o, batch, t, heads, scale, s);
 }
 
-// bf16 only. mask may be null. 1 <= T <= 577 (the wrapper sends 258 <= T <= 577 here).
+// bf16 only. mask may be null. 258 <= T <= 577.
 int rlcf_mha_fwd_mma_xlong(const void* qkv, const void* mask, void* out, int batch, int t, int heads, float scale,
                            void* stream) {
-  if (bad_args(batch, t, heads, kMaxTFwd)) return kBadArgs;
-  static const cudaError_t attr =  // once per process
-      cudaFuncSetAttribute(mha_fwd_mma_xlong, cudaFuncAttributeMaxDynamicSharedMemorySize, kXlSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int nqb = (t + kXlRows - 1) / kXlRows;
-  const long long ctas = static_cast<long long>(batch) * heads * nqb;
-  if (ctas > 0x7fffffffLL) return kBadArgs;
-  mha_fwd_mma_xlong<<<static_cast<unsigned>(ctas), kXlThreads, kXlSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out), t, heads, nqb, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (bad_args(batch, t, heads, kMaxTFwd) || t <= kMaxT) return kBadArgs;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const float* m = static_cast<const float*>(mask);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return m != nullptr ? launch_xlong_for<true>(x, m, o, batch, t, heads, scale, s)
+                      : launch_xlong_for<false>(x, m, o, batch, t, heads, scale, s);
 }
 
 // bf16 only. mask may be null. 1 <= T <= 16.

@@ -108,6 +108,47 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const bf16* src, 
   }
 }
 
+// Rows [r0, r1) of a swizzled tile of 128-byte rows by cp.async from a
+// row-major global matrix (64 columns from `src`, row stride `stride`
+// elements), rows past `last` read as row `last`: the xlong kernels' padding
+// rows hold finite values that the kernels give weight 0 (key columns >= T)
+// or never store (query rows >= T), so no tile row is written by a plain
+// store that the tensor cores would have to be fenced against.
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src, int r0, int r1, int last,
+                                          size_t stride, int tid, int nthreads) {
+  for (int idx = r0 * 8 + tid; idx < r1 * 8; idx += nthreads) {
+    const int r = idx >> 3, c = idx & 7;
+    cp_async16(smem_u32(dst + tile_off(r, c)), src + static_cast<size_t>(min(r, last)) * stride + c * 8);
+  }
+}
+
+// ---- mbarriers that count cp.async copies: a thread's arrival lands when all
+// of its earlier copies have, so that a warp waits for the rows it needs and
+// not for a CTA-wide barrier
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
 // 16 rows of a tile as the A operands of a product over the 64 head
 // dimensions (4 steps of 16 dims).
 __device__ __forceinline__ void load_q(uint32_t (&qa)[4][4], const unsigned char* qs, int lane) {

@@ -22,13 +22,14 @@ directions (``forward_variant``, ``backward_variant``), not a fallback: one
 warp per head on ``mma.sync`` for ``T <= 16`` (``mma_short``,
 ``tf32x6_short``), several warps per head above (``mma_long``, ``tf32x3_long``).
 Both directions take ``T <= 577`` (ViT-L/14 at 336 px). Above T = 257 the
-bf16 forward is ``mma_xlong``, two sweeps over the keys (the row max and sum,
-then P rounded after it is normalised, and P.V); the fp32 forward
-``tf32x3_long`` streams the keys at any T. The backward above T = 257 is
-``mma_xlong`` / ``tf32x3_xlong``: two launches, one per block of query rows
-(the rows' statistics and dq) and one per block of keys (dk and dv), the
-other slices streamed through shared memory, the statistics passed between
-them in a device scratch.
+bf16 forward is ``mma_xlong``: one sweep over the keys, split between two
+warpgroups that keep their scores in registers (P normalised, then rounded,
+then P.V); the fp32 forward ``tf32x3_long`` streams the keys at any T. The
+backward above T = 257 is ``mma_xlong`` / ``tf32x3_xlong``: two launches, one
+per block of query rows (the rows' statistics and dq) and one per block of
+keys (dk and dv), the statistics passed between them in a device scratch; the
+other two slices are held whole in shared memory (bf16) or streamed through
+it (fp32).
 fp32 products run on the tensor cores with split operands: 3xTF32 above
 T = 16 (each operand split into two TF32 values, each product three passes),
 six products of a three-way split up to T = 16 (kernels bound by bytes, which
@@ -212,6 +213,7 @@ _VARIANTS = {"fwd": {torch.bfloat16: ("mma_short", "mma_long", "mma_xlong"),
              "bwd": {torch.bfloat16: ("mma_short", "mma_long", "mma_xlong"),
                      torch.float32: ("tf32x6_short", "tf32x3_long", "tf32x3_xlong")}}
 _XLONG_BWD = ("mma_xlong", "tf32x3_xlong")   # the backward kernels that take a statistics scratch
+_CLASSES_BWD = ("mma_long", "mma_xlong")      # the backward kernels that classify a mask's tiles into a scratch
 
 
 def _check_dtype(dtype):
@@ -290,12 +292,36 @@ def _bwd_lib(dtype):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for variant in _VARIANTS["bwd"][dtype]:
         fn = getattr(lib, f"rlcf_mha_bwd_{variant}")
-        # the bf16 long kernel takes a scratch for its classification of the mask's tiles, the
-        # xlong kernels one for the rows' statistics
-        extra = [vp] if variant == "mma_long" or variant in _XLONG_BWD else []
+        extra = [vp] * len(bwd_scratch(variant, 1, 1, 1, False))
         fn.argtypes = [vp, vp, vp, *extra, vp, ci, ci, ci, ctypes.c_float, vp]
         fn.restype = ci
     return lib
+
+
+def tile_classes_bytes(T: int) -> int:
+    """Bytes of the scratch in which the bf16 long and xlong backward kernels
+    classify a mask's 64 x 64 tiles (dead, plain, mixed): one a tile."""
+    return ((T + 63) // 64) ** 2
+
+
+def xlong_stats_floats(B: int, T: int, n_heads: int) -> int:
+    """Floats of the xlong backward's scratch: each row's max, 1 / sum and
+    rowsum(dp * P), 64 rows a block, written by its first launch for its second."""
+    return B * n_heads * 3 * ((T + 63) // 64 * 64)
+
+
+def bwd_scratch(variant: str, B: int, T: int, n_heads: int, masked: bool):
+    """The scratch a backward kernel takes after the mask, in the order of
+    its C arguments, as ``(dtype, elements)``, 0 elements for a null pointer:
+    the bf16 long and xlong kernels classify the mask's tiles (no mask: none),
+    the xlong kernels pass the rows' statistics from their first launch to
+    their second."""
+    sizes = []
+    if variant in _CLASSES_BWD:
+        sizes.append((torch.uint8, tile_classes_bytes(T) if masked else 0))
+    if variant in _XLONG_BWD:
+        sizes.append((torch.float32, xlong_stats_floats(B, T, n_heads)))
+    return sizes
 
 
 def _check_cuda_inputs(qkv, n_heads: int, mask, direction: str):
@@ -365,16 +391,9 @@ def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
     stream = ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream)
     args = (_ptr(qkv), _ptr(g), _ptr(mask), _ptr(dqkv), B, T, n_heads, float(scale))
     fn = getattr(_bwd_lib(qkv.dtype), f"rlcf_mha_bwd_{variant}")
-    if variant == "mma_long":
-        # scratch for the kernel's own classification of the mask's 64 x 64 tiles
-        classes = None if mask is None else torch.empty(((T + 63) // 64) ** 2, dtype=torch.uint8, device=qkv.device)
-        rc = fn(*args[:3], _ptr(classes), *args[3:], stream)
-    elif variant in _XLONG_BWD:
-        # the rows' statistics (max, 1 / sum, rowsum(dp * P)) from the first launch for the second
-        stats = torch.empty(B * n_heads * 3 * ((T + 63) // 64 * 64), dtype=torch.float32, device=qkv.device)
-        rc = fn(*args[:3], _ptr(stats), *args[3:], stream)
-    else:
-        rc = fn(*args, stream)
+    scratch = [torch.empty(n, dtype=dtype, device=qkv.device) if n else None
+               for dtype, n in bwd_scratch(variant, B, T, n_heads, mask is not None)]
+    rc = fn(*args[:3], *map(_ptr, scratch), *args[3:], stream)
     _raise_on(rc, f"backward ({variant})")
     LAUNCHES["bwd"] += 1
     LAUNCH_SHAPES[("bwd", B, T, n_heads, str(qkv.dtype))] += 1

@@ -27,7 +27,7 @@ SCALE = 0.125  # 1 / sqrt(64)
 @pytest.mark.parametrize("T", [258, 384, 577])
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma_xlong"), (torch.float32, "tf32x3_long")])
 def test_forward_variant_above_257(T, dtype, want):
-    """bf16: the two-sweep kernel; fp32: the streamed kernel, at any T."""
+    """bf16: the one-sweep kernel; fp32: the streamed kernel, at any T."""
     assert TA.forward_variant(T, dtype) == want
 
 

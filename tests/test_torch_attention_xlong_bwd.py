@@ -52,6 +52,28 @@ def test_launch_bwd_on_a_cpu_tensor_at_577_raises():
     assert TA.LAUNCHES == {"fwd": 0, "bwd": 0} and not TA.LAUNCH_VARIANTS
 
 
+@pytest.mark.parametrize("T,want", [(258, 25), (384, 36), (512, 64), (577, 100)])
+def test_tile_classes_scratch_is_a_byte_a_tile(T, want):
+    """The mask's 64 x 64 tiles that the bf16 xlong backward classifies (as
+    the long one does) before its two launches: ceil(T / 64)^2 bytes."""
+    assert TA.tile_classes_bytes(T) == want
+
+
+@pytest.mark.parametrize("variant,B,T,H,masked,want", [
+    ("mma_xlong", 6, 577, 16, True, [(torch.uint8, 100), (torch.float32, 6 * 16 * 3 * 640)]),
+    ("mma_xlong", 24, 512, 16, False, [(torch.uint8, 0), (torch.float32, 24 * 16 * 3 * 512)]),
+    ("tf32x3_xlong", 6, 577, 16, True, [(torch.float32, 6 * 16 * 3 * 640)]),
+    ("mma_long", 24, 257, 16, True, [(torch.uint8, 25)]),
+    ("mma_short", 800, 16, 8, True, []),
+])
+def test_backward_scratch_in_the_kernels_argument_order(variant, B, T, H, masked, want):
+    """The scratch each backward kernel takes behind the mask: the bf16
+    xlong kernel the tile classes (a null pointer without a mask), then the
+    statistics of 64 rows a block for every (sequence, head)."""
+    assert TA.bwd_scratch(variant, B, T, H, masked) == want
+    assert TA.xlong_stats_floats(B, T, H) == B * H * 3 * ((T + 63) // 64 * 64)
+
+
 def _inputs(T, seed=0):
     rng = np.random.default_rng(seed + T)
     return (rng.normal(size=(1, T, 3 * 64)).astype(np.float32), rng.normal(size=(1, T, 64)).astype(np.float32))

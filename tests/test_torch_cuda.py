@@ -74,7 +74,7 @@ XLONG_T = [258, 271, 272, 288, 320, 321, 384, 449, 512, 513, 576, 577]
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("T", XLONG_T)
 def test_forward_above_257(dev, T, masked, dtype):
-    """The forward at 258 <= T <= 577 (bf16: the two-sweep ``mma_xlong``;
+    """The forward at 258 <= T <= 577 (bf16: the one-sweep ``mma_xlong``;
     fp32: the streamed ``tf32x3_long``) against the plain version, and two
     launches bit for bit."""
     g = torch.Generator(device=dev).manual_seed(T * 10 + masked)
@@ -231,6 +231,60 @@ def test_xlong_backward_matches_plain(dev, T, mask_kind, dtype):
     assert dict(A.LAUNCH_VARIANTS) == {"bwd_" + ("mma_xlong" if dtype == torch.bfloat16 else "tf32x3_xlong"): 1}
     torch.testing.assert_close(got.float(), want, **_tol(dtype, bwd=True))
     assert torch.equal(got, A.launch_bwd(qkv, cot, mask, 16, 0.125))
+
+
+@pytest.mark.parametrize("B,T", [(3, 258), (24, 577), (64, 577)])
+def test_bf16_xlong_forward_bits_do_not_depend_on_the_batch(dev, B, T):
+    """The one-sweep forward adds its two warpgroups' partial P.V in one
+    fixed order and takes as many 64-row blocks a CTA as the batch makes
+    best: two launches give the same bits, and so does the first sequence
+    launched alone (another split of the blocks between CTAs)."""
+    g = torch.Generator(device=dev).manual_seed(T + B)
+    qkv = torch.randn(B, T, 3 * 16 * 64, device=dev, generator=g).to(torch.bfloat16)
+    A.reset_launch_counts()
+    got, again = A.launch_fwd(qkv, None, 16, 0.125), A.launch_fwd(qkv, None, 16, 0.125)
+    alone = A.launch_fwd(qkv[:1].contiguous(), None, 16, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"mma_xlong": 3} and A.LAUNCHES == {"fwd": 3, "bwd": 0}
+    assert torch.equal(got, again) and torch.equal(got[:1], alone)
+
+
+@pytest.mark.parametrize("mask_kind", [None, "causal", "dead_row", "block_diagonal"])
+@pytest.mark.parametrize("T", [513, 529, 576, 577])
+def test_bf16_xlong_forward_tail_block(dev, T, mask_kind):
+    """The forward's last block: a tail of at most 16 rows on the CTA's
+    warps (T = 513: one row, 529: 16, 577: one), a whole block (T = 576),
+    with and without masks, against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(T * 3)
+    qkv = torch.randn(2, T, 3 * 16 * 64, device=dev, generator=g).to(torch.bfloat16)
+    mask = None if mask_kind is None else causal_mask(T, dev) if mask_kind == "causal" else \
+        _general_mask(mask_kind, T, dev, g)
+    A.reset_launch_counts()
+    got = A.launch_fwd(qkv, mask, 16, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"mma_xlong": 1}
+    torch.testing.assert_close(got.float(), A.fused_attention_reference(qkv, mask, 16, 0.125).float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("mask_kind", ["causal", "dead_row", "block_diagonal", "block_diagonal_dead_row"])
+@pytest.mark.parametrize("T", [384, 512, 577])
+def test_bf16_xlong_backward_skips_dead_tiles(dev, T, mask_kind):
+    """Masks with 64 x 64 tiles at the floor everywhere, which both xlong
+    launches skip (causal: 36 of 64 tiles visited at T = 512), with fully
+    masked rows (their softmax is uniform: every tile of their block kept):
+    against the plain backward, two launches bit for bit, one launch."""
+    g = torch.Generator(device=dev).manual_seed(T * 5)
+    qkv = torch.randn(2, T, 3 * 16 * 64, device=dev, generator=g).to(torch.bfloat16)
+    cot = torch.randn(2, T, 16 * 64, device=dev, generator=g).to(torch.bfloat16)
+    mask = causal_mask(T, dev) if mask_kind == "causal" else _general_mask(mask_kind, T, dev, g)
+    A.reset_launch_counts()
+    got, again = A.launch_bwd(qkv, cot, mask, 16, 0.125), A.launch_bwd(qkv, cot, mask, 16, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"bwd_mma_xlong": 2} and A.LAUNCHES == {"fwd": 0, "bwd": 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), A.fused_attention_reference_bwd(qkv, cot, mask, 16, 0.125).float(),
+                               **_tol(torch.bfloat16, bwd=True))
 
 
 @pytest.mark.parametrize("H", [2, 12])
