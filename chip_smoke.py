@@ -47,6 +47,7 @@ Phases, each fatal:
      episode to the dense one in fp32 (REFERENCE); print the ENCODER line;
      then encoder TTA of a ViT-L/14@336px policy at 336 px (bf16 and fp32:
      the xlong attention backward; GRAD encoder 336, REFERENCE encoder 336,
+     the fp32 episode timed on views built beforehand with its device busy,
      the ENCODER336 line) and of an RN50 policy (bf16, without and with
      --prior_strength 0.5: the BN prior);
      then prompt TTA with the reference's 3-CLIP reward ensemble
@@ -927,14 +928,17 @@ def encoder_gradient_check(clf, views, label="encoder"):
     return {"grad_launch_rel_l2_max": max(per_launch), "grad_visual_rel_l2": rel, "grad_visual_noise_floor": floor}
 
 
-def encoder_timing_and_reference(out_dir, arch=POLICY, res=RES, label="encoder", by_remat=True):
+def encoder_timing_and_reference(out_dir, arch=POLICY, res=RES, label="encoder", by_remat=True, time_fp32=False):
     """Phase 4c: on one image's views built beforehand, the bf16 encoder
     episode's ms/img and its device busy share (torch.profiler), with
     ``by_remat`` the same for each --remat and the share of visual-tower
-    weights one bf16 episode changed, the GRAD check, and the fused-attention
-    episode held to the dense one in fp32 at full width (REFERENCE: selections
-    equal, logits and losses within 1e-3 x max(|logits|, 1) and 1e-3, the
-    flagship REFERENCE's tolerance)."""
+    weights one bf16 episode changed, the GRAD check, with ``time_fp32`` the
+    fp32 episode's ms/img and device busy (under ``fp32``), and the
+    fused-attention episode held to the dense one in fp32 at full width
+    (REFERENCE: selections equal, logits and losses within 1e-3 x
+    max(|logits|, 1) and 1e-3, the flagship REFERENCE's tolerance). Episodes
+    start from the momentum state's anchor, which the timed episodes do not
+    move (it re-anchors every 256 images)."""
     from rlcf_torch.cli import tune_cls
     from rlcf_torch.core import policy as Po
     from rlcf_torch.data.class_names import get_classnames
@@ -972,6 +976,8 @@ def encoder_timing_and_reference(out_dir, arch=POLICY, res=RES, label="encoder",
 
     clf, _, _ = tune_cls.build(tune_cls.get_args(encoder_argv(out_dir, precision="fp32", arch=arch, res=res)))
     clf.setup(names)
+    if time_fp32:
+        out["fp32"] = time_encoder_episode(clf, views, f"{label} episode (views pre-built, fp32)")
     fused_logits, fused_aux = clf.adapt(views)   # the momentum fold moves the EMA only: the next starts alike
     clf.attn = clf.reward_attn = "dense"
     clf.setup(names)
@@ -1241,9 +1247,14 @@ def main():
                               path="encoder 336 fp32")]
     for e in encoder336:
         log("ENCODER_PATH " + json.dumps(e))
-    enc336, e336 = encoder_timing_and_reference(out_dir, POLICY336, RES336, "encoder 336", by_remat=False), encoder336[0]
+    enc336 = encoder_timing_and_reference(out_dir, POLICY336, RES336, "encoder 336", by_remat=False, time_fp32=True)
+    e336 = encoder336[0]
     log("ENCODER336 " + json.dumps({
         "img_per_s": e336["img_per_s"], "fp32_seconds_first_image": encoder336[1]["group_seconds"][0],
+        "fp32_episode_ms_per_img": enc336["fp32"]["episode_ms_per_img"],
+        "fp32_device_busy_ms": enc336["fp32"]["profile_device_busy_ms"],
+        "fp32_idle_share": enc336["fp32"]["profile_idle_share"],
+        "fp32_kernels_per_episode": enc336["fp32"]["profile_kernels"],
         "episode_ms_per_img": enc336["episode_ms_per_img"], "device_busy_ms": enc336["profile_device_busy_ms"],
         "idle_share": enc336["profile_idle_share"], "kernels_per_episode": enc336["profile_kernels"],
         "peak_mem_gib": e336["peak_mem_gib"], "episode_peak_mem_gib": enc336["episode_peak_mem_gib"],

@@ -20,7 +20,9 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the models run; 'cuda' fails when there is no card")
     p.add_argument("--verify_checkpoint", type=int, default=1,
-                   help="accepted for script compatibility; the SHA256 digest gate is not ported yet")
+                   help="check --clip_checkpoint's SHA256 against the stock OpenAI releases first: the stock file "
+                   "of another arch is refused, an unknown digest loads with a note; 0 skips the check. Unlike "
+                   "the JAX package, which initializes randomly when the file does not exist, a missing file raises")
     p.add_argument("--download", type=int, default=0, help="not ported yet (refused when 1)")
 
 
@@ -81,11 +83,39 @@ def add_run_args(p: argparse.ArgumentParser):
                    help="validate the command line and exit before loading models or data")
 
 
+def refuse_fine_grained(args):
+    """Exit, before any class setup or model load, for a ``--test_sets`` id of
+    the fine-grained sets, whose loaders the port does not have yet."""
+    from ..data.datasets import FINE_GRAINED_IDS
+
+    for set_id in args.test_sets.split("/"):
+        if set_id in FINE_GRAINED_IDS:
+            raise SystemExit(f"rlcf_torch: --test_sets {set_id} is not ported yet; the fine-grained datasets come "
+                             "with ROADMAP A17 (the port runs synthetic and the ImageNet variants I, A, K, R, V, C)")
+
+
 def finish_dry_run(args) -> bool:
     if not getattr(args, "dry_run", False):
         return False
     print("DRY RUN OK: " + json.dumps({k: v for k, v in sorted(vars(args).items())}, default=str))
     return True
+
+
+def check_policy_digest(args):
+    """The JAX package's integrity gate (`rlcf_tpu/cli/common.py:132-149`):
+    a ``--clip_checkpoint`` that is the stock release of another arch raises,
+    an unknown digest (a fine-tuned or converted file) is noted and loads."""
+    from ..models.convert import CLIP_CHECKPOINT_SHA256, check_checkpoint_digest
+
+    if not getattr(args, "verify_checkpoint", 1) or args.arch not in CLIP_CHECKPOINT_SHA256:
+        return
+    status, detail = check_checkpoint_digest(args.clip_checkpoint, args.arch)
+    if status == "wrong-arch":
+        raise RuntimeError(f"{args.clip_checkpoint} is the stock OpenAI {detail} checkpoint, "
+                           f"not {args.arch}; pass the right file or --verify_checkpoint 0")
+    if status == "unknown":
+        print(f"NOTE: {args.clip_checkpoint} is not a stock OpenAI release (sha256 {detail[:12]}…); "
+              f"loading as a fine-tuned/converted {args.arch}", file=sys.stderr)
 
 
 def load_policy(args, device):
@@ -95,6 +125,7 @@ def load_policy(args, device):
 
     dtype = torch_dtype(args.precision)
     if args.clip_checkpoint:
+        check_policy_digest(args)
         return load_clip_checkpoint(args.clip_checkpoint, dtype=dtype, device=device)
     print(f"WARNING: no --clip_checkpoint; initializing {args.arch} randomly "
           "(throughput-realistic, accuracy-meaningless)", file=sys.stderr)

@@ -69,13 +69,14 @@ def refuse_unported(args):
         "--tp > 1": (args.tp > 1, "class-axis tensor parallelism (ROADMAP A14)"),
         "bongard": ("bongard" in args.test_sets.split("/"), "Bongard-HOI (ROADMAP A10)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
-        "--resume": (args.resume, "the progress journal"),
+        "--resume": (args.resume, "the progress journal (ROADMAP A15)"),
         "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),
         "--decode native": (args.decode == "native", "the native decoder binding (ROADMAP A15)"),
     }
     for flag, (used, item) in waits.items():
         if used:
             raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+    common.refuse_fine_grained(args)
 
 
 def build(args):

@@ -75,6 +75,7 @@ def refuse_unported(args):
     for flag, (used, item) in waits.items():
         if used:
             raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+    common.refuse_fine_grained(args)
 
 
 def build(args):

@@ -32,6 +32,7 @@ def main(argv=None):
                              ("--decode native", args.decode == "native", "the native decoder binding (ROADMAP A15)")):
         if used:
             raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+    common.refuse_fine_grained(args)
     if common.finish_dry_run(args):
         return None
     from ..data.class_names import get_classnames

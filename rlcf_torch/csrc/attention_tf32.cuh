@@ -40,10 +40,16 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return r;
 }
 
+// The same rounding by integer operations on the fp32 bits: cvt.rna.tf32.f32
+// issues at a quarter of the rate of an integer add, and a kernel that splits
+// every streamed chunk is bound by it (INT below).
+__device__ __forceinline__ uint32_t tf32_rna_int(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
 // x -> (hi, lo) as TF32 operands
+template <bool INT = false>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  hi = INT ? tf32_rna_int(x) : tf32_rna(x);
+  lo = INT ? tf32_rna_int(x - __uint_as_float(hi)) : tf32_rna(x - __uint_as_float(hi));
 }
 
 struct SplitA {
@@ -56,12 +62,13 @@ struct Split3A {
   uint32_t hi[4], mid[4], lo[4];
 };
 
+template <bool INT = false>
 __device__ __forceinline__ SplitA split_a(float a0, float a1, float a2, float a3) {
   SplitA s;
-  split(a0, s.hi[0], s.lo[0]);
-  split(a1, s.hi[1], s.lo[1]);
-  split(a2, s.hi[2], s.lo[2]);
-  split(a3, s.hi[3], s.lo[3]);
+  split<INT>(a0, s.hi[0], s.lo[0]);
+  split<INT>(a1, s.hi[1], s.lo[1]);
+  split<INT>(a2, s.hi[2], s.lo[2]);
+  split<INT>(a3, s.hi[3], s.lo[3]);
   return s;
 }
 
@@ -141,7 +148,8 @@ __device__ __forceinline__ Split3A lda_global(const float* __restrict__ rows, in
 
 // An accumulator tile (the columns of one 8-wide tile) as the A operand of a
 // product over those columns (depth order 2t, 2t + 1: see the header).
-__device__ __forceinline__ SplitA acc_as_a(const float (&c)[4]) { return split_a(c[0], c[2], c[1], c[3]); }
+template <bool INT = false>
+__device__ __forceinline__ SplitA acc_as_a(const float (&c)[4]) { return split_a<INT>(c[0], c[2], c[1], c[3]); }
 __device__ __forceinline__ Split3A acc_as_a3(const float (&c)[4]) { return split3_a(c[0], c[2], c[1], c[3]); }
 
 // The same two operands read from device memory (row stride `stride`) for a
@@ -251,46 +259,71 @@ __device__ __forceinline__ void load_rows_a(SplitA (&a)[8], const float* __restr
 constexpr int kSwHalf = 64 * kRowBytes;   // one tile: 64 rows of 128 bytes
 constexpr int kSwCopy = 2 * kSwHalf;      // a hi or a lo copy of a chunk
 
+template <bool INT = false>
 __device__ __forceinline__ void split4(const float (&x)[4], uint4& hi, uint4& lo) {
-  split(x[0], hi.x, lo.x);
-  split(x[1], hi.y, lo.y);
-  split(x[2], hi.z, lo.z);
-  split(x[3], hi.w, lo.w);
+  split<INT>(x[0], hi.x, lo.x);
+  split<INT>(x[1], hi.y, lo.y);
+  split<INT>(x[2], hi.z, lo.z);
+  split<INT>(x[3], hi.w, lo.w);
 }
 
-// 64 raw rows (kRow floats each) -> hi / lo copies in the rows layout
+// ROWS raw rows (kRow floats each) -> hi / lo copies in the rows layout (a
+// tile of ROWS rows of 128 bytes for each half of the head dimensions)
+template <int ROWS = 64, bool INT = false>
 __device__ __forceinline__ void split_sw_rows(unsigned char* hi, unsigned char* lo, const float* raw, int tid,
                                               int nthreads) {
-  for (int idx = tid; idx < 64 * 16; idx += nthreads) {
+  for (int idx = tid; idx < ROWS * 16; idx += nthreads) {
     const int r = idx >> 4, c = idx & 15;
     const float4 v = *reinterpret_cast<const float4*>(raw + r * kRow + 4 * c);
     const float x[4] = {v.x, v.y, v.z, v.w};
     uint4 h, l;
-    split4(x, h, l);
+    split4<INT>(x, h, l);
+    const int off = (c >> 3) * (ROWS * kRowBytes) + tile_off(r, c & 7);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// 64 rows of a row-major fp32 matrix in device memory (row stride `stride`;
+// rows >= n_valid read as 0) -> hi / lo copies in the rows layout, with no
+// staging: the operands a CTA keeps for its whole run
+__device__ __forceinline__ void split_sw_rows_global(unsigned char* hi, unsigned char* lo,
+                                                     const float* __restrict__ src, int n_valid, size_t stride,
+                                                     int tid, int nthreads) {
+  for (int idx = tid; idx < 64 * 16; idx += nthreads) {
+    const int r = idx >> 4, c = idx & 15;
+    const float4 v = r < n_valid ? __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * stride + 4 * c))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    uint4 h, l;
+    split4<true>(x, h, l);
     const int off = (c >> 3) * kSwHalf + tile_off(r, c & 7);
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
   }
 }
 
-// 64 raw rows -> hi / lo copies in the columns layout
+// ROWS raw rows -> hi / lo copies in the columns layout (ROWS / 32 tiles)
+template <int ROWS = 64, bool INT = false>
 __device__ __forceinline__ void split_sw_cols(unsigned char* hi, unsigned char* lo, const float* raw, int tid,
                                               int nthreads) {
-  for (int idx = tid; idx < 64 * 16; idx += nthreads) {
+  for (int idx = tid; idx < 64 * (ROWS / 4); idx += nthreads) {
     const int d = idx & 63, j = idx >> 6;  // 16-byte piece j of row d: positions 4 (j & 1) .. of row group j / 2
     const float* src = raw + (8 * (j >> 1) + (j & 1)) * kRow + d;
     const float x[4] = {src[0], src[2 * kRow], src[4 * kRow], src[6 * kRow]};
     uint4 h, l;
-    split4(x, h, l);
+    split4<INT>(x, h, l);
     const int off = (j >> 3) * kSwHalf + tile_off(d, j & 7);
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
   }
 }
 
-// Descriptor of depth step k (8 of the 64) of a split copy
-__device__ __forceinline__ uint64_t sw_desc(uint32_t copy, int k) {
-  return wgmma_desc(copy + (k >> 2) * kSwHalf + (k & 3) * 32);
+// Descriptor of depth step k (8 of the 64) of a split copy whose halves (32
+// depth positions each) are `half` bytes apart: a rows-layout copy of R rows
+// has R * 128, a columns-layout copy kSwHalf
+__device__ __forceinline__ uint64_t sw_desc(uint32_t copy, int k, int half = kSwHalf) {
+  return wgmma_desc(copy + (k >> 2) * half + (k & 3) * 32);
 }
 
 // d[64 x N] (+)= a[64 x 8] . b[8 x N], TF32 in, fp32 out, N = 16, 32 or 64; a
@@ -335,15 +368,74 @@ __device__ __forceinline__ void wgmma_tf32<16>(float* d, const uint32_t (&a)[4],
 // d = a . b over K depth steps of 8 in 3xTF32, N columns: every a_lo.b_hi and
 // a_hi.b_lo first, then the a_hi.b_hi, so that only the last K of the 3K
 // products are added to a sum of their own size (the tensor core's sums do
-// not round to nearest; their error is relative to the largest addend).
+// not round to nearest; their error is relative to the largest addend). With
+// `chain` the products add to d, else d starts at 0.
 template <int N, int K>
-__device__ __forceinline__ void wgmma3(float* d, const SplitA* a, uint32_t bhi, uint32_t blo) {
+__device__ __forceinline__ void wgmma3(float* d, const SplitA* a, uint32_t bhi, uint32_t blo, bool chain = false) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) wgmma_tf32<N>(d, a[k].lo, sw_desc(bhi, k), k > 0);
+  for (int k = 0; k < K; ++k) wgmma_tf32<N>(d, a[k].lo, sw_desc(bhi, k), chain || k > 0);
 #pragma unroll
   for (int k = 0; k < K; ++k) wgmma_tf32<N>(d, a[k].hi, sw_desc(blo, k), 1);
 #pragma unroll
   for (int k = 0; k < K; ++k) wgmma_tf32<N>(d, a[k].hi, sw_desc(bhi, k), 1);
+}
+
+// d[64 x N] (+)= a[64 x 8] . b[8 x N] with both operands read from split
+// copies in shared memory (a: 64 rows in the rows layout, K-major as b; TF32
+// takes no transpose), N = 32.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t adesc, uint64_t bdesc, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float* d, uint64_t adesc, uint64_t bdesc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : RLCF_ACC8(d, 0), RLCF_ACC8(d, 8)
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
+// An A operand in shared memory: a 64-row split copy pair in the rows layout
+// (halves kSwHalf apart), K-major as b.
+struct SmemA {
+  uint32_t hi, lo;
+};
+
+// One wgmma of depth step k with the hi (HI) or lo part of A, from registers
+// or from shared memory.
+template <int N, bool HI>
+__device__ __forceinline__ void wgmma_part(float* d, const SplitA* a, int k, uint64_t bdesc, int accumulate) {
+  wgmma_tf32<N>(d, HI ? a[k].hi : a[k].lo, bdesc, accumulate);
+}
+
+template <int N, bool HI>
+__device__ __forceinline__ void wgmma_part(float* d, SmemA a, int k, uint64_t bdesc, int accumulate) {
+  wgmma_tf32_ss<N>(d, sw_desc(HI ? a.hi : a.lo, k), bdesc, accumulate);
+}
+
+// Two independent 3xTF32 products over K depth steps, each in wgmma3's order,
+// their wgmma issued in turn. b's halves are `bhalf` bytes apart; with
+// `chain` the products add to d0 / d1, else they start at 0.
+template <int N, int K, typename A0, typename A1>
+__device__ __forceinline__ void wgmma3_pair(float* d0, A0 a0, uint32_t b0hi, uint32_t b0lo, float* d1, A1 a1,
+                                            uint32_t b1hi, uint32_t b1lo, int bhalf, bool chain = false) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    wgmma_part<N, false>(d0, a0, k, sw_desc(b0hi, k, bhalf), chain || k > 0);
+    wgmma_part<N, false>(d1, a1, k, sw_desc(b1hi, k, bhalf), chain || k > 0);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    wgmma_part<N, true>(d0, a0, k, sw_desc(b0lo, k, bhalf), 1);
+    wgmma_part<N, true>(d1, a1, k, sw_desc(b1lo, k, bhalf), 1);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    wgmma_part<N, true>(d0, a0, k, sw_desc(b0hi, k, bhalf), 1);
+    wgmma_part<N, true>(d1, a1, k, sw_desc(b1hi, k, bhalf), 1);
+  }
 }
 
 // A 16 x 64 accumulator block (8 tiles of 8 columns) times `factor` to rows

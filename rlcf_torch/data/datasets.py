@@ -28,6 +28,11 @@ ID_TO_DIRNAME = {
     "C": "imagenet-c",
 }
 
+# The fine-grained sets the JAX package also runs (`rlcf_tpu/data/datasets.py:27-57`); their class
+# names are here (assets/class_metadata.json), their loaders come with ROADMAP A17.
+FINE_GRAINED_IDS = ("flower102", "dtd", "pets", "cars", "ucf101", "caltech101", "food101", "sun397", "aircraft",
+                    "eurosat")
+
 
 class ImageFolderDataset:
     """Directory-per-class layout; classes sorted by name (torchvision order)."""

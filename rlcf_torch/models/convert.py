@@ -14,6 +14,9 @@ format (``models/layers.py``); from a JAX pytree they go HWIO -> OIHW.
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 from typing import Dict
 
 import numpy as np
@@ -152,3 +155,61 @@ def _convert_vit_visual(sd, cfg: ClipConfig, cast):
 def load_clip_checkpoint(path: str, dtype=torch.float32, device="cpu"):
     """Load an OpenAI CLIP .pt checkpoint (ViT or ResNet) into (params, config)."""
     return convert_clip_state_dict(load_torch_file(path), dtype=dtype, device=device)
+
+
+# SHA256 digests of the released OpenAI checkpoints (the JAX package's
+# constants, from the download URLs the reference verifies,
+# `TPT/clip/clip.py:30-70`).
+CLIP_CHECKPOINT_SHA256 = {
+    "RN50": "afeb0e10f9e5a86da6080e35cf09123aca3b358a0c3e3b6c78a7b63bc04b6762",
+    "RN101": "8fa8567bab74a42d41c5915025a8e4538c3bdbe8804a470a72f30b0d94fab599",
+    "RN50x4": "7e526bd135e493cef0776de27d5f42653e6b4c8bf9e0f653bb11773263205fdd",
+    "RN50x16": "52378b407f34354e150460fe41077663dd5b39c54cd0bfd2b27167a4a06ec9aa",
+    "RN50x64": "be1cfb55d75a9666199fb2206c106743da0f6468c9d327f3e0d0a543a9919d9c",
+    "ViT-B/32": "40d365715913c9da98579312b702a82c18be219cc2a73407c4526f58eba950af",
+    "ViT-B/16": "5806e77cd80f8b59890b7e101eabd078d9fb84e6937f9e85e4ecb61988df416f",
+    "ViT-L/14": "b8cca3fd41ae0c99ba7e8951adf17d267cdb84cd88be6f7c2e0eca1737a03836",
+    "ViT-L/14@336px": "3035c92b350959924f9f00213499208652fc7ea050643e8b385c2dac08641f02",
+}
+
+
+def _sha256_file(path: str) -> str:
+    """Chunked SHA256 of a checkpoint (100 MB to 1.7 GB: never read whole),
+    memoized in a ``<path>.sha256`` sidecar keyed by (size, mtime_ns): a
+    touched or replaced file misses the key and is hashed again; an
+    unwritable directory skips the cache."""
+    st = os.stat(path)
+    sidecar = path + ".sha256"
+    try:
+        with open(sidecar) as fh:
+            cached = json.load(fh)
+        if cached.get("size") == st.st_size and cached.get("mtime_ns") == st.st_mtime_ns:
+            return cached["sha256"]
+    except (OSError, ValueError, KeyError):
+        pass
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            h.update(chunk)
+    digest = h.hexdigest()
+    try:
+        with open(sidecar, "w") as fh:
+            json.dump({"size": st.st_size, "mtime_ns": st.st_mtime_ns, "sha256": digest}, fh)
+    except OSError:
+        pass
+    return digest
+
+
+def check_checkpoint_digest(path: str, arch: str):
+    """Classify a checkpoint file's SHA256 for ``arch``: ``("ok", digest)``
+    when it is ``arch``'s published digest, ``("wrong-arch", other)`` when it
+    is the stock release of another arch (loading it would build the wrong
+    tower under ``arch``'s name), ``("unknown", digest)`` otherwise (a
+    fine-tuned or converted file: no integrity claim can be made)."""
+    digest = _sha256_file(path)
+    if digest == CLIP_CHECKPOINT_SHA256.get(arch):
+        return "ok", digest
+    for other, d in CLIP_CHECKPOINT_SHA256.items():
+        if digest == d:
+            return "wrong-arch", other
+    return "unknown", digest

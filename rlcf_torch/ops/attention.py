@@ -29,7 +29,8 @@ backward above T = 257 is ``mma_xlong`` / ``tf32x3_xlong``: two launches, one
 per block of query rows (the rows' statistics and dq) and one per block of
 keys (dk and dv), the statistics passed between them in a device scratch; the
 other two slices are held whole in shared memory (bf16) or streamed through
-it (fp32).
+it in chunks of 32 rows, split once per CTA into TF32 hi / lo copies for
+``wgmma`` (fp32, ``tf32_xlong_smem_bytes``).
 fp32 products run on the tensor cores with split operands: 3xTF32 above
 T = 16 (each operand split into two TF32 values, each product three passes),
 six products of a three-way split up to T = 16 (kernels bound by bytes, which
@@ -295,6 +296,9 @@ def _bwd_lib(dtype):
         extra = [vp] * len(bwd_scratch(variant, 1, 1, 1, False))
         fn.argtypes = [vp, vp, vp, *extra, vp, ci, ci, ci, ctypes.c_float, vp]
         fn.restype = ci
+    if dtype == torch.float32:
+        lib.rlcf_mha_bwd_tf32x3_xlong_smem.argtypes = [ci]
+        lib.rlcf_mha_bwd_tf32x3_xlong_smem.restype = ci
     return lib
 
 
@@ -308,6 +312,28 @@ def xlong_stats_floats(B: int, T: int, n_heads: int) -> int:
     """Floats of the xlong backward's scratch: each row's max, 1 / sum and
     rowsum(dp * P), 64 rows a block, written by its first launch for its second."""
     return B * n_heads * 3 * ((T + 63) // 64 * 64)
+
+
+# the fp32 xlong backward's layout in shared memory (csrc/attention_bwd_tf32.cu, kXl*)
+TF32_XLONG_CHUNK = 32          # rows of a streamed chunk
+_TF32_SPLIT_COPY = 64 * 64 * 4  # a hi or lo copy of 64 rows of a head's slice
+SMEM_PER_CTA = 232_448         # the most dynamic shared memory a CTA can have on an H100
+
+
+def tf32_xlong_smem_bytes():
+    """Dynamic shared memory of the fp32 xlong backward's two launches,
+    ``(rows, keys)``: both warpgroups' own G (rows) or V (keys) split hi / lo
+    (A operands), two buffers of the streamed chunk's hi / lo copies (rows: K
+    and V in the rows layout and K turned over; keys: Q and G in both
+    layouts), two padded raw slices of the next chunk, the rows launch four
+    mbarriers, the keys launch every row's three statistics, and 1 KB to
+    align the copies."""
+    own = 2 * 2 * _TF32_SPLIT_COPY
+    copy = TF32_XLONG_CHUNK * HEAD_DIM * 4
+    raw = 2 * TF32_XLONG_CHUNK * (HEAD_DIM + 4) * 4
+    stats = 3 * ((MAX_T_BWD + 63) // 64 * 64) * 4
+    bars = 4 * 8
+    return own + 2 * 6 * copy + raw + bars + 1024, own + 2 * 8 * copy + raw + stats + 1024
 
 
 def bwd_scratch(variant: str, B: int, T: int, n_heads: int, masked: bool):

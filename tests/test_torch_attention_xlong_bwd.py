@@ -63,6 +63,7 @@ def test_tile_classes_scratch_is_a_byte_a_tile(T, want):
     ("mma_xlong", 6, 577, 16, True, [(torch.uint8, 100), (torch.float32, 6 * 16 * 3 * 640)]),
     ("mma_xlong", 24, 512, 16, False, [(torch.uint8, 0), (torch.float32, 24 * 16 * 3 * 512)]),
     ("tf32x3_xlong", 6, 577, 16, True, [(torch.float32, 6 * 16 * 3 * 640)]),
+    ("tf32x3_xlong", 24, 384, 16, False, [(torch.float32, 24 * 16 * 3 * 384)]),
     ("mma_long", 24, 257, 16, True, [(torch.uint8, 25)]),
     ("mma_short", 800, 16, 8, True, []),
 ])
@@ -72,6 +73,20 @@ def test_backward_scratch_in_the_kernels_argument_order(variant, B, T, H, masked
     statistics of 64 rows a block for every (sequence, head)."""
     assert TA.bwd_scratch(variant, B, T, H, masked) == want
     assert TA.xlong_stats_floats(B, T, H) == B * H * 3 * ((T + 63) // 64 * 64)
+
+
+def test_tf32_xlong_shared_memory_fits_a_cta():
+    """The fp32 xlong backward's two launches (each CTA 128 own rows, the
+    streamed slices in chunks of 32 rows, two buffers of split copies)
+    within the 232,448 bytes a CTA can have, at the sizes its source's head
+    note gives."""
+    rows, keys = TA.tf32_xlong_smem_bytes()
+    assert (rows, keys) == (182_304, 222_720) and TA.TF32_XLONG_CHUNK == 32
+    assert max(rows, keys) <= TA.SMEM_PER_CTA == 232_448
+    own = 2 * 64 * 64 * 4 * 2   # both warpgroups' G (rows) or V (keys), hi and lo
+    copy, raw = 32 * 64 * 4, 2 * 32 * 68 * 4   # a hi or lo copy of a chunk; the next chunk's two padded slices
+    assert rows == own + 2 * 6 * copy + raw + 4 * 8 + 1024   # K, V rows and K columns twice; mbarriers; alignment
+    assert keys == own + 2 * 8 * copy + raw + 3 * 640 * 4 + 1024   # Q, G rows and columns twice; statistics
 
 
 def _inputs(T, seed=0):
@@ -128,6 +143,19 @@ def test_tf32x3_backward_within_fp32_tolerance_above_257(T, masked):
     torch.testing.assert_close(TA.tf32_reference_bwd(qkv, g, mask, 2, SCALE, passes=3), want, **BWD_TOL)
     one = TA.tf32_reference_bwd(qkv, g, mask, 2, SCALE, passes=1)
     assert float(((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max()) > 1.0
+
+
+@pytest.mark.parametrize("kind", [None, "causal"])
+@pytest.mark.parametrize("T", [258, 384, 577])
+def test_tf32x3_emulation_matches_pallas_vjp_above_257(T, kind):
+    """``tf32x3_xlong``'s arithmetic emulated (every product in 3xTF32, the
+    statistics of each row in fp32) against the VJP of the JAX package's
+    Pallas kernel in interpret mode, one full-width head."""
+    qkv, cot = _inputs(T, seed=7)
+    mask = _mask(T, kind)
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = TA.tf32_reference_bwd(torch.from_numpy(qkv), torch.from_numpy(cot), tm, 1, SCALE, passes=3)
+    np.testing.assert_allclose(got.numpy(), _pallas_vjp(qkv, cot, mask), **BWD_TOL)
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -233,6 +233,48 @@ def test_xlong_backward_matches_plain(dev, T, mask_kind, dtype):
     assert torch.equal(got, A.launch_bwd(qkv, cot, mask, 16, 0.125))
 
 
+@pytest.mark.parametrize("B,T", [(3, 258), (6, 577), (24, 577)])
+def test_fp32_xlong_backward_bits_do_not_depend_on_the_batch(dev, B, T):
+    """``tf32x3_xlong`` sums dq over keys in its rows launch and dk, dv over
+    queries in its keys launch, each in one fixed order and without atomics:
+    two launches give the same bits, and so does the first sequence launched
+    alone, at the encoder-336 step's batch and the smoke script's B=24."""
+    g = torch.Generator(device=dev).manual_seed(T + B)
+    qkv = torch.randn(B, T, 3 * 16 * 64, device=dev, generator=g)
+    cot = torch.randn(B, T, 16 * 64, device=dev, generator=g)
+    A.reset_launch_counts()
+    got, again = A.launch_bwd(qkv, cot, None, 16, 0.125), A.launch_bwd(qkv, cot, None, 16, 0.125)
+    alone = A.launch_bwd(qkv[:1].contiguous(), cot[:1].contiguous(), None, 16, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"bwd_tf32x3_xlong": 3}
+    assert torch.equal(got, again) and torch.equal(got[:1], alone)
+    torch.testing.assert_close(got[:1], A.fused_attention_reference_bwd(qkv[:1], cot[:1], None, 16, 0.125),
+                               **_tol(torch.float32, bwd=True))
+
+
+@pytest.mark.parametrize("mask_kind", ["key_out", "block_diagonal", "block_diagonal_dead_row", "dead_tail"])
+def test_fp32_xlong_backward_masked_at_577(dev, mask_kind):
+    """General masks at T = 577 (a dead key, dead tiles, fully masked rows,
+    the keys past the last whole 64 masked) at the encoder-336 step's shape."""
+    g = torch.Generator(device=dev).manual_seed(577 * 7)
+    qkv = torch.randn(6, 577, 3 * 16 * 64, device=dev, generator=g)
+    cot = torch.randn(6, 577, 16 * 64, device=dev, generator=g)
+    mask = _general_mask(mask_kind, 577, dev, g)
+    got, again = A.launch_bwd(qkv, cot, mask, 16, 0.125), A.launch_bwd(qkv, cot, mask, 16, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, A.fused_attention_reference_bwd(qkv, cot, mask, 16, 0.125),
+                               **_tol(torch.float32, bwd=True))
+
+
+def test_fp32_xlong_shared_memory_is_the_sources(dev):
+    """The wrapper's sizing (``tf32_xlong_smem_bytes``) is what the source
+    launches with."""
+    lib = A._bwd_lib(torch.float32)
+    assert (lib.rlcf_mha_bwd_tf32x3_xlong_smem(0), lib.rlcf_mha_bwd_tf32x3_xlong_smem(1)) == \
+        A.tf32_xlong_smem_bytes()
+
+
 @pytest.mark.parametrize("B,T", [(3, 258), (24, 577), (64, 577)])
 def test_bf16_xlong_forward_bits_do_not_depend_on_the_batch(dev, B, T):
     """The one-sweep forward adds its two warpgroups' partial P.V in one

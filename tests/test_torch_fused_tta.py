@@ -148,3 +148,41 @@ def test_cli_refusals_name_what_the_port_runs(tmp_path, extra, items):
     assert "--viewgen fused" in msg or "--viewgen native" in msg
     assert all(f"ROADMAP {item}" in msg for item in items)
     assert "use --viewgen device" not in msg
+
+
+def test_cli_resume_refusal_names_its_item(tmp_path):
+    """``--resume`` waits for the progress journal, which A15 brings."""
+    from rlcf_torch.cli import tta_cls
+
+    with pytest.raises(SystemExit, match=r"--resume is not ported yet; .*\(ROADMAP A15\)"):
+        tta_cls.main(_cli_argv(tmp_path, "--resume"))
+
+
+def test_fine_grained_ids_are_the_jax_packages():
+    from rlcf_tpu.data.datasets import ID_TO_DIRNAME as JAX_IDS, JSON_SPLITS
+    from rlcf_torch.data.datasets import FINE_GRAINED_IDS, ID_TO_DIRNAME
+
+    assert set(FINE_GRAINED_IDS) == set(JSON_SPLITS) | {"aircraft"} == set(JAX_IDS) - set(ID_TO_DIRNAME)
+
+
+@pytest.mark.parametrize("cli", ["tta_cls", "tune_cls", "zero_shot"])
+@pytest.mark.parametrize("set_id", ["flower102", "dtd", "pets", "cars", "ucf101", "caltech101", "food101",
+                                    "sun397", "aircraft", "eurosat"])
+def test_cli_refuses_fine_grained_sets_naming_a17(tmp_path, monkeypatch, cli, set_id):
+    """A fine-grained ``--test_sets`` id, even behind an ImageNet variant, is
+    refused up front naming A17: before any class setup or model load (each
+    of which fails this test here)."""
+    import importlib
+
+    from rlcf_torch.cli import common
+    from rlcf_torch.data import class_names
+
+    def loaded(*args, **kw):
+        raise AssertionError("set up classes or loaded a model before refusing")
+
+    for mod, name in ((common, "load_policy"), (common, "build_reward"), (class_names, "get_classnames")):
+        monkeypatch.setattr(mod, name, loaded)
+    main = importlib.import_module(f"rlcf_torch.cli.{cli}").main
+    with pytest.raises(SystemExit) as exc:
+        main([".", "--device", "cpu", "--test_sets", f"A/{set_id}", "--output", str(tmp_path)])
+    assert f"--test_sets {set_id} is not ported yet" in str(exc.value) and "ROADMAP A17" in str(exc.value)
