@@ -18,8 +18,10 @@ Phases, each fatal:
      they could have would give (PRECISION); the forward at the reward
      ensemble's ViT-L/14@336px (B=24 T=577 H=16), at zero-shot's shapes and at
      encoder TTA of ViT-L/14@336px (B=64, 6, 1), the backward there (B=6 and
-     24, T=577, H=16: the xlong kernels); the ATTN_IMPL="flash" switch of
-     models/layers.py at T=128, 256 and 384, with the backward it takes, and
+     24, T=577, H=16: the xlong kernels); Stanford Cars' text at T = 24
+     (B=784 both ways, the policy's B=196 at setup) and Bongard-HOI's
+     shapes (vision B=56, text B=8 T=8 both ways); the ATTN_IMPL="flash"
+     switch of models/layers.py at T=128, 256 and 384, with the backward it takes, and
      differentiated at T=384 and 512 (causal), both directions timed there;
      the AugMix kernel at a flagship group (4 images x 64 views, 256 -> 224
      px) with augmix on and off, on a second seed, and op by op at the
@@ -58,8 +60,21 @@ Phases, each fatal:
      ViT-L/14@336px, counters set to 0 just before each and read just after;
      time host views and one ensemble group (device busy, idle share), and
      hold the fused-attention ensemble episode to the dense one in fp32
-     (REFERENCE ensemble); print the ENSEMBLE line;
-  5. print the kernels line, then the device line last.
+     (REFERENCE ensemble); print the ENSEMBLE line; then the rest of the
+     classification application: Stanford Cars as scripts/rlcf-prompt-fine.sh
+     runs it (a synthetic Zhou-split tree of 8 images and the 196 class
+     names; 5 steps at lr 7e-3, --viewgen fused: its prompts truncate to
+     T = 24, so the text tower's forward and backward run the long kernels),
+     CoCoOp as scripts/tpt-prompt.sh with --cocoop (1 step at lr 5e-3, views
+     built on the host, 8 images; REFERENCE cocoop holds its fp32
+     fused-attention episode to the dense one) and Bongard-HOI (a synthetic
+     tree of 8 tasks, the learnable class token, 4 tasks a group), counters
+     set to 0 just before each and read just after; each path's last group
+     profiled on its inputs built beforehand; the FINE, COCOOP and BONGARD
+     lines;
+  5. print the run's total seconds, the kernels line (phase 5 also holds
+     that Stanford Cars' text ran mma_long at T = 24 both ways on its path),
+     then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -132,6 +147,11 @@ AUGMIX_MIX_COST, AUGMIX_FINAL_COST = 2, 4
 # inputs, and the encoder's group of one image held to the same 0
 AUGMIX_UNEQUAL = {"flagship augmix on": 0, "flagship augmix on, seed 1": 0, "encoder group augmix on": 0}
 LARGE_RES = (336, 448)   # the AugMix kernel's layout with one plane on chip: ViT-L/14@336px's views, RN50x64's
+# the rest of the classification application: Stanford Cars as scripts/rlcf-prompt-fine.sh runs it (its prompts
+# truncate to T = 24: the text tower on the long kernels), CoCoOp as scripts/tpt-prompt.sh, Bongard-HOI's tasks
+FINE_SET, FINE_IMAGES, FINE_STEPS = "cars", 8, 5
+COCOOP_IMAGES, COCOOP_STEPS = 8, 1
+BONGARD_TASKS, BONGARD_SIZE = 8, (200, 260)
 
 
 def log(msg):
@@ -1134,6 +1154,255 @@ def ensemble_timing_and_reference(out_dir):
     return out
 
 
+def write_fine_grained_tree(root, set_id, labels, names=None, size=(40, 56), seed=0):
+    """A synthetic tree of the fine-grained set ``set_id`` under the data root
+    ``root``, in the layout its loader reads. For a Zhou-split set: the images
+    under the set's subdirectory and the split JSON ({split: [[path, label,
+    name], ...]}). For ``aircraft``: ``variants.txt`` (the names in file
+    order) and ``images_variant_{split}.txt`` over ``images/<id>.jpg``.
+    ``labels`` maps each split to its images' labels in listing order;
+    ``names`` are the class names (``class_<c>`` / ``variant-<c>`` without).
+    The images are random pixels of ``size``, PNG for odd labels and JPEG
+    for even ones (aircraft's all JPEG), drawn in listing order from
+    ``seed``. Returns ``root``."""
+    from PIL import Image
+
+    from rlcf_torch.data.datasets import ID_TO_DIRNAME, JSON_SPLITS
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(str(root), ID_TO_DIRNAME[set_id])
+    n_classes = 1 + max(max(ls, default=0) for ls in labels.values())
+
+    def image(rel):
+        os.makedirs(os.path.dirname(os.path.join(base, rel)), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, size=tuple(size) + (3,), dtype=np.uint8)).save(os.path.join(base, rel))
+
+    if set_id == "aircraft":
+        names = names or [f"variant-{c:03d}" for c in range(n_classes)]
+        os.makedirs(base, exist_ok=True)
+        with open(os.path.join(base, "variants.txt"), "w") as fh:
+            fh.write("\n".join(names) + "\n")
+        for s, (split, ls) in enumerate(labels.items()):
+            lines = []
+            for k, c in enumerate(ls):
+                img_id = f"{1000000 + 10000 * s + k}"
+                image(os.path.join("images", f"{img_id}.jpg"))
+                lines.append(f"{img_id} {names[c]}")
+            with open(os.path.join(base, f"images_variant_{split}.txt"), "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+        return str(root)
+    names = names or [f"class_{c:03d}" for c in range(n_classes)]
+    subdir, split_json = JSON_SPLITS[set_id]
+    split = {}
+    for name, ls in labels.items():
+        split[name] = []
+        for k, c in enumerate(ls):
+            rel = f"class_{c:03d}/{name}_{k}.{'png' if c % 2 else 'jpg'}"
+            image(os.path.join(subdir, rel))
+            split[name].append([rel, c, names[c]])
+    with open(os.path.join(base, split_json), "w") as fh:
+        json.dump(split, fh)
+    return str(root)
+
+
+def write_cars_tree(root, n_images):
+    """The smoke's Stanford Cars tree (``write_fine_grained_tree``): a test
+    split of ``n_images`` 240x360 images, labels spread over the 196 classes
+    and their names."""
+    from rlcf_torch.data.class_names import get_classnames
+
+    names = get_classnames(FINE_SET)
+    return write_fine_grained_tree(root, FINE_SET, {"train": [], "val": [],
+                                                    "test": [(37 * i) % len(names) for i in range(n_images)]},
+                                   names=names, size=(240, 360))
+
+
+def write_bongard_tree(root, n_tasks, size=(48, 56), swap_split=False, seed=0):
+    """A synthetic Bongard-HOI tree under ``root``: ``data/bongard_splits/
+    bongard_hoi_test_unseen_obj_unseen_act.json`` over 7 + 7 JPEGs of ``size``
+    a task (bright positives, dark negatives). With ``swap_split`` the list
+    names the first image of each task under ``pic/image/val`` while the file
+    lies under ``pic/image/train``: the loader's train/val swap finds it."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for t in range(n_tasks):
+        neg, pos = [], []
+        for i in range(7):
+            for polarity, items in (("neg", neg), ("pos", pos)):
+                folder = "pic/image/train" if swap_split and i == 0 else "imgs"
+                rel = f"{folder}/{polarity}_{t}_{i}.jpg"
+                mean = 40 if polarity == "neg" else 210
+                arr = np.clip(rng.normal(mean, 20, size=tuple(size) + (3,)), 0, 255).astype(np.uint8)
+                os.makedirs(os.path.join(str(root), folder), exist_ok=True)
+                Image.fromarray(arr).save(os.path.join(str(root), rel))
+                items.append({"im_path": "./" + rel.replace("pic/image/train", "pic/image/val")})
+        tasks.append([neg, pos, f"ride++horse_{t}"])
+    split_dir = os.path.join(str(root), "data", "bongard_splits")
+    os.makedirs(split_dir, exist_ok=True)
+    with open(os.path.join(split_dir, "bongard_hoi_test_unseen_obj_unseen_act.json"), "w") as fh:
+        json.dump(tasks, fh)
+    return str(root)
+
+
+def fine_argv(data_root, out_dir):
+    """``scripts/rlcf-prompt-fine.sh`` on Stanford Cars: ViT-B/16 policy,
+    ViT-L/14 reward, 5 steps at lr 7e-3, 64 views, selection 0.1, sample_k 3,
+    views built on the card, bf16, group 4."""
+    return [data_root, "--test_sets", FINE_SET, "--limit", str(FINE_IMAGES), "--arch", POLICY, "--reward_arch", REWARD,
+            "--resolution", str(RES), "--precision", "bf16", "--device", "cuda", "--viewgen", "fused", "--loss", "rlcf", "--batch_size",
+            str(VIEWS), "--selection_p", "0.1", "--sample_k", "3", "--tta_steps", str(FINE_STEPS), "--lr", "7e-3",
+            "--ctx_init", "a_photo_of_a", "--episode_group", str(GROUP), "--seed", "0", "--output", out_dir]
+
+
+def cocoop_argv(out_dir, precision="bf16"):
+    """``scripts/tpt-prompt.sh`` with ``--cocoop``: the ViT-B/16 policy, the
+    TPT loss, 1 step at lr 5e-3, 64 views built on the host (NHWC), selection
+    0.1, group 4, ImageNet-A's 200 class names on synthetic images."""
+    return [".", "--test_sets", "synthetic", "--synthetic_classes", "A", "--limit", str(COCOOP_IMAGES), "--arch",
+            POLICY, "--resolution", str(RES), "--precision", precision, "--device", "cuda", "--cocoop", "--loss", "tpt", "--viewgen", "native",
+            "--batch_size", str(VIEWS), "--selection_p", "0.1", "--tta_steps", str(COCOOP_STEPS), "--lr", "5e-3",
+            "--ctx_init", "a_photo_of_a", "--episode_group", str(GROUP), "--seed", "0", "--output", out_dir]
+
+
+def bongard_argv(data_root, out_dir):
+    """Bongard-HOI through ``tta_cls``: the ViT-B/16 policy at 224 px, the
+    learnable class token, four tasks a group, the CLI's other defaults
+    (random fp32 context, 1 step at lr 5e-3), bf16 towers."""
+    return [data_root, "--test_sets", "bongard", "--learned_cls", "1", "--resolution", str(RES), "--episode_group",
+            str(GROUP), "--limit", str(BONGARD_TASKS), "--arch", POLICY, "--precision", "bf16", "--device", "cuda",
+            "--seed", "0", "--output", out_dir]
+
+
+def run_tta_cls_path(path, argv, owner, attr, check):
+    """Phase 4e: one ``tta_cls`` path, ``owner.attr`` (the classifier's entry
+    point) wrapped to record each group's call and what it returns, the launch
+    counters set to 0 just before the run and read just after;
+    ``check(outputs, launches)`` raises where the outputs or the launches are
+    wrong. Items a second leave the first group out. Returns the path's
+    numbers and the last group's (classifier, arguments)."""
+    from rlcf_torch.cli import tta_cls
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.ops import augmix as X
+
+    seen, original = [], getattr(owner, attr)
+
+    def recording(self, *args):
+        out = original(self, *args)
+        seen.append((self, args, out))
+        return out
+
+    setattr(owner, attr, recording)
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()                 # counts start at 0 just before the path
+    X.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        (result,) = tta_cls.main(argv).values()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(owner, attr, original)
+    launches = {**A.LAUNCHES, **X.LAUNCHES}     # read just after
+    by_shape, variants = {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}, dict(A.LAUNCH_VARIANTS)
+    check([out for _, _, out in seen], launches)
+    secs = result["group_seconds"]
+    timed = secs[1:]
+    n_items = result["n"] if "n" in result else result["n_tasks"]
+    return {"path": path, "groups": len(secs), "items": n_items, "group_seconds": secs,
+            "items_per_s": GROUP * len(timed) / sum(timed) if timed else None, "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+            "launch_variants": variants, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
+            "launches_per_item_by_shape": {" ".join(map(str, k)): v / n_items for k, v in by_shape.items()},
+            "top1": result["top1"]}, seen[-1][:2]
+
+
+def expect_groups(path, n_groups, shapes, need):
+    """A ``check`` for ``run_tta_cls_path``: ``n_groups`` groups ran, each
+    output (the logits and an aux dict of losses) has the shapes ``shapes``
+    and is finite, and every counter of ``need`` is ``need``'s value or,
+    where that is None, above 0."""
+    def check(outputs, counts):
+        for logits, aux in outputs:
+            got = (tuple(logits.shape), tuple(aux["losses"].shape))
+            if got != shapes or not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(aux["losses"]).all()):
+                raise AssertionError(f"{path}: logits and losses {got}, not finite {shapes}")
+        wrong = {k: counts[k] for k, v in need.items() if (counts[k] == 0 if v is None else counts[k] != v)}
+        if len(outputs) != n_groups or wrong:
+            raise AssertionError(f"{path} did not go through the kernels: groups={len(outputs)} launches={counts}")
+    return check
+
+
+def classification_rest(out_dir):
+    """Phase 4e: the rest of the classification application at full width:
+    Stanford Cars (FINE), CoCoOp (COCOOP, with REFERENCE cocoop: the fp32
+    fused-attention episode held to the dense one on a group, selections
+    equal, logits and losses within 2e-4 + 2e-4 x |dense|) and Bongard-HOI
+    (BONGARD); each path's last group profiled again on its inputs built
+    beforehand (views, or preprocessed task images)."""
+    from rlcf_torch.cli import tta_cls
+    from rlcf_torch.data.class_names import get_classnames
+    from rlcf_torch.tasks.bongard import BongardTTA
+    from rlcf_torch.tasks.classification import CoCoOpTTAClassifier, PromptTTAClassifier
+
+    root = os.path.dirname(out_dir)
+    cars = write_cars_tree(os.path.join(root, "chip_smoke_cars"), FINE_IMAGES)
+    fine, (clf, toks) = run_tta_cls_path("fine cars", fine_argv(cars, out_dir), PromptTTAClassifier, "adapt_tokens",
+                                         expect_groups("fine cars", FINE_IMAGES // GROUP,
+                                                       ((GROUP, len(get_classnames(FINE_SET))), (GROUP, FINE_STEPS)),
+                                                       {"fwd": None, "bwd": None, "augmix": FINE_IMAGES // GROUP}))
+    fine.update(profile_episode(lambda: clf.adapt_tokens(*toks)[0].float().cpu(), "fine cars episode (views pre-built)"))
+    del clf, toks
+    log("FINE " + json.dumps({k: fine[k] for k in (
+        "items_per_s", "group_seconds", "wall_s", "peak_mem_gib", "profile_device_busy_ms", "profile_idle_share",
+        "profile_kernels", "launches_per_item_by_shape", "top1")}))
+
+    cocoop, (clf, (views,)) = run_tta_cls_path(
+        "cocoop", cocoop_argv(out_dir), CoCoOpTTAClassifier, "adapt",
+        expect_groups("cocoop", COCOOP_IMAGES // GROUP, ((GROUP, 200), (GROUP, COCOOP_STEPS)),
+                      {"fwd": None, "bwd": None, "augmix": 0}))
+    cocoop.update(profile_episode(lambda: clf.adapt(views)[0].float().cpu(), "cocoop episode (views pre-built, bf16)"))
+    del clf
+    torch.cuda.empty_cache()
+    clf, _, _ = tta_cls.build(tta_cls.get_args(cocoop_argv(out_dir, "fp32")))
+    clf.setup(get_classnames("A"))
+    fused_logits, fused_aux = clf.adapt(views)
+    clf.attn = "dense"
+    dense_logits, dense_aux = clf.adapt(views)
+    same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
+    share = max(float(((a - b).abs() / (2e-4 + 2e-4 * b.abs())).max())
+                for a, b in ((fused_logits, dense_logits), (fused_aux["losses"], dense_aux["losses"])))
+    log(f"REFERENCE cocoop fp32 full width, fused vs dense attention: selections equal={same_sel} "
+        f"max|d logits|={float((fused_logits - dense_logits).abs().max()):.3e} (of max "
+        f"{float(dense_logits.abs().max()):.3e}) max|d losses|="
+        f"{float((fused_aux['losses'] - dense_aux['losses']).abs().max()):.3e}; worst / (2e-4 + 2e-4 |dense|) "
+        f"{share:.3f}")
+    if not same_sel or share > 1:
+        raise AssertionError("fused-attention CoCoOp episode disagrees with the dense episode in fp32")
+    cocoop.update(fp32_selected_equal=same_sel, fp32_worst_share_of_tolerance=share)
+    del clf
+    torch.cuda.empty_cache()
+    log("COCOOP " + json.dumps({k: cocoop[k] for k in (
+        "items_per_s", "group_seconds", "wall_s", "peak_mem_gib", "profile_device_busy_ms", "profile_idle_share",
+        "profile_kernels", "launches_per_item_by_shape", "fp32_selected_equal", "fp32_worst_share_of_tolerance")}))
+
+    hoi = write_bongard_tree(os.path.join(root, "chip_smoke_bongard"), BONGARD_TASKS, size=BONGARD_SIZE)
+    bongard, (tta, (imgs, labels)) = run_tta_cls_path(
+        "bongard", bongard_argv(hoi, out_dir), BongardTTA, "adapt_tasks",
+        expect_groups("bongard", BONGARD_TASKS // GROUP, ((GROUP, 2, 2), (GROUP, 1)), {"fwd": None, "bwd": None}))
+    if imgs.dtype != np.float32:   # host-normalised float NHWC, not u8
+        raise AssertionError(f"Bongard task images reached the classifier as {imgs.dtype}, not float32")
+    bongard.update(profile_episode(lambda: tta.adapt_tasks(imgs, labels)[0].float().cpu(),
+                                   "bongard group of tasks (images preprocessed beforehand)"))
+    del tta
+    torch.cuda.empty_cache()
+    log("BONGARD " + json.dumps({"tasks_per_s": bongard["items_per_s"], **{k: bongard[k] for k in (
+        "group_seconds", "wall_s", "peak_mem_gib", "profile_device_busy_ms", "profile_idle_share", "profile_kernels",
+        "launches_per_item_by_shape", "top1")}, "launch_note": "launches per task; group seconds: a whole group, "
+        "the host's image decoding and preprocessing included"}))
+    return [fine, cocoop, bongard]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1143,12 +1412,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     import rlcf_torch  # noqa: F401  (fails outside a checkout of the repo)
     from rlcf_torch.data import native
     from rlcf_torch.data.class_names import get_classnames
     from rlcf_torch.ops import attention as A
     from rlcf_torch.ops import augmix as X
     from rlcf_torch.ops import cuda_build
+    from rlcf_torch.tokenizer import tokenize
 
     # phase 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1180,6 +1451,11 @@ def main():
     # reward views, 4 x 200 text prompts), plus the backward at the vision
     # towers' lengths (T=257, and T=197 as training the policy tower would run it)
     t_text = text_seq_len(get_classnames("A"))
+    # Stanford Cars' prompts (T = 24: the long kernels over 64-row tiles) for 4 images and at setup (the policy's
+    # text tower; the reward's class features take the dense attention, as in the JAX package); Bongard-HOI's
+    # group of 4 tasks (14 images each; two prompts "X X X X X." each, T = 8)
+    n_cars, t_cars = len(get_classnames(FINE_SET)), text_seq_len(get_classnames(FINE_SET))
+    t_bongard = -(-(int(tokenize(["X X X X X."]).argmax()) + 1) // 8) * 8
     # encoder TTA's (one image: 64 views to select from, 6 selected views
     # through the steps and the reward, view 0 for the prediction)
     n_sel = int(VIEWS * 0.1)
@@ -1200,7 +1476,13 @@ def main():
               # xlong backward at its steps' shape and at the ensemble's batch
               ("fwd", VIEWS, 577, 16, False, "encoder 336 select"), ("fwd", n_sel, 577, 16, False, "encoder 336 step"),
               ("fwd", 1, 577, 16, False, "encoder 336 final"), ("bwd", n_sel, 577, 16, False, "encoder 336 step"),
-              ("bwd", GROUP * n_sel, 577, 16, False, "T577")]
+              ("bwd", GROUP * n_sel, 577, 16, False, "T577"),
+              ("fwd", GROUP * n_cars, t_cars, 8, True, "cars text"), ("bwd", GROUP * n_cars, t_cars, 8, True,
+                                                                         "cars text"),
+              ("fwd", n_cars, t_cars, 8, True, "cars text-setup"),
+              ("fwd", 14 * GROUP, 197, 12, False, "bongard vision"),
+              ("fwd", 2 * GROUP, t_bongard, 8, True, "bongard text"),
+              ("bwd", 2 * GROUP, t_bongard, 8, True, "bongard text")]
     entries = []
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
@@ -1300,6 +1582,7 @@ def main():
                        "idle share and kernels over one group's episode on views built beforehand"}))
     reference = {"path": "ensemble reference fp32", "launches_by_shape": ens_ep["reference_launches_by_shape"]}
     paths += ensemble + [reference]
+    paths += classification_rest(out_dir)
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -1328,11 +1611,17 @@ def main():
     for dtype, path in ((torch.bfloat16, "ensemble"), (torch.float32, "ensemble reference fp32")):
         if not launched.get(key336[dtype], {}).get(path):
             raise AssertionError(f"the forward at T=577 ({dtype}) was launched no time on the path {path}")
+    # Stanford Cars' text tower at T = 24 on the long kernels, both directions, on its own path
+    for direction in ("fwd", "bwd"):
+        key = " ".join(map(str, (direction, GROUP * n_cars, t_cars, 8, str(torch.bfloat16))))
+        if t_cars != 24 or checked[key]["variant"] != "mma_long" or not launched.get(key, {}).get("fine cars"):
+            raise AssertionError(f"the text {direction} at T={t_cars} did not run mma_long on the path fine cars")
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:
         key = " ".join(map(str, e.pop("shape")))
         line.append(dict(e, launches=sum(launched.get(key, {}).values()), launches_by_path=launched.get(key, {})))
+    log(f"TOTAL chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

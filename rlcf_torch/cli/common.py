@@ -83,17 +83,6 @@ def add_run_args(p: argparse.ArgumentParser):
                    help="validate the command line and exit before loading models or data")
 
 
-def refuse_fine_grained(args):
-    """Exit, before any class setup or model load, for a ``--test_sets`` id of
-    the fine-grained sets, whose loaders the port does not have yet."""
-    from ..data.datasets import FINE_GRAINED_IDS
-
-    for set_id in args.test_sets.split("/"):
-        if set_id in FINE_GRAINED_IDS:
-            raise SystemExit(f"rlcf_torch: --test_sets {set_id} is not ported yet; the fine-grained datasets come "
-                             "with ROADMAP A17 (the port runs synthetic and the ImageNet variants I, A, K, R, V, C)")
-
-
 def finish_dry_run(args) -> bool:
     if not getattr(args, "dry_run", False):
         return False

@@ -75,7 +75,6 @@ def refuse_unported(args):
     for flag, (used, item) in waits.items():
         if used:
             raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
-    common.refuse_fine_grained(args)
 
 
 def build(args):
@@ -132,8 +131,8 @@ def main(argv=None):
         else:
             classnames = get_classnames(args.synthetic_classes)
         clf.setup(classnames)
-        dataset = build_dataset(set_id, args.data, corruption=args.corruption, level=args.level,
-                                n_classes=len(classnames))
+        dataset = build_dataset(set_id, args.data, mode=args.dataset_mode, corruption=args.corruption,
+                                level=args.level, n_classes=len(classnames))
         meter = AccuracyMeter()
         group_seconds = []
         group_imgs, group_labels = [], []

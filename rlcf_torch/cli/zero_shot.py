@@ -32,7 +32,6 @@ def main(argv=None):
                              ("--decode native", args.decode == "native", "the native decoder binding (ROADMAP A15)")):
         if used:
             raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
-    common.refuse_fine_grained(args)
     if common.finish_dry_run(args):
         return None
     from ..data.class_names import get_classnames
@@ -57,8 +56,8 @@ def main(argv=None):
             classnames = ["class_%d" % i for i in range(int(args.synthetic_classes))]
         else:
             classnames = get_classnames(args.synthetic_classes)
-        dataset = build_dataset(set_id, args.data, corruption=args.corruption, level=args.level,
-                                n_classes=len(classnames))
+        dataset = build_dataset(set_id, args.data, mode=args.dataset_mode, corruption=args.corruption,
+                                level=args.level, n_classes=len(classnames))
         results[set_id] = zero_shot_eval_ensemble(models, dataset, classnames, prompt_prefix=prefix,
                                                   batch_size=args.batch_size, resolution=args.resolution,
                                                   limit=args.limit, seed=args.seed)

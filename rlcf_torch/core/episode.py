@@ -99,9 +99,11 @@ def make_tta_episode(
       predict_batched: if True the final prediction covers every view;
         otherwise view 0 only (`tpt_cls_rl.py:260-262`).
 
-    Returns ``episode(trainable0, cache, views [N, B, ...]) -> (final_logits
-    [N, 1 or B, C], aux)``; every episode starts from the same ``trainable0``
-    (one episode's tensors, no episode axis) and a fresh AdamW state. ``aux``:
+    Returns ``episode(trainable0, cache, views [N, B, ...], per_episode=False)
+    -> (final_logits [N, 1 or B, C], aux)``; every episode starts from the
+    same ``trainable0`` (one episode's tensors, no episode axis) or, with
+    ``per_episode``, from its own (leaves ``[N, ...]``: CoCoOp's
+    instance-conditioned contexts), and a fresh AdamW state. ``aux``:
     ``losses [N, steps]``, ``selected [N, S]`` and, with ``return_adapted``,
     ``adapted`` (the N adapted tensors, detached).
 
@@ -114,12 +116,13 @@ def make_tta_episode(
     fwd(B) of masked backward whenever S < 2B/3: encoder TTA).
     """
 
-    def episode(trainable0, cache, views):
+    def episode(trainable0, cache, views, per_episode=False):
         N, B = views.shape[:2]
         n_keep = max(1, int(B * ecfg.selection_p))
         all_idx = torch.arange(B, device=views.device).expand(N, B)
         reuse = n_keep >= B if step0_reuse is None else step0_reuse
-        t = tree_map(lambda v: v.detach()[None].expand(N, *v.shape).clone().requires_grad_(True), trainable0)
+        start = (lambda v: v.detach()) if per_episode else (lambda v: v.detach()[None].expand(N, *v.shape))
+        t = tree_map(lambda v: start(v).clone().requires_grad_(True), trainable0)
         with torch.set_grad_enabled(reuse):
             logits_all = policy_logits(t, cache, all_idx)
         sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits_all.detach()), n_keep)  # [N, S]

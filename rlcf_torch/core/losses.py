@@ -27,6 +27,14 @@ def select_confident_entropy(ent, n_keep: int):
     return torch.sort(ent, dim=-1, stable=True).indices[..., :n_keep]
 
 
+def select_confident(logits, selection_p: float):
+    """Indices of the ``floor(B * selection_p)`` (at least 1) lowest-entropy
+    rows of ``logits [..., B, C]``; the floor is the reference's
+    ``int(batch_entropy.size()[0] * top)`` (`TPT/tpt_cls_rl.py:32-35`)."""
+    n_keep = max(1, int(logits.shape[-2] * selection_p))
+    return select_confident_entropy(entropy_per_sample(logits), n_keep)
+
+
 def top_k_indices(x, k: int):
     """Indices of the k largest along the last axis, ties by ascending index."""
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
@@ -63,6 +71,14 @@ def reinforce_loss(logits, sampled_idx, rewards):
     logp = F.log_softmax(logits.float(), dim=-1)
     ce = -torch.gather(logp, -1, sampled_idx)
     return (rewards.reshape(sampled_idx.shape) * ce).mean(dim=(-2, -1))
+
+
+def confidence_gap(predictions):
+    """Top-1 minus top-2 of each row of ``predictions [..., B, C]``, centred
+    on its mean over the rows (`TPT/clip_reward.py:63-73`) -> [..., B]."""
+    top2 = torch.topk(predictions, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    return gap - gap.mean(dim=-1, keepdim=True)
 
 
 # ---------------------------------------------------------------------------

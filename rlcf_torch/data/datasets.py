@@ -1,19 +1,23 @@
-"""Dataset loaders for the episode stream and zero-shot evaluation (the part
-of ``rlcf_tpu/data/datasets.py`` the classification CLIs need): ImageFolder
-layouts of ImageNet and its OOD variants, a synthetic set for runs without
-data, the canonical-image and the preprocessed-batch iterators and a
-background prefetcher.
+"""Dataset loaders for the episode stream and zero-shot evaluation (the
+counterpart of ``rlcf_tpu/data/datasets.py``): ImageFolder layouts of
+ImageNet and its OOD variants, the Zhou-split JSON and FGVC-Aircraft layouts
+of the ten fine-grained sets, Bongard-HOI tasks, a synthetic set for runs
+without data, the canonical-image and the preprocessed-batch iterators and a
+background prefetcher. ``build_dataset`` dispatches through the registry.
 
 Loaders expose ``__len__`` and ``__getitem__ -> (uint8 HWC image, label)``.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import random
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.registry import Registry
 from .transforms import center_crop, load_image, preprocess_pil, resize_short_side_pil
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff")
@@ -26,10 +30,32 @@ ID_TO_DIRNAME = {
     "R": "imagenet-r",
     "V": "imagenetv2-matched-frequency-format-val",
     "C": "imagenet-c",
+    "flower102": "oxford_flowers",
+    "dtd": "dtd",
+    "pets": "oxford_pets",
+    "cars": "stanford_cars",
+    "ucf101": "ucf101",
+    "caltech101": "caltech-101",
+    "food101": "food-101",
+    "sun397": "sun397",
+    "aircraft": "fgvc_aircraft",
+    "eurosat": "eurosat",
 }
 
-# The fine-grained sets the JAX package also runs (`rlcf_tpu/data/datasets.py:27-57`); their class
-# names are here (assets/class_metadata.json), their loaders come with ROADMAP A17.
+# Fine-grained: (image subdir, Zhou split json), `TPT/data/fewshot_datasets.py:51-70`.
+JSON_SPLITS = {
+    "flower102": ("jpg", "split_zhou_OxfordFlowers.json"),
+    "food101": ("images", "split_zhou_Food101.json"),
+    "dtd": ("images", "split_zhou_DescribableTextures.json"),
+    "pets": ("images", "split_zhou_OxfordPets.json"),
+    "sun397": ("SUN397", "split_zhou_SUN397.json"),
+    "caltech101": ("101_ObjectCategories", "split_zhou_Caltech101.json"),
+    "ucf101": ("UCF-101-midframes", "split_zhou_UCF101.json"),
+    "cars": ("cars_test", "split_zhou_StanfordCars.json"),
+    "eurosat": ("2750", "split_zhou_EuroSAT.json"),
+}
+
+# the ten fine-grained sets of `scripts/rlcf-prompt-fine.sh`
 FINE_GRAINED_IDS = ("flower102", "dtd", "pets", "cars", "ucf101", "caltech101", "food101", "sun397", "aircraft",
                     "eurosat")
 
@@ -55,6 +81,110 @@ class ImageFolderDataset:
         return load_image(path), label
 
 
+class JsonSplitDataset:
+    """Zhou-split JSON dataset: {"train"|"val"|"test": [[path, label, name], ...]}.
+    ``n_shot`` keeps that many samples of each class, drawn as the JAX
+    package draws them (``random.seed(0)`` then ``random.sample`` per class)
+    from a local ``random.Random(0)``, which leaves the global state alone."""
+
+    def __init__(self, image_root: str, json_path: str, mode: str = "test", n_shot: Optional[int] = None):
+        with open(json_path) as fh:
+            samples = json.load(fh)[mode]
+        self.image_root = image_root
+        self.samples = [(s[0], int(s[1])) for s in samples]
+        if n_shot is not None:
+            by_class = {}
+            for i, (_, label) in enumerate(self.samples):
+                by_class.setdefault(label, []).append(i)
+            keep = []
+            for label in sorted(by_class):
+                keep.extend(random.Random(0).sample(by_class[label], n_shot))
+            self.samples = [self.samples[i] for i in keep]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx) -> Tuple[np.ndarray, int]:
+        path, label = self.sample_ref(idx)
+        return load_image(path), label
+
+    def sample_ref(self, idx) -> Tuple[str, int]:
+        rel, label = self.samples[idx]
+        return os.path.join(self.image_root, rel), label
+
+
+class AircraftDataset:
+    """FGVC-Aircraft split from ``images_variant_{mode}.txt``
+    (`TPT/data/fewshot_datasets.py:87`); classes in ``variants.txt`` file
+    order, not sorted."""
+
+    def __init__(self, root: str, mode: str = "test"):
+        self.image_root = os.path.join(root, "images")
+        with open(os.path.join(root, "variants.txt")) as fh:
+            self.classes = [ln.strip() for ln in fh if ln.strip()]
+        index = {v: i for i, v in enumerate(self.classes)}
+        self.samples = []
+        with open(os.path.join(root, f"images_variant_{mode}.txt")) as fh:
+            for ln in fh:
+                ln = ln.strip()
+                if ln:
+                    img_id, variant = ln.split(" ", 1)
+                    self.samples.append((f"{img_id}.jpg", index[variant]))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx) -> Tuple[np.ndarray, int]:
+        path, label = self.sample_ref(idx)
+        return load_image(path), label
+
+    def sample_ref(self, idx) -> Tuple[str, int]:
+        rel, label = self.samples[idx]
+        return os.path.join(self.image_root, rel), label
+
+
+class BongardHOIDataset:
+    """Bongard-HOI few-shot tasks (`TPT/data/hoi_dataset.py:26-115`): each
+    item is a task, its positive and negative support images, one query of
+    each polarity and the text annotation, from
+    ``data/bongard_splits/bongard_hoi_{mode}_{split}.json`` (entries
+    ``[neg_samples, pos_samples, ..., annotation]``)."""
+
+    def __init__(self, data_root: str, split: str = "unseen_obj_unseen_act", mode: str = "test"):
+        self.data_root = data_root
+        path = os.path.join(data_root, "data", "bongard_splits", f"bongard_hoi_{mode}_{split}.json")
+        with open(path) as fh:
+            items = json.load(fh)
+        self.tasks = [{"neg_samples": [s["im_path"] for s in task[0]],
+                       "pos_samples": [s["im_path"] for s in task[1]],
+                       "annotation": task[-1].replace("++", " ")} for task in items]
+
+    def __len__(self):
+        return len(self.tasks)
+
+    def resolve(self, rel_path: str) -> str:
+        path = os.path.join(self.data_root, rel_path.replace("./", ""))
+        if not os.path.isfile(path):
+            # the published file lists occasionally point at the wrong split
+            swap = path.replace("/val", "/train") if "/pic/image/val" in path else path.replace("/train", "/val")
+            if os.path.isfile(swap):
+                return swap
+        return path
+
+    def __getitem__(self, idx):
+        task = self.tasks[idx]
+        # the reference shuffles each polarity with a fixed seed before the
+        # support/query split (`hoi_dataset.py:84-89`); a local Random(0)
+        # gives the same shuffle without touching the global state
+        rng = random.Random(0)
+        pos, neg = list(task["pos_samples"]), list(task["neg_samples"])
+        rng.shuffle(pos)
+        rng.shuffle(neg)
+        load = lambda rel: load_image(self.resolve(rel))
+        return {"pos_support": [load(p) for p in pos[:-1]], "neg_support": [load(p) for p in neg[:-1]],
+                "pos_query": load(pos[-1]), "neg_query": load(neg[-1]), "annotation": task["annotation"]}
+
+
 class SyntheticDataset:
     """Deterministic random images for tests/benches without real data (the
     same images and labels as ``rlcf_tpu``'s for the same arguments)."""
@@ -74,19 +204,44 @@ class SyntheticDataset:
         return img, int(rng.integers(0, self.n_classes))
 
 
-def build_dataset(set_id: str, data_root: str, corruption: str = "defocus_blur", level: str = "5",
-                  n_classes: int = 10):
-    """Resolve a dataset id to a loader (mirrors `TPT/data/datautils.py:42-72`
-    for the ImageNet variants; ``n_classes`` sizes the synthetic set's labels)."""
-    if set_id == "synthetic":
-        return SyntheticDataset(n_classes=n_classes)
-    if set_id == "I":
-        return ImageFolderDataset(os.path.join(data_root, ID_TO_DIRNAME["I"], "val"))
-    if set_id == "C":
-        return ImageFolderDataset(os.path.join(data_root, ID_TO_DIRNAME["C"], corruption, level))
-    if set_id in ID_TO_DIRNAME:
-        return ImageFolderDataset(os.path.join(data_root, ID_TO_DIRNAME[set_id]))
-    raise KeyError(f"unknown dataset id {set_id!r}; known: {['synthetic'] + sorted(ID_TO_DIRNAME)}")
+def _register_builders():
+    """Register every dataset id with :class:`Registry`; ``build_dataset``
+    dispatches through it, so other code can add a set without editing this
+    module: ``Registry.register("dataset", "my_set")(lambda root, **kw: MySet(root))``."""
+    if "synthetic" in Registry._stores.get("dataset", {}):  # module re-import
+        return
+    reg = lambda name: Registry.register("dataset", name)
+    reg("synthetic")(lambda root, n_classes=10, **kw: SyntheticDataset(n_classes=n_classes))
+    reg("I")(lambda root, **kw: ImageFolderDataset(os.path.join(root, ID_TO_DIRNAME["I"], "val")))
+    for sid in ("A", "K", "R", "V"):
+        reg(sid)(lambda root, _sid=sid, **kw: ImageFolderDataset(os.path.join(root, ID_TO_DIRNAME[_sid])))
+    reg("C")(lambda root, corruption="defocus_blur", level="5", **kw: ImageFolderDataset(
+        os.path.join(root, ID_TO_DIRNAME["C"], corruption, level)))
+    reg("aircraft")(lambda root, mode="test", **kw: AircraftDataset(os.path.join(root, ID_TO_DIRNAME["aircraft"]),
+                                                                    mode=mode))
+    for sid, (subdir, split_json) in JSON_SPLITS.items():
+        def _json_builder(root, mode="test", n_shot=None, _sid=sid, _sub=subdir, _json=split_json, **kw):
+            base = os.path.join(root, ID_TO_DIRNAME[_sid])
+            return JsonSplitDataset(os.path.join(base, _sub), os.path.join(base, _json), mode=mode, n_shot=n_shot)
+
+        reg(sid)(_json_builder)
+    reg("bongard_hoi")(lambda root, mode="test", split="unseen_obj_unseen_act", **kw: BongardHOIDataset(
+        root, split=split, mode=mode))
+
+
+_register_builders()
+
+
+def build_dataset(set_id: str, data_root: str, mode: str = "test", n_shot: Optional[int] = None,
+                  corruption: str = "defocus_blur", level: str = "5", n_classes: int = 10):
+    """Resolve a dataset id to a loader through the registry (mirrors
+    `TPT/data/datautils.py:42-72`); ``n_classes`` sizes the synthetic set's
+    labels."""
+    try:
+        builder = Registry.get("dataset", set_id)
+    except KeyError:
+        raise KeyError(f"unknown dataset id {set_id!r}; known: {Registry.list('dataset')}") from None
+    return builder(data_root, mode=mode, n_shot=n_shot, corruption=corruption, level=level, n_classes=n_classes)
 
 
 def _order(n: int, shuffle: bool, seed: int, limit: Optional[int]) -> np.ndarray:

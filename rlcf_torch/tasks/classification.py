@@ -1,8 +1,9 @@
 """Classification: zero-shot evaluation, single and ensembled, and
 test-time adaptation (RLCF / TPT / KD episodes): prompt TTA on patch-major u8
-views or NHWC views, and encoder TTA on NHWC views (the counterpart of
-``rlcf_tpu/tasks/classification.py``; CoCoOp, serving and the device mesh are
-not ported yet).
+views or NHWC views, encoder TTA on NHWC views, and CoCoOp's
+instance-conditioned prompt TTA on NHWC views (the counterpart of
+``rlcf_tpu/tasks/classification.py``; serving and the device mesh are not
+ported yet).
 
 Prompt TTA, per group of N test images: the frozen policy encodes all
 views of each image, the lowest-entropy views are selected against the
@@ -123,6 +124,18 @@ def zero_shot_eval_ensemble(models: List, dataset, classnames: Sequence[str], pr
     return meter.summary()
 
 
+def prompt_text_features(clip_params, clip_cfg, pt, ctx, attn: str = "dense", cls=None):
+    """Normalized class text features [N, C, E] of the prompt template ``pt``
+    (``core/prompt.py::PromptState``) for contexts [N, n_ctx, D] (and, where
+    ``pt`` has a learnable class token, class tokens ``cls`` [N, C, D]): the
+    text tower sees all N * C prompts at once."""
+    prompts = P.splice_arrays(ctx, pt.fixed_embed, pt.ctx_map, cls, pt.cls_mask if cls is not None else None)
+    N, C, T, D = prompts.shape
+    feats = clip_model.encode_text_embeds(clip_params, clip_cfg, prompts.reshape(N * C, T, D), pt.eot_idx.repeat(N),
+                                          attn=attn)
+    return clip_model.normalize(feats.float()).reshape(N, C, -1)
+
+
 def is_ensemble(reward) -> bool:
     return hasattr(reward, "members")
 
@@ -175,13 +188,7 @@ class PromptTTAClassifier:
 
     def text_features(self, ctx):
         """Normalized class text features [N, C, E] for contexts [N, n_ctx, D]."""
-        pt = self.prompt_state
-        prompts = P.splice_arrays(ctx, pt.fixed_embed, pt.ctx_map)  # [N, C, T, D]
-        N, C, T, D = prompts.shape
-        feats = clip_model.encode_text_embeds(
-            self.clip_params, self.clip_cfg, prompts.reshape(N * C, T, D), pt.eot_idx.repeat(N), attn=self.attn,
-        )
-        return clip_model.normalize(feats.float()).reshape(N, C, -1)
+        return prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.attn)
 
     @torch.no_grad()
     def prepare_tokens(self, ptoks, rtoks=None):
@@ -459,4 +466,106 @@ class EncoderTTAClassifier:
             self.momentum_state = Po.momentum_update_batch(self.momentum_state, adapted, **self.momentum_cfg)
         if return_adapted:
             aux["adapted"] = adapted
+        return logits[:, 0], aux
+
+
+# ---------------------------------------------------------------------------
+# CoCoOp: image-conditioned prompt TTA (`TPT/clip/cocoop.py`, `tpt_cls.py`)
+# ---------------------------------------------------------------------------
+
+
+def init_meta_net(embed_dim: int, ctx_dim: int, device="cpu"):
+    """CoCoOp's meta-net, Linear(E, E // 16) -> ReLU -> Linear(E // 16, D)
+    (`cocoop.py:53-57`), fp32 weights ``[in, out]`` of std in ** -0.5 and
+    zero biases, drawn on the CPU from a torch generator seeded 0 (the same
+    weights on every device). These are not the JAX package's draws, which a
+    torch generator cannot make: to hold the two packages to each other,
+    carry JAX's weights across."""
+    g = torch.Generator().manual_seed(0)
+    hidden = embed_dim // 16
+    w1 = torch.randn(embed_dim, hidden, generator=g) * embed_dim ** -0.5
+    w2 = torch.randn(hidden, ctx_dim, generator=g) * hidden ** -0.5
+    return {"w1": w1.to(device), "b1": torch.zeros(hidden, device=device),
+            "w2": w2.to(device), "b2": torch.zeros(ctx_dim, device=device)}
+
+
+def meta_net_forward(params, im_features):
+    h = torch.relu(im_features @ params["w1"] + params["b1"])
+    return h @ params["w2"] + params["b2"]
+
+
+def convert_cocoop_checkpoint(sd):
+    """A torch CoCoOp state dict -> (ctx [n_ctx, D], meta-net params), fp32.
+    Keys with or without a ``prompt_generator.`` / ``prompt_learner.`` prefix
+    (`load_model_weight`, `TPT/utils/tools.py:101-131`): the first key that
+    ends with each name."""
+
+    def find(suffix):
+        for k, v in sd.items():
+            if k.endswith(suffix):
+                return torch.as_tensor(v).float()
+        raise KeyError(suffix)
+
+    meta = {"w1": find("meta_net.linear1.weight").T.contiguous(), "b1": find("meta_net.linear1.bias"),
+            "w2": find("meta_net.linear2.weight").T.contiguous(), "b2": find("meta_net.linear2.bias")}
+    return find("ctx"), meta
+
+
+class CoCoOpTTAClassifier:
+    """TPT-style TTA over a CoCoOp instance-conditioned context
+    (``rlcf_tpu/tasks/classification.py::CoCoOpTTAClassifier``).
+
+    Per image: the frozen policy encodes its views, the frozen meta-net turns
+    view 0's features into a bias, and ``ctx + bias`` (`cocoop.py:173-182`)
+    is the episode's starting context, which ``tta_steps`` entropy steps tune
+    (`tpt_cls.py:50-53,100-114`); the prediction takes the adapted context.
+    The N images of a group run as N episodes on one batch axis, each from
+    its own context, so the text tower sees N * C prompts every step. The
+    selection forward's graph serves step 0 (``step0_reuse``): the text tower
+    costs the same whichever views are selected.
+    """
+
+    def __init__(self, clip_params, clip_cfg, ecfg, ctx_init="a photo of a", n_ctx=4, ctx0=None, meta_net=None):
+        self.clip_params = clip_params
+        self.clip_cfg = clip_cfg
+        self.ecfg = ecfg
+        self.ctx_init = ctx_init
+        self.n_ctx = n_ctx
+        self.device = clip_params["logit_scale"].device
+        self.attn = clip_model.best_attn(clip_cfg, self.device)
+        self.meta_net = ({k: torch.as_tensor(v).to(self.device) for k, v in meta_net.items()} if meta_net else
+                         init_meta_net(clip_cfg.embed_dim, clip_cfg.text_width, self.device))
+        self.ctx0_override = ctx0
+        self.prompt_state = None
+        self._episode = make_tta_episode(self.policy_logits, self.reward_image_sim, None, ecfg, step0_reuse=True)
+
+    def setup(self, classnames: Sequence[str]):
+        ctx0 = None if self.ctx0_override is None else torch.as_tensor(self.ctx0_override).to(self.device)
+        self.prompt_state = P.build_prompt_state(self.clip_params, classnames, ctx_init=self.ctx_init,
+                                                 n_ctx=self.n_ctx, ctx0=ctx0)
+        return self
+
+    def policy_logits(self, ctx, cache, idx):
+        """Logits [N, k, C] of the views ``idx [N, k]`` under per-episode contexts ``ctx [N, n_ctx, D]``."""
+        tf = prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.attn)
+        feats = take_rows(cache["img_feats"], idx)
+        return self.clip_params["logit_scale"].exp().float() * torch.einsum("nke,nce->nkc", feats, tf)
+
+    def reward_image_sim(self, views):
+        """The TPT loss takes no reward: zeros [N, S, C]."""
+        return torch.zeros(views.shape[:2] + (self.prompt_state.n_cls,), device=views.device)
+
+    def adapt(self, views_batch):
+        """NHWC views [N, B, H, W, 3] (numpy or tensor; u8 pixels or
+        normalized floats) -> (final logits [N, C], {"losses", "selected"})."""
+        views = maybe_normalize_u8(torch.as_tensor(views_batch).to(self.device))
+        N, B = views.shape[:2]
+        ctx0 = self.prompt_state.ctx0
+        with torch.no_grad():
+            img = clip_model.encode_image(self.clip_params, self.clip_cfg, views.reshape((N * B,) + views.shape[2:]),
+                                          attn=self.attn)
+            img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
+            bias = meta_net_forward(self.meta_net, img_feats[:, 0])   # [N, D], fp32
+            start = ctx0[None] + bias[:, None, :].to(ctx0.dtype)
+        logits, aux = self._episode(start, {"img_feats": img_feats}, views, per_episode=True)
         return logits[:, 0], aux

@@ -475,6 +475,89 @@ def _tune_cls_argv(tmp_path, *extra):
             "--output", str(tmp_path), *extra]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_text_kernels_at_t24_full_batch(dev, dtype, direction):
+    """The text tower of Stanford Cars' and ImageNet's prompts (T = 24, causal,
+    B = 4 x 196): the long kernels over 64-row tiles of which 24 rows live."""
+    B, T, H = 784, 24, 8
+    g = torch.Generator(device=dev).manual_seed(B + T)
+    qkv = torch.randn(B, T, 3 * H * 64, device=dev, generator=g).to(dtype)
+    cot = torch.randn(B, T, H * 64, device=dev, generator=g).to(dtype)
+    mask = causal_mask(T, dev)
+    A.reset_launch_counts()
+    if direction == "fwd":
+        run, want = lambda: A.launch_fwd(qkv, mask, H, 0.125), A.fused_attention_reference(qkv, mask, H, 0.125)
+    else:
+        run = lambda: A.launch_bwd(qkv, cot, mask, H, 0.125)
+        want = A.fused_attention_reference_bwd(qkv, cot, mask, H, 0.125)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    variant = "mma_long" if dtype == torch.bfloat16 else "tf32x3_long"
+    assert dict(A.LAUNCH_VARIANTS) == {variant if direction == "fwd" else "bwd_" + variant: 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, bwd=direction == "bwd"))
+
+
+def _tiny_card_and_cpu(dev):
+    """The same tiny ViT CLIP (64-wide heads: vision T = 65, the long kernels;
+    class prompts T <= 16, the short ones) on the card and on the CPU, fp32."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.models import clip as TC
+
+    cfg = TC.ClipConfig("t", 32, 64, 2, 128, 8, 128, 1, vision_heads_override=2, text_heads_override=2)
+    params = TC.init_clip_params(cfg, seed=0)   # drawn on the CPU, then copied: the same weights
+    return cfg, {dev.type: Po.tree_map(lambda v: v.to(dev), params), "cpu": params}
+
+
+def test_cocoop_episode_on_the_card_matches_cpu(dev):
+    """CoCoOp (N=3 images, 16 views, 2 entropy steps; each episode from its own
+    instance-conditioned context) through the fp32 kernels against the CPU's
+    dense plain path: selections equal, logits and losses within 2e-4 + 1e-3
+    relative."""
+    from rlcf_torch.core.episode import EpisodeConfig
+    from rlcf_torch.tasks.classification import CoCoOpTTAClassifier
+
+    cfg, params = _tiny_card_and_cpu(dev)
+    names = ["goldfish", "tiger cat", "airliner", "acoustic guitar", "great white shark"]
+    ecfg = EpisodeConfig(tta_steps=2, selection_p=0.25, lr=5e-3, loss="tpt")
+    card, cpu = (CoCoOpTTAClassifier(params[d], cfg, ecfg).setup(names) for d in (dev.type, "cpu"))
+    views = np.random.default_rng(0).integers(0, 256, size=(3, 16, 64, 64, 3), dtype=np.uint8)
+    A.reset_launch_counts()
+    got, got_aux = card.adapt(views)
+    torch.cuda.synchronize()
+    want, want_aux = cpu.adapt(views)
+    assert A.LAUNCH_VARIANTS["tf32x3_long"] > 0 and A.LAUNCH_VARIANTS["bwd_tf32x6_short"] == 2
+    assert torch.equal(got_aux["selected"].cpu(), want_aux["selected"])
+    torch.testing.assert_close(got_aux["losses"].cpu(), want_aux["losses"], rtol=1e-3, atol=2e-4)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("learned_cls", [True, False])
+def test_bongard_episode_on_the_card_matches_cpu(dev, learned_cls):
+    """Bongard-HOI (N=2 tasks, float task images, 3 steps) on the card
+    against the CPU's dense plain path: query logits and support losses
+    within 2e-4 + 1e-3 relative; the float images are not quantised."""
+    from rlcf_torch.core.episode import EpisodeConfig
+    from rlcf_torch.tasks.bongard import BongardTTA
+
+    cfg, params = _tiny_card_and_cpu(dev)
+    ecfg = EpisodeConfig(tta_steps=3, lr=0.05)
+    card, cpu = (BongardTTA(params[d], cfg, ecfg, n_ctx=2, learned_cls=learned_cls).setup()
+                 for d in (dev.type, "cpu"))
+    imgs = np.random.default_rng(1).normal(size=(2, 14, 64, 64, 3)).astype(np.float32)
+    labels = np.tile(np.array([0] * 6 + [1] * 6), (2, 1))
+    A.reset_launch_counts()
+    got, got_aux = card.adapt_tasks(imgs, labels)
+    torch.cuda.synchronize()
+    want, want_aux = cpu.adapt_tasks(imgs, labels)
+    assert A.LAUNCH_VARIANTS["tf32x3_long"] > 0 and A.LAUNCH_VARIANTS["bwd_tf32x6_short"] == 3
+    torch.testing.assert_close(got_aux["losses"].cpu(), want_aux["losses"], rtol=1e-3, atol=2e-4)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-4)
+    feats = card.encode_images(torch.from_numpy(imgs[0]).to(dev))   # float NHWC in, as given
+    torch.testing.assert_close(feats.cpu(), cpu.encode_images(torch.from_numpy(imgs[0])), rtol=1e-3, atol=2e-4)
+
+
 @pytest.mark.parametrize("prior", [None, "0.5"])
 def test_tune_cls_resnet_policy_on_the_card(dev, tmp_path, prior):
     """tune_cls through test-tiny-rn (grouped per-episode convolutions on the

@@ -135,6 +135,7 @@ def test_cli_fused_refusals_match_jax(tmp_path):
     (("--viewgen", "fused", "--hard_aug", "1"), ("A16",)),
     (("--viewgen", "fused", "--resolution", "72"), ("A16",)),
     (("--viewgen", "fused", "--multiple_reward_models", "1"), ("A16",)),
+    (("--viewgen", "fused", "--cocoop"), ("A16",)),
     (("--viewgen", "device"), ("A16",)),
 ])
 def test_cli_refusals_name_what_the_port_runs(tmp_path, extra, items):
@@ -159,30 +160,38 @@ def test_cli_resume_refusal_names_its_item(tmp_path):
 
 
 def test_fine_grained_ids_are_the_jax_packages():
-    from rlcf_tpu.data.datasets import ID_TO_DIRNAME as JAX_IDS, JSON_SPLITS
-    from rlcf_torch.data.datasets import FINE_GRAINED_IDS, ID_TO_DIRNAME
+    from rlcf_tpu.data.datasets import ID_TO_DIRNAME as JAX_IDS, JSON_SPLITS as JAX_SPLITS
+    from rlcf_torch.data.datasets import FINE_GRAINED_IDS, ID_TO_DIRNAME, JSON_SPLITS
 
-    assert set(FINE_GRAINED_IDS) == set(JSON_SPLITS) | {"aircraft"} == set(JAX_IDS) - set(ID_TO_DIRNAME)
+    assert ID_TO_DIRNAME == JAX_IDS and JSON_SPLITS == JAX_SPLITS
+    assert set(FINE_GRAINED_IDS) == set(JSON_SPLITS) | {"aircraft"} == set(JAX_IDS) - {"I", "A", "K", "R", "V", "C"}
 
 
 @pytest.mark.parametrize("cli", ["tta_cls", "tune_cls", "zero_shot"])
 @pytest.mark.parametrize("set_id", ["flower102", "dtd", "pets", "cars", "ucf101", "caltech101", "food101",
                                     "sun397", "aircraft", "eurosat"])
-def test_cli_refuses_fine_grained_sets_naming_a17(tmp_path, monkeypatch, cli, set_id):
-    """A fine-grained ``--test_sets`` id, even behind an ImageNet variant, is
-    refused up front naming A17: before any class setup or model load (each
-    of which fails this test here)."""
+def test_cli_runs_fine_grained_sets(tmp_path, cli, set_id):
+    """Each CLI runs each fine-grained set on its synthetic tree (the Zhou
+    split JSON or the FGVC-Aircraft lists) at a tiny size on the CPU, with
+    the set's own class names, through the ported loader and
+    ``--dataset_mode``: two images of the split the mode names."""
     import importlib
 
-    from rlcf_torch.cli import common
-    from rlcf_torch.data import class_names
+    from rlcf_torch.data.class_names import get_classnames
+    from torch_port_fixtures import write_fine_grained_tree
 
-    def loaded(*args, **kw):
-        raise AssertionError("set up classes or loaded a model before refusing")
-
-    for mod, name in ((common, "load_policy"), (common, "build_reward"), (class_names, "get_classnames")):
-        monkeypatch.setattr(mod, name, loaded)
-    main = importlib.import_module(f"rlcf_torch.cli.{cli}").main
-    with pytest.raises(SystemExit) as exc:
-        main([".", "--device", "cpu", "--test_sets", f"A/{set_id}", "--output", str(tmp_path)])
-    assert f"--test_sets {set_id} is not ported yet" in str(exc.value) and "ROADMAP A17" in str(exc.value)
+    n_classes = len(get_classnames(set_id))
+    write_fine_grained_tree(tmp_path / "data", set_id, n_classes=min(n_classes, 3), per_class=1)
+    argv = [str(tmp_path / "data"), "--device", "cpu", "--test_sets", set_id, "--dataset_mode", "val", "--limit", "2",
+            "--arch", "test-small", "--resolution", "64", "--precision", "fp32", "--output", str(tmp_path / "out")]
+    if cli == "zero_shot":
+        argv += ["--batch_size", "2"]
+    else:
+        argv += ["--reward_arch", "test-small", "--batch_size", "4", "--tta_steps", "1", "--sample_k", "2",
+                 "--episode_group", "2"]
+    if cli == "tta_cls":
+        argv += ["--viewgen", "fused"]
+    r = importlib.import_module(f"rlcf_torch.cli.{cli}").main(argv)[set_id]
+    assert 0 <= r["top1"] <= r["top5"] <= 100
+    if cli != "zero_shot":
+        assert r["n"] == 2 and len(r["group_seconds"]) == 1

@@ -115,7 +115,7 @@ def test_cli_runs_on_cpu(tmp_path):
 def test_cli_refuses_unported_options():
     from rlcf_torch.cli import tta_cls
 
-    for extra in (["--viewgen", "device"], ["--cocoop"], ["--tp", "2"], ["--test_sets", "bongard"]):
+    for extra in (["--viewgen", "device"], ["--tp", "2"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             tta_cls.main(["--device", "cpu"] + extra)
 

@@ -1,11 +1,19 @@
 """Shared inputs for the PyTorch port's parity tests: tiny CLIP configs of
-both packages and a random OpenAI-format ViT CLIP state dict."""
+both packages, a random OpenAI-format ViT CLIP state dict, and synthetic
+dataset trees written by the smoke script's writers."""
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import torch
 
 from rlcf_tpu.models import clip as JC
 from rlcf_torch.models import clip as TC
+
+_SMOKE = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 
 def tiny_cfgs(name="t", embed=16, res=32, layers=2, width=64, patch=16, text_width=64, text_layers=2, heads=2):
@@ -98,3 +106,16 @@ def openai_state_dict(cfg, seed=0):
     sd["text_projection"] = t(tw, E)
     sd["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
     return sd
+
+
+def write_fine_grained_tree(root, set_id, n_classes, per_class=2, seed=0):
+    """A synthetic tree of one fine-grained set under ``root`` (the smoke
+    script's ``write_fine_grained_tree``): the first ``n_classes`` classes,
+    ``per_class`` test images each and one train and one val image each,
+    listed out of class order; aircraft's ``variants.txt`` not sorted."""
+    names = None
+    if set_id == "aircraft":
+        names = [f"variant-{(7 * i) % n_classes:03d}" for i in range(n_classes)]   # not sorted
+    listed = lambda n: [c for _ in range(n) for c in reversed(range(n_classes))]
+    return chip_smoke.write_fine_grained_tree(root, set_id, {"test": listed(per_class), "val": listed(1),
+                                                             "train": listed(1)}, names=names, seed=seed)
