@@ -20,7 +20,11 @@ Phases, each fatal:
      encoder TTA of ViT-L/14@336px (B=64, 6, 1), the backward there (B=6 and
      24, T=577, H=16: the xlong kernels); Stanford Cars' text at T = 24
      (B=784 both ways, the policy's B=196 at setup) and Bongard-HOI's
-     shapes (vision B=56, text B=8 T=8 both ways); the ATTN_IMPL="flash"
+     shapes (vision B=56, text B=8 T=8 both ways); retrieval's (the
+     episodes' towers at a group of 8 queries: the ViT-B/16 policy at T=197
+     and its text at T=77 causal, both ways, the ViT-L/14 reward's vision and
+     text forward; the COCO-size galleries' batches and ragged tails at the
+     captions' truncated T; the CLI trees' galleries); the ATTN_IMPL="flash"
      switch of models/layers.py at T=128, 256 and 384, with the backward it takes, and
      differentiated at T=384 and 512 (causal), both directions timed there;
      the AugMix kernel at a flagship group (4 images x 64 views, 256 -> 224
@@ -71,10 +75,24 @@ Phases, each fatal:
      tree of 8 tasks, the learnable class token, 4 tasks a group), counters
      set to 0 just before each and read just after; each path's last group
      profiled on its inputs built beforehand; the FINE, COCOOP and BONGARD
-     lines;
+     lines; then retrieval TTA as scripts/tta_coco_ret.sh runs it (ViT-B/16
+     policy, ViT-L/14 reward, 8 steps at lr 1e-6, sample_k 12, groups of 8):
+     rlcf_torch.cli.tta_retrieval on a synthetic karpathy-format tree (16
+     images x 5 captions) in each direction, bf16, and on one of 8 images x 1
+     caption in fp32 (paths "retrieval i2t", "retrieval t2i" and their
+     "fp32"), counters set to 0 just before each and read just after; the
+     engine at the COCO Karpathy test split's size (5,000 images drawn on the
+     card, 25,000 templated captions): gallery setup seconds, a warm-up and
+     two timed groups per direction, a group profiled, the share of weights
+     one group changed, the peak memory of groups of 1 and 2, the KD
+     variant's i2t episode; REFERENCE retrieval (fp32, fused against dense,
+     one group a direction) and GRAD t2i; the RETRIEVAL line;
   5. print the run's total seconds, the kernels line (phase 5 also holds
-     that Stanford Cars' text ran mma_long at T = 24 both ways on its path),
-     then the device line last.
+     that Stanford Cars' text ran mma_long at T = 24 both ways on its path,
+     that the retrieval paths ran the long backward at T = 77 and at B=8
+     T=197, mma_long in bf16 and tf32x3_long in fp32, and that the reward's
+     class features took the fused forward on the flagship path), then the
+     device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -85,6 +103,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import gc
 import json
 import math
 import os
@@ -152,6 +172,15 @@ LARGE_RES = (336, 448)   # the AugMix kernel's layout with one plane on chip: Vi
 FINE_SET, FINE_IMAGES, FINE_STEPS = "cars", 8, 5
 COCOOP_IMAGES, COCOOP_STEPS = 8, 1
 BONGARD_TASKS, BONGARD_SIZE = 8, (200, 260)
+# retrieval (A11) as scripts/tta_coco_ret.sh runs it: ViT-B/16 policy, ViT-L/14 reward, 8 steps at lr 1e-6,
+# sample_k 12, groups of 8 queries; the CLI on synthetic karpathy-format trees (images x captions each), the
+# engine at the COCO Karpathy test split's size (5,000 images, 25,000 captions), its galleries batched as the
+# CLI batches them (policy text 256, reward text 512, images 32); KD: --loss kd, 3 steps, sample_k_i2t 20
+RET_STEPS, RET_LR, RET_SAMPLE_K, RET_GROUP = 8, "1e-6", 12, 8
+RET_TREE, RET_FP32_TREE, RET_TREE_SIZE = (16, 5), (8, 1), (240, 320)
+COCO_IMAGES, COCO_CAPTIONS_PER_IMAGE = 5000, 5
+RET_TEXT_BATCH, RET_REWARD_TEXT_BATCH, RET_IMAGE_BATCH = 256, 512, 32
+RET_TIMED_GROUPS, RET_KD_STEPS, RET_KD_SAMPLE_K = 2, 3, 20
 
 
 def log(msg):
@@ -212,11 +241,16 @@ def device_kernels(fn):
 
 def text_seq_len(classnames):
     """The text tower's sequence length on the main path (prompt truncation)."""
-    from rlcf_torch.tokenizer import tokenize
     from rlcf_torch.data.class_names import assemble_prompts
 
-    eot = tokenize(assemble_prompts(classnames)).argmax(axis=-1)
-    return min(77, -(-(int(eot.max()) + 1) // 8) * 8)
+    return text_tokens_len(assemble_prompts(classnames))
+
+
+def text_tokens_len(texts):
+    """The text tower's T for ``texts`` after the padded tail is dropped (``truncate_tokens``)."""
+    from rlcf_torch.tokenizer import tokenize
+
+    return min(77, -(-(int(tokenize(list(texts), truncate=True).argmax(axis=-1).max()) + 1) // 8) * 8)
 
 
 def assert_close(got, want, dtype, direction, label):
@@ -692,6 +726,18 @@ def profile_episode(ep, what="fused group (views + episode)"):
             "profile_idle_share": 1 - busy_ms / wall_ms}
 
 
+def use_dense_attention(clf):
+    """Every tower of a classifier and of its reward (each member of an
+    ensemble), vision and text, on the plain attention: a REFERENCE check's
+    dense side."""
+    for name in ("attn", "text_attn", "reward_attn"):
+        if hasattr(clf, name):
+            setattr(clf, name, "dense")
+    reward = getattr(clf, "reward", None)
+    for member in getattr(reward, "members", [reward] if reward is not None else []):
+        member.text_attn = "dense"
+
+
 def grads_through_backwards(loss, wrt):
     """The gradients of ``loss`` in ``wrt`` three times over one forward: with
     the kernel backward (each launch also held to the plain backward on its
@@ -747,7 +793,7 @@ def gradient_check(clf, toks):
     prompts = P.splice_arrays(ctx, pt.fixed_embed, pt.ctx_map)   # [N, C, T, D], as text_features builds them
     N, C, T, D = prompts.shape
     feats = clip_model.encode_text_embeds(clf.clip_params, clf.clip_cfg, prompts.reshape(N * C, T, D),
-                                          pt.eot_idx.repeat(N), attn=clf.attn)
+                                          pt.eot_idx.repeat(N), attn=clf.text_attn)
     text = clip_model.normalize(feats.float()).reshape(N, C, -1)
     logits = clf._logit_scale() * torch.einsum("nse,nce->nsc", sel_feats, text)
     loss = step_loss(logits, r_sim, clf.ecfg, clf.reward.score_samples,
@@ -823,7 +869,7 @@ def episode_timing_and_reference(out_dir):
         ep()
     out["fp32_episode_ms_per_img"] = (time.perf_counter() - t0) / 2 / GROUP * 1e3
     out.update({f"fp32_{k}": v for k, v in profile_episode(ep, "fp32 episode (views pre-built)").items()})
-    clf.attn = clf.reward_attn = "dense"
+    use_dense_attention(clf)
     clf.setup(names)
     dense_logits, dense_aux = clf.adapt_tokens(*toks)
     same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
@@ -999,7 +1045,7 @@ def encoder_timing_and_reference(out_dir, arch=POLICY, res=RES, label="encoder",
     if time_fp32:
         out["fp32"] = time_encoder_episode(clf, views, f"{label} episode (views pre-built, fp32)")
     fused_logits, fused_aux = clf.adapt(views)   # the momentum fold moves the EMA only: the next starts alike
-    clf.attn = clf.reward_attn = "dense"
+    use_dense_attention(clf)
     clf.setup(names)
     dense_logits, dense_aux = clf.adapt(views)
     same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
@@ -1137,7 +1183,7 @@ def ensemble_timing_and_reference(out_dir):
     fused_logits, fused_aux = clf.adapt(views)
     torch.cuda.synchronize()
     out["reference_launches_by_shape"] = {" ".join(map(str, k)): v for k, v in A.LAUNCH_SHAPES.items()}
-    clf.attn = clf.reward_attn = "dense"
+    use_dense_attention(clf)
     clf.setup(names)
     dense_logits, dense_aux = clf.adapt(views)
     same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
@@ -1244,6 +1290,68 @@ def write_bongard_tree(root, n_tasks, size=(48, 56), swap_split=False, seed=0):
     with open(os.path.join(split_dir, "bongard_hoi_test_unseen_obj_unseen_act.json"), "w") as fh:
         json.dump(tasks, fh)
     return str(root)
+
+
+CAPTION_WORDS = {
+    "subject": ("a man", "a woman", "two dogs", "a small child", "a group of people", "a brown horse", "a red bus",
+                "an old truck", "a black cat", "a young boy", "three zebras", "a large airplane", "a giraffe",
+                "a plate of food", "a skateboarder", "a baseball player", "a tennis player", "a flock of birds"),
+    "verb": ("riding", "standing next to", "walking along", "sitting on", "looking at", "playing with",
+             "parked near", "flying over", "eating", "holding", "jumping over", "lying on"),
+    "object": ("a wave", "a wooden bench", "a busy street", "a green field", "a kitchen counter", "the beach",
+               "a snowy hill", "a frisbee", "a cake", "a fence", "a river", "a clock tower", "an umbrella"),
+    "tail": ("", "", " on a sunny day", " in the city", " while people watch", " near a tall building with many "
+             "windows and a large sign on the front of it", " at night", " in front of a crowd of spectators "
+             "wearing hats and holding flags",
+             # long enough to reach the tokenizer's 77 under any head: the galleries run at T = 77
+             ", with a well-dressed man in a black-and-white shirt, a middle-aged woman in a red-and-blue dress, "
+             "two three-year-old children, a brown-and-white dog, a ten-speed bicycle, a cooler, an umbrella, a kite "
+             "and a picnic blanket spread out on the grass"),
+}
+
+
+def retrieval_captions(n, seed=0):
+    """``n`` COCO-like captions from seeded templates: a subject, a verb, an
+    object and now and then a long tail, capitalised and with a full stop
+    (what the annotation loader's BLIP cleaning takes off). A caption gallery
+    runs at the T of its longest caption; one tail reaches the truncation
+    limit, so a gallery of more than a few captions runs at T = 77, the most
+    any caption set can cost."""
+    rng = np.random.default_rng(seed)
+    pick = {k: rng.integers(0, len(v), size=n) for k, v in CAPTION_WORDS.items()}
+    return [(f"{CAPTION_WORDS['subject'][pick['subject'][i]]} {CAPTION_WORDS['verb'][pick['verb'][i]]} "
+             f"{CAPTION_WORDS['object'][pick['object'][i]]}{CAPTION_WORDS['tail'][pick['tail'][i]]}.").capitalize()
+            for i in range(n)]
+
+
+def retrieval_tree_captions(n_images, caps_per_image=5, seed=0):
+    """The captions ``write_retrieval_tree`` writes, as the annotation loader
+    hands them over (through the BLIP cleaning)."""
+    from rlcf_torch.tasks.retrieval import blip_caption_process
+
+    return [blip_caption_process(c) for c in retrieval_captions(n_images * caps_per_image, seed)]
+
+
+def write_retrieval_tree(root, n_images, caps_per_image=5, size=(48, 64), seed=0):
+    """A synthetic karpathy-format retrieval set under ``root``: ``images/``
+    with ``n_images`` random images of ``size`` (JPEG, every third PNG) and
+    ``annotations.json`` ([{"image": rel, "caption": [...]}], the layout of
+    LAVIS's COCO test annotations) with ``caps_per_image`` templated captions
+    each. Returns (annotation path, image root)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    caps = retrieval_captions(n_images * caps_per_image, seed)
+    os.makedirs(os.path.join(str(root), "images"), exist_ok=True)
+    annotations = []
+    for i in range(n_images):
+        rel = f"images/val_{i:05d}.{'png' if i % 3 == 2 else 'jpg'}"
+        Image.fromarray(rng.integers(0, 256, size=tuple(size) + (3,), dtype=np.uint8)).save(os.path.join(str(root), rel))
+        annotations.append({"image": rel, "caption": caps[i * caps_per_image : (i + 1) * caps_per_image]})
+    path = os.path.join(str(root), "annotations.json")
+    with open(path, "w") as fh:
+        json.dump(annotations, fh)
+    return path, str(root)
 
 
 def fine_argv(data_root, out_dir):
@@ -1367,7 +1475,7 @@ def classification_rest(out_dir):
     clf, _, _ = tta_cls.build(tta_cls.get_args(cocoop_argv(out_dir, "fp32")))
     clf.setup(get_classnames("A"))
     fused_logits, fused_aux = clf.adapt(views)
-    clf.attn = "dense"
+    use_dense_attention(clf)
     dense_logits, dense_aux = clf.adapt(views)
     same_sel = bool(torch.equal(fused_aux["selected"], dense_aux["selected"]))
     share = max(float(((a - b).abs() / (2e-4 + 2e-4 * b.abs())).max())
@@ -1401,6 +1509,346 @@ def classification_rest(out_dir):
         "launches_per_item_by_shape", "top1")}, "launch_note": "launches per task; group seconds: a whole group, "
         "the host's image decoding and preprocessing included"}))
     return [fine, cocoop, bongard]
+
+
+def retrieval_argv(out_dir, task, precision="bf16", tree=None, extra=()):
+    """``scripts/tta_coco_ret.sh``'s settings for ``task`` (image2text or
+    text2image) on the annotation tree ``tree`` = (annotation file, image
+    root), or the JAX CLI's synthetic gallery without one."""
+    data = ["--annotations", tree[0], "--vis_root", tree[1]] if tree else ["--synthetic"]
+    return [*data, "--arch", POLICY, "--reward_arch", REWARD, "--retrieval_task", task, "--tta_steps",
+            str(RET_STEPS), "--lr", RET_LR, "--sample_k", str(RET_SAMPLE_K), "--group_size", str(RET_GROUP),
+            "--precision", precision, "--device", "cuda", "--seed", "0", "--output", out_dir, *extra]
+
+
+def coco_captions():
+    """The COCO-size caption gallery as the annotation loader hands it over:
+    seeded templates through the BLIP cleaning."""
+    from rlcf_torch.tasks.retrieval import blip_caption_process
+
+    return [blip_caption_process(c) for c in retrieval_captions(COCO_IMAGES * COCO_CAPTIONS_PER_IMAGE, seed=1)]
+
+
+def coco_image_batches():
+    """The COCO-size image gallery, drawn on the card from a seed per batch of
+    RET_IMAGE_BATCH: CLIP-normalised NHWC float images at 224 px."""
+    for b0 in range(0, COCO_IMAGES, RET_IMAGE_BATCH):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + b0)
+        yield torch.randn(min(RET_IMAGE_BATCH, COCO_IMAGES - b0), RES, RES, 3, device="cuda", generator=gen)
+
+
+def run_retrieval_cli(path, argv, direction, n_queries, gallery_size, precision):
+    """Phase 4f (a): one direction of ``tta_retrieval`` through its entry
+    point, each group's score rows recorded, the launch counters set to 0
+    just before and read just after. The differentiated tower must run the
+    attention backward its T takes (``backward_variant``)."""
+    from rlcf_torch.cli import tta_retrieval
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.tasks.retrieval import RetrievalTTA
+
+    seen, adapt = [], RetrievalTTA.adapt_queries
+
+    def recording(self, queries, **kw):
+        out = adapt(self, queries, **kw)
+        seen.append(out)
+        return out
+
+    RetrievalTTA.adapt_queries = recording
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()                 # counts start at 0 just before the path
+    try:
+        t0 = time.perf_counter()
+        result = tta_retrieval.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        RetrievalTTA.adapt_queries = adapt
+    launches, by_shape, variants = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES), dict(A.LAUNCH_VARIANTS)   # read just after
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    T = 197 if direction == "i2t" else 77
+    bwd = "bwd_" + A.backward_variant(T, dtype)
+    groups = -(-n_queries // RET_GROUP)
+    scores = np.concatenate(seen) if seen else np.zeros((0, gallery_size))
+    if len(seen) != groups or scores.shape != (n_queries, gallery_size) or not np.isfinite(scores).all() \
+            or not launches["fwd"] or not variants.get(bwd):
+        raise AssertionError(f"{path}: groups={len(seen)} scores {scores.shape} (want {(n_queries, gallery_size)}, "
+                             f"finite) or it did not go through the kernels: launches={launches} variants={variants}")
+    secs = result["group_seconds"][direction]
+    timed = secs[1:]
+    return {"path": path, "precision": precision, "groups": len(secs), "group_seconds": secs,
+            "queries_per_s": (n_queries - RET_GROUP) / sum(timed) if timed else None, "wall_s": wall, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "launch_variants": variants,
+            "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()}}, scores
+
+
+@contextlib.contextmanager
+def top_k_records():
+    """Each episode step's RLCF top-k (logits, indices), as ``step_loss`` takes them."""
+    from rlcf_torch.core import losses as Lo
+
+    records, top_k = [], Lo.top_k_indices
+
+    def recording(x, k):
+        idx = top_k(x, k)
+        records.append((x.detach().float().cpu(), idx.cpu()))
+        return idx
+
+    Lo.top_k_indices = recording
+    try:
+        yield records
+    finally:
+        Lo.top_k_indices = top_k
+
+
+def retrieval_reference(tta, queries, label):
+    """Phase 4f (c): the fp32 fused-attention group against the dense one on
+    the same queries: step 0's top-k index sets equal, per-step losses and
+    final score rows within 2e-4 + 2e-4 |dense|; where a later step's top-k
+    differs, the dense logits' gap of each pair that swapped is printed."""
+    out = {}
+    for attn in ("fused", "dense"):
+        tta.attn = tta.reward_attn = tta.reward.text_attn = attn
+        start, cache, views, per_episode = tta.episode_inputs(queries)
+        with top_k_records() as records:
+            logits, aux = tta._episode(start, cache, views, per_episode=per_episode)
+        out[attn] = logits[:, 0].float().cpu(), aux["losses"].float().cpu(), records
+    tta.attn = tta.reward_attn = tta.reward.text_attn = "fused"
+    (fs, fl, frec), (ds, dl, drec) = out["fused"], out["dense"]
+    same0 = bool(torch.equal(frec[0][1].sort(dim=-1).values, drec[0][1].sort(dim=-1).values))
+    flips = []
+    for step, ((_, fi), (dlog, di)) in enumerate(zip(frec, drec)):
+        for n in range(fi.shape[0]):
+            a, b = set(fi[n].flatten().tolist()), set(di[n].flatten().tolist())
+            for x, y in zip(sorted(a - b), sorted(b - a)):
+                flips.append({"step": step, "episode": n, "fused_only": x, "dense_only": y,
+                              "dense_gap": float(dlog[n].flatten()[y] - dlog[n].flatten()[x])})
+    share = max(float(((f - d).abs() / (2e-4 + 2e-4 * d.abs())).max()) for f, d in ((fs, ds), (fl, dl)))
+    log(f"REFERENCE retrieval {label} fp32 full width, fused vs dense attention, one group of {len(queries)}: step 0 "
+        f"top-k sets equal={same0}; later top-k flips {flips}; max|d scores|={float((fs - ds).abs().max()):.3e} "
+        f"(of max {float(ds.abs().max()):.3e}) max|d losses|={float((fl - dl).abs().max()):.3e}; worst / "
+        f"(2e-4 + 2e-4 |dense|) {share:.3f}")
+    if not same0 or share > 1:
+        raise AssertionError(f"the fused-attention retrieval {label} episode disagrees with the dense one in fp32")
+    return {"step0_topk_equal": same0, "topk_flips": flips, "worst_share_of_tolerance": share,
+            "max_abs_score_diff": float((fs - ds).abs().max())}
+
+
+def retrieval_gradient_check(tta, queries):
+    """Phase 4f (d), bf16 at full width: the gradient of step 0's loss in the
+    t2i episodes' text weights (the tower and the queries' embedding rows, one
+    vector) through the kernel backward against the plain backward on one
+    forward, held to the noise floor as ``gradient_check``."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.core.episode import step_loss
+    from rlcf_torch.ops import attention as A
+
+    start, cache, views, _ = tta.episode_inputs(queries)
+    t = Po.tree_map(lambda v: v.detach().clone().requires_grad_(True), start)
+    idx = torch.zeros(views.shape[0], 1, dtype=torch.long, device=views.device)
+    with torch.no_grad():
+        r_sim = tta.reward_sim(views)
+    loss = step_loss(tta.policy_logits(t, cache, idx), r_sim, tta.ecfg, tta.reward.score_samples,
+                     tta.reward.params["logit_scale"].exp().float()).sum()
+    leaves = Po.tree_leaves(t)
+    grads, per_launch, launched = grads_through_backwards(loss, leaves)
+    flat = {name: torch.cat([g.float().flatten() for g in gs]) for name, gs in grads.items()}
+    rel, floor = rel_l2(flat["kernel"], flat["plain"]), rel_l2(flat["jittered"], flat["plain"])
+    variant = "bwd_" + A.backward_variant(77, torch.bfloat16)
+    log(f"GRAD t2i bf16 full width, d loss / d text weights ({flat['plain'].numel()} of them, {len(leaves)} tensors, "
+        f"{len(queries)} episodes) through 12 layers at B={len(queries)} T=77 causal ({launched}), kernel backward "
+        f"against plain backward: per launch on its own inputs, relative L2 error {min(per_launch):.3e} to "
+        f"{max(per_launch):.3e} (limit {GRAD_LAUNCH_LIMIT}); relative L2 error {rel:.3e} (noise floor {floor:.3e}, "
+        f"limit {GRAD_FLOOR_RATIO:g} x the floor)")
+    if not bool(torch.isfinite(flat["kernel"]).all()) or not launched.get(variant) \
+            or max(per_launch) > GRAD_LAUNCH_LIMIT or rel > GRAD_FLOOR_RATIO * floor:
+        raise AssertionError("the t2i gradient through the kernel backward disagrees with the plain backward")
+    return {"grad_launch_rel_l2_max": max(per_launch), "grad_text_rel_l2": rel, "grad_text_noise_floor": floor}
+
+
+def weights_changed_share(tta, queries):
+    """The share of the trainable elements one bf16 group's episodes changed."""
+    from rlcf_torch.core import policy as Po
+
+    start = tta.episode_inputs(queries)[0]
+    _, adapted = tta.adapt_queries(queries, return_adapted=True)
+    pairs = list(zip(Po.tree_leaves(adapted), Po.tree_leaves(start)))   # [N, ...] against [N, ...] or [...]
+    return sum(int((a != s0).sum()) for a, s0 in pairs) / sum(a.numel() for a, _ in pairs)
+
+
+def per_episode_memory(tta, queries):
+    """The peak memory allocated and reserved by groups of 1 and of all
+    ``queries``, above what was allocated before each: the growth of the
+    allocated peak per episode over the trainable bytes is
+    ``RetrievalTTA.PER_EPISODE_FACTOR``."""
+    peaks = {}
+    for n in (1, len(queries)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tta.adapt_queries(queries[:n])
+        peaks[n] = (torch.cuda.max_memory_allocated() - base, torch.cuda.max_memory_reserved() - base)
+    n = len(queries)
+    per_episode = (peaks[n][0] - peaks[1][0]) / (n - 1)
+    return {"group_peak_allocated_bytes": {str(k): v[0] for k, v in peaks.items()},
+            "group_peak_reserved_bytes": {str(k): v[1] for k, v in peaks.items()},
+            "trainable_bytes": tta.trainable_bytes(), "per_episode_factor": per_episode / tta.trainable_bytes()}
+
+
+def group_at_cap(tta, make_queries):
+    """One group of ``hbm_group_cap()`` queries, which must fit the card: its
+    seconds, and the peak memory allocated and reserved against the card's."""
+    cap = tta.hbm_group_cap()
+    queries = make_queries(cap)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = tta.adapt_queries(queries)
+    secs = time.perf_counter() - t0
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not np.isfinite(scores).all() or scores.shape[0] != cap:
+        raise AssertionError(f"a group at the memory cap ({cap}) gave scores {scores.shape}, not finite [{cap}, ...]")
+    return {"hbm_group_cap": cap, "cap_group_seconds": secs, "cap_group_queries_per_s": cap / secs,
+            "cap_group_peak_allocated_share": torch.cuda.max_memory_allocated() / total,
+            "cap_group_peak_reserved_share": torch.cuda.max_memory_reserved() / total, "total_memory_bytes": total}
+
+
+def coco_direction(path, tta, gallery_setup, queries, make_queries):
+    """Phase 4f (b): one direction of the engine at COCO size: the gallery
+    setup's seconds, one warm-up and RET_TIMED_GROUPS timed groups of
+    RET_GROUP queries (counters set to 0 just before the setup, read after
+    the timed groups), then one group profiled, the share of weights one group
+    changed, the peak memory of groups of 1 and RET_GROUP
+    (``per_episode_memory``), and one group at ``hbm_group_cap`` of
+    ``make_queries(cap)`` (outside the path's counts: a check of memory)."""
+    from rlcf_torch.ops import attention as A
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()                 # counts start at 0 just before the path
+    t0 = time.perf_counter()
+    gallery_setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    secs = []
+    for g in range(1 + RET_TIMED_GROUPS):
+        t0 = time.perf_counter()
+        scores = tta.adapt_queries(queries[g * RET_GROUP:(g + 1) * RET_GROUP])
+        secs.append(time.perf_counter() - t0)
+        if not np.isfinite(scores).all() or scores.shape != (RET_GROUP, tta.gallery_feats.shape[0]):
+            raise AssertionError(f"{path}: scores {scores.shape} not finite [{RET_GROUP}, "
+                                 f"{tta.gallery_feats.shape[0]}]")
+    launches, by_shape, variants = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES), dict(A.LAUNCH_VARIANTS)   # read just after
+    out = {"path": path, "gallery_setup_s": setup_s, "group_seconds": secs,
+           "queries_per_s": RET_GROUP * RET_TIMED_GROUPS / sum(secs[1:]),
+           "episode_ms_per_query": 1e3 * sum(secs[1:]) / (RET_GROUP * RET_TIMED_GROUPS),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+           "launch_variants": variants, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()}}
+    group = queries[:RET_GROUP]
+    out.update(profile_episode(lambda: tta.adapt_queries(group), f"{path} group of {RET_GROUP}"))
+    out["weights_changed_share"] = weights_changed_share(tta, group)
+    out.update(per_episode_memory(tta, group))
+    out.update(group_at_cap(tta, make_queries))
+    return out
+
+
+def retrieval(out_dir):
+    """Phase 4f: retrieval TTA at full width (ViT-B/16 policy, ViT-L/14
+    reward, random weights from seeds): (a) the CLI end to end on synthetic
+    karpathy-format trees, each direction in bf16 and fp32; (b) the engine at
+    the COCO Karpathy test split's size per direction, and the KD variant's
+    i2t episode; (c) REFERENCE retrieval (fp32, fused against dense); (d)
+    GRAD t2i. Returns the paths and the RETRIEVAL line's numbers."""
+    import dataclasses
+
+    from rlcf_torch.cli import common, tta_retrieval
+    from rlcf_torch.core.episode import EpisodeConfig
+    from rlcf_torch.metrics.retrieval import retrieval_metrics
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.tasks.retrieval import RetrievalTTA, load_karpathy_annotations
+    from rlcf_torch.tokenizer import tokenize
+
+    gc.collect()   # the earlier paths' engines (their episodes close over them) go before the peaks are read
+    torch.cuda.empty_cache()
+    root = os.path.dirname(out_dir)
+    paths, line, scores = [], {}, {}
+    for tree_shape, precision, suffix in ((RET_TREE, "bf16", ""), (RET_FP32_TREE, "fp32", " fp32")):
+        tree = write_retrieval_tree(os.path.join(root, "chip_smoke_retrieval" + suffix.replace(" ", "_")),
+                                    *tree_shape, size=RET_TREE_SIZE)
+        gallery = load_karpathy_annotations(*tree)
+        n_img, n_txt = len(gallery.image_paths), len(gallery.texts)
+        for direction, task, n_q, n_g in (("i2t", "image2text", n_img, n_txt), ("t2i", "text2image", n_txt, n_img)):
+            path, s = run_retrieval_cli(f"retrieval {direction}{suffix}", retrieval_argv(out_dir, task, precision, tree),
+                                        direction, n_q, n_g, precision)
+            paths.append(path)
+            scores[(direction, precision)] = s
+            log("RETRIEVAL_PATH " + json.dumps(path))
+        if precision == "bf16":
+            line["cli_metrics"] = retrieval_metrics(scores[("i2t", "bf16")], scores[("t2i", "bf16")], gallery.txt2img,
+                                                    gallery.img2txt)
+    line["cli"] = {p["path"]: {k: p[k] for k in ("queries_per_s", "group_seconds", "wall_s", "peak_mem_gib")}
+                   for p in paths}
+
+    args = tta_retrieval.get_args(retrieval_argv(out_dir, "both"))
+    dev = torch.device("cuda")
+    params, cfg = common.load_policy(args, dev)
+    reward = common.build_reward(args, dev)
+    ecfg = EpisodeConfig(tta_steps=RET_STEPS, lr=float(RET_LR), sample_k=RET_SAMPLE_K, adam_eps=1e-6)
+    captions = coco_captions()
+    n_q = RET_GROUP * (1 + RET_TIMED_GROUPS)
+    images_q = next(coco_image_batches())[:n_q]
+    tokens_q = tokenize(captions[:n_q], truncate=True)
+    i2t = RetrievalTTA(params, cfg, reward, ecfg, direction="i2t")
+    coco = {"i2t": coco_direction("retrieval coco i2t", i2t, lambda: i2t.set_text_gallery(captions), images_q,
+                                  lambda n: torch.randn(n, RES, RES, 3, device="cuda",
+                                                        generator=torch.Generator(device="cuda").manual_seed(2)))}
+    A.reset_launch_counts()                 # the KD variant's path: counts from 0
+    kd = RetrievalTTA(params, cfg, reward, dataclasses.replace(ecfg, loss="kd", tta_steps=RET_KD_STEPS,
+                                                               sample_k=RET_KD_SAMPLE_K), direction="i2t")
+    kd.gallery_feats, kd.reward_gallery_feats = i2t.gallery_feats, i2t.reward_gallery_feats
+    kd.adapt_queries(images_q[:RET_GROUP])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in range(1, 1 + RET_TIMED_GROUPS):
+        kd.adapt_queries(images_q[g * RET_GROUP:(g + 1) * RET_GROUP])
+    coco["i2t kd"] = {"path": "retrieval coco i2t kd", "episode_ms_per_query": 1e3 * (time.perf_counter() - t0) /
+                      (RET_GROUP * RET_TIMED_GROUPS),
+                      "launches_by_shape": {" ".join(map(str, k)): v for k, v in A.LAUNCH_SHAPES.items()}}
+    text_gallery = (i2t.gallery_feats, i2t.reward_gallery_feats)
+    del kd, i2t
+    torch.cuda.empty_cache()
+    t2i = RetrievalTTA(params, cfg, reward, ecfg, direction="t2i")
+    coco["t2i"] = coco_direction("retrieval coco t2i", t2i,
+                                 lambda: t2i.set_image_gallery(coco_image_batches(), coco_image_batches()), tokens_q,
+                                 lambda n: tokenize(captions[:n], truncate=True))
+    coco["t2i"].update(retrieval_gradient_check(t2i, tokens_q[:RET_GROUP]))
+    image_gallery = (t2i.gallery_feats, t2i.reward_gallery_feats)
+    del t2i, params, reward
+    torch.cuda.empty_cache()
+    for c in coco.values():
+        log("RETRIEVAL_COCO " + json.dumps(c))
+    paths += list(coco.values())
+
+    # (c) fp32 at full width, the same queries, the bf16 galleries' features as the fp32 engines' galleries
+    args = tta_retrieval.get_args(retrieval_argv(out_dir, "both", "fp32"))
+    params, cfg = common.load_policy(args, dev)
+    reward = common.build_reward(args, dev)
+    reference = {}
+    A.reset_launch_counts()                 # the REFERENCE path: counts from 0
+    engines = {}
+    for direction, feats, queries in (("i2t", text_gallery, images_q), ("t2i", image_gallery, tokens_q)):
+        engines[direction] = tta = RetrievalTTA(params, cfg, reward, ecfg, direction=direction)
+        tta.gallery_feats, tta.reward_gallery_feats = feats
+        reference[direction] = retrieval_reference(tta, queries[:RET_GROUP], direction)
+    paths.append({"path": "retrieval reference fp32",
+                  "launches_by_shape": {" ".join(map(str, k)): v for k, v in A.LAUNCH_SHAPES.items()}})
+    for direction, queries in (("i2t", images_q), ("t2i", tokens_q)):   # the per-episode factor in fp32
+        reference[direction]["fp32_memory"] = per_episode_memory(engines[direction], queries[:RET_GROUP])
+    del params, reward, tta, engines
+    torch.cuda.empty_cache()
+    line.update(coco={k: {m: v for m, v in c.items() if m not in ("launches", "launch_variants", "launches_by_shape")}
+                      for k, c in coco.items()}, reference=reference)
+    return paths, line
 
 
 def main():
@@ -1452,8 +1900,8 @@ def main():
     # towers' lengths (T=257, and T=197 as training the policy tower would run it)
     t_text = text_seq_len(get_classnames("A"))
     # Stanford Cars' prompts (T = 24: the long kernels over 64-row tiles) for 4 images and at setup (the policy's
-    # text tower; the reward's class features take the dense attention, as in the JAX package); Bongard-HOI's
-    # group of 4 tasks (14 images each; two prompts "X X X X X." each, T = 8)
+    # text tower, H=8, and the reward's, H=12); Bongard-HOI's group of 4 tasks (14 images each; two prompts
+    # "X X X X X." each, T = 8)
     n_cars, t_cars = len(get_classnames(FINE_SET)), text_seq_len(get_classnames(FINE_SET))
     t_bongard = -(-(int(tokenize(["X X X X X."]).argmax()) + 1) // 8) * 8
     # encoder TTA's (one image: 64 views to select from, 6 selected views
@@ -1470,8 +1918,8 @@ def main():
               ("fwd", GROUP * n_sel, 577, 16, False, "ensemble reward 336"),
               ("fwd", ZERO_SHOT_IMAGES, 577, 16, False, "zero-shot 336"),
               ("fwd", ZERO_SHOT_IMAGES, 197, 12, False, "zero-shot B/16"),
-              ("fwd", 200, t_text, 16, True, "zero-shot RN50x64 text-setup"),
-              ("fwd", 200, t_text, 12, True, "zero-shot 336 text-setup"),
+              ("fwd", 200, t_text, 16, True, "RN50x64 text-setup (zero-shot, ensemble reward)"),
+              ("fwd", 200, t_text, 12, True, "ViT-L/14 and 336 px text-setup (rewards, zero-shot)"),
               # encoder TTA of ViT-L/14@336px: 64 views selected from, 6 through the steps, view 0 predicted; the
               # xlong backward at its steps' shape and at the ensemble's batch
               ("fwd", VIEWS, 577, 16, False, "encoder 336 select"), ("fwd", n_sel, 577, 16, False, "encoder 336 step"),
@@ -1479,13 +1927,41 @@ def main():
               ("bwd", GROUP * n_sel, 577, 16, False, "T577"),
               ("fwd", GROUP * n_cars, t_cars, 8, True, "cars text"), ("bwd", GROUP * n_cars, t_cars, 8, True,
                                                                          "cars text"),
-              ("fwd", n_cars, t_cars, 8, True, "cars text-setup"),
+              ("fwd", n_cars, t_cars, 8, True, "cars text-setup"), ("fwd", n_cars, t_cars, 12, True,
+                                                                      "cars reward text-setup"),
               ("fwd", 14 * GROUP, 197, 12, False, "bongard vision"),
               ("fwd", 2 * GROUP, t_bongard, 8, True, "bongard text"),
               ("bwd", 2 * GROUP, t_bongard, 8, True, "bongard text")]
-    entries = []
+    # retrieval: the episodes' towers at a group of 8 queries (i2t: the policy's ViT both ways, the reward's ViT
+    # on the queries; t2i: the policy's text at T = 77 both ways, the reward's text), the COCO-size galleries as
+    # the CLI batches them (the captions at their truncated T, with the ragged last batches), the CLI trees'
+    # galleries (each in one batch)
+    t_coco = text_tokens_len(coco_captions())
+    n_coco = COCO_IMAGES * COCO_CAPTIONS_PER_IMAGE
+    shapes += [("fwd", RET_GROUP, 197, 12, False, "retrieval i2t policy, image gallery tail"),
+               ("bwd", RET_GROUP, 197, 12, False, "retrieval i2t policy"),
+               ("fwd", RET_GROUP, 257, 16, False, "retrieval i2t reward, image gallery tail"),
+               ("fwd", RET_GROUP, 77, 8, True, "retrieval t2i policy"), ("bwd", RET_GROUP, 77, 8, True,
+                                                                           "retrieval t2i policy"),
+               ("fwd", RET_GROUP, 77, 12, True, "retrieval t2i reward"),
+               ("fwd", RET_TEXT_BATCH, t_coco, 8, True, "retrieval policy text gallery"),
+               ("fwd", n_coco % RET_TEXT_BATCH, t_coco, 8, True, "retrieval policy text gallery tail"),
+               ("fwd", RET_REWARD_TEXT_BATCH, t_coco, 12, True, "retrieval reward text gallery"),
+               ("fwd", n_coco % RET_REWARD_TEXT_BATCH, t_coco, 12, True, "retrieval reward text gallery tail"),
+               ("fwd", RET_IMAGE_BATCH, 197, 12, False, "retrieval policy image gallery"),
+               ("fwd", RET_IMAGE_BATCH, 257, 16, False, "retrieval reward image gallery")]
+    for n_img, n_caps in (RET_TREE, RET_FP32_TREE):
+        t_tree = text_tokens_len(retrieval_tree_captions(n_img, n_caps))
+        shapes += [("fwd", n_img * n_caps, t_tree, 8, True, "retrieval CLI policy text gallery"),
+                   ("fwd", n_img * n_caps, t_tree, 12, True, "retrieval CLI reward text gallery"),
+                   ("fwd", n_img, 197, 12, False, "retrieval CLI policy image gallery"),
+                   ("fwd", n_img, 257, 16, False, "retrieval CLI reward image gallery")]
+    entries, seen_shapes = [], set()
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
+            if (direction, B, T, H, masked, dtype) in seen_shapes:   # a shape two paths share is checked once
+                continue
+            seen_shapes.add((direction, B, T, H, masked, dtype))
             tag = "bf16" if dtype == torch.bfloat16 else "fp32"
             entries.append(check_kernel(direction, B, T, H, dtype, masked, f"{what} B={B} T={T} H={H} {tag}"))
     for dtype in (torch.bfloat16, torch.float32):
@@ -1583,6 +2059,9 @@ def main():
     reference = {"path": "ensemble reference fp32", "launches_by_shape": ens_ep["reference_launches_by_shape"]}
     paths += ensemble + [reference]
     paths += classification_rest(out_dir)
+    ret_paths, ret = retrieval(out_dir)
+    paths += ret_paths
+    log("RETRIEVAL " + json.dumps(ret))
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -1616,6 +2095,17 @@ def main():
         key = " ".join(map(str, (direction, GROUP * n_cars, t_cars, 8, str(torch.bfloat16))))
         if t_cars != 24 or checked[key]["variant"] != "mma_long" or not launched.get(key, {}).get("fine cars"):
             raise AssertionError(f"the text {direction} at T={t_cars} did not run mma_long on the path fine cars")
+    # retrieval: the long backward at T = 77 (t2i, causal) and at B=8 T=197 (i2t) on their CLI paths, bf16 and fp32;
+    # the reward's class features through the fused forward on the flagship path
+    for direction, path, key in (("t2i", "retrieval t2i", (RET_GROUP, 77, 8)),
+                                 ("i2t", "retrieval i2t", (RET_GROUP, 197, 12))):
+        for dtype, variant, suffix in ((torch.bfloat16, "mma_long", ""), (torch.float32, "tf32x3_long", " fp32")):
+            k = " ".join(map(str, ("bwd", *key, str(dtype))))
+            if checked[k]["variant"] != variant or not launched.get(k, {}).get(path + suffix):
+                raise AssertionError(f"the {direction} backward {k} did not run {variant} on the path {path + suffix}")
+    k = " ".join(map(str, ("fwd", 200, t_text, 12, str(torch.bfloat16))))
+    if not launched.get(k, {}).get("fused"):
+        raise AssertionError(f"the reward's class features ({k}) did not take the fused forward on the flagship path")
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:

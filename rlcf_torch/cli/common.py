@@ -63,12 +63,13 @@ def add_tta_args(p: argparse.ArgumentParser):
     p.add_argument("--episode_group", type=int, default=4, help="episodes run together per device batch")
 
 
-def add_run_args(p: argparse.ArgumentParser):
+def add_run_args(p: argparse.ArgumentParser, classification: bool = True):
     p.add_argument("data", metavar="DIR", nargs="?", default=".", help="dataset root")
     p.add_argument("--test_sets", default="A", help="slash-separated dataset ids; 'synthetic' works without data")
-    p.add_argument("--synthetic_classes", default="10",
-                   help="classes of the 'synthetic' set: a count (names class_0, class_1, ...) or a dataset id "
-                   "whose class names it takes (e.g. A: ImageNet-A's 200)")
+    if classification:   # the classification CLIs' synthetic set
+        p.add_argument("--synthetic_classes", default="10",
+                       help="classes of the 'synthetic' set: a count (names class_0, class_1, ...) or a dataset id "
+                       "whose class names it takes (e.g. A: ImageNet-A's 200)")
     p.add_argument("--dataset_mode", default="test")
     p.add_argument("--output", default="exp_01")
     p.add_argument("--seed", type=int, default=0)

@@ -60,24 +60,29 @@ class ClipReward:
         self.cfg = cfg
         self.rcfg = rcfg
         self.class_features: Optional[torch.Tensor] = None
+        # the text tower's attention: the kernel on the card whatever the vision
+        # tower is; a reward without weights only scores
+        self.text_attn = clip_model.text_attn(self.device) if params is not None else "dense"
 
     @property
     def device(self) -> torch.device:
         return self.params["logit_scale"].device
 
-    @torch.no_grad()
     def set_class_features(self, tokenized, batch_size: int = 512):
-        """Encode and cache normalized class text features [C, E] from token
-        ids [C, 77] (the dead padded tail is dropped first; exact)."""
-        tokenized = np.asarray(tokenized)
-        t_max = int(tokenized.argmax(axis=-1).max()) + 1
-        tokenized = tokenized[:, : min(tokenized.shape[1], -(-t_max // 8) * 8)].astype(np.int64)
-        chunks = []
-        for start in range(0, tokenized.shape[0], batch_size):
-            toks = torch.as_tensor(tokenized[start : start + batch_size], device=self.device)
-            chunks.append(clip_model.encode_text(self.params, self.cfg, toks))
-        self.class_features = clip_model.normalize(torch.cat(chunks).float())
+        """Encode and cache normalized class (or caption gallery) text
+        features [C, E] from token ids [C, 77] (the dead padded tail is dropped
+        first; exact), and return them. A precomputed gallery (retrieval's
+        image features) is set by assigning ``class_features``."""
+        self.class_features = clip_model.encode_token_batches(
+            self.params, self.cfg, clip_model.truncate_tokens(np.asarray(tokenized)), batch_size, self.text_attn)
         return self.class_features
+
+    def text_features(self, tokens):
+        """Normalized text features [..., E] of token ids [..., T]."""
+        lead = tokens.shape[:-1]
+        feats = clip_model.encode_text(self.params, self.cfg, tokens.reshape(-1, tokens.shape[-1]),
+                                       attn=self.text_attn)
+        return clip_model.normalize(feats.float()).reshape(*lead, -1)
 
     def image_sim(self, images, attn: str = "dense"):
         """Cosine similarities [B, C] of normalized NHWC images against the

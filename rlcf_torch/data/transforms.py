@@ -1,5 +1,6 @@
 """Host image helpers and the CLIP normalization constants (the part of
-``rlcf_tpu/data/transforms.py`` the episode stream and zero-shot need)."""
+``rlcf_tpu/data/transforms.py`` the episode stream, zero-shot and retrieval
+need; PIL decoding only)."""
 
 from __future__ import annotations
 
@@ -47,7 +48,22 @@ def normalize(img: np.ndarray) -> np.ndarray:
     return (img.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
 
 
-def preprocess_pil(img: np.ndarray, resolution: int = 224) -> np.ndarray:
-    """The CLIP eval transform on the host: bicubic short-side resize,
-    center crop, normalize -> float32 [resolution, resolution, 3]."""
+def preprocess_pil(path_or_array, resolution: int = 224) -> np.ndarray:
+    """The CLIP eval transform on the host: decode (a path; an array passes),
+    bicubic short-side resize, center crop, normalize -> float32
+    [resolution, resolution, 3]."""
+    img = path_or_array if isinstance(path_or_array, np.ndarray) else load_image(path_or_array)
     return normalize(center_crop(resize_short_side_pil(img, resolution), resolution))
+
+
+def preprocess(path_or_array, resolution: int = 224, decode: str = "pil") -> np.ndarray:
+    """``preprocess_pil``; ``decode="native"`` (the JAX package's C++ decoder)
+    is not ported yet (ROADMAP A15), and the CLIs refuse it up front."""
+    if decode != "pil":
+        raise ValueError(f"decode {decode!r} is not ported yet; only 'pil' is (ROADMAP A15)")
+    return preprocess_pil(path_or_array, resolution)
+
+
+def preprocess_many(items, resolution: int = 224, decode: str = "pil"):
+    """``preprocess`` over a list of paths or arrays, in order."""
+    return [preprocess(i, resolution, decode) for i in items]

@@ -311,35 +311,76 @@ def best_attn(cfg: Optional[ClipConfig] = None, device="cpu") -> str:
     return "fused"
 
 
+def text_attn(device="cpu") -> str:
+    """The attention of a text tower on ``device``, whatever its vision
+    tower is: the JAX package's rule for text towers (``best_attn(None)``),
+    so the fused kernel on the card under a ResNet policy or reward too."""
+    return best_attn(None, device)
+
+
 # ---------------------------------------------------------------------------
 # Text tower
 # ---------------------------------------------------------------------------
 
 
+def embed_tokens(params, tokens):
+    """Token ids [B, T] -> embeddings [B, T, D]. A per-episode table ``[N,
+    V, D]`` takes ids ``[N, B, T]`` and gathers each episode's rows from its
+    own table. An id past the vocabulary reads its last row, as the JAX
+    package's gather clamps it (the tiny test configs' vocabularies are
+    smaller than the tokenizer's)."""
+    table = params["text"]["token_embedding"]
+    tokens = tokens.clamp(max=table.shape[-2] - 1)
+    if table.dim() == 3:
+        return table[torch.arange(table.shape[0], device=tokens.device).view(-1, *([1] * (tokens.dim() - 1))), tokens]
+    return table[tokens]
+
+
 def encode_text_embeds(params, cfg: ClipConfig, embeds, eot_index, attn="dense"):
     """Text features from pre-assembled token embeddings [B, T, D]; the
-    pooled position per row is ``eot_index`` [B] (argmax of the token ids)."""
+    pooled position per row is ``eot_index`` [B] (argmax of the token ids).
+    Per-episode weights (``positional_embedding [N, T, D]``, ``ln_final_*
+    [N, D]``, ``projection [N, D, E]``, blocks ``[N, L, ...]``) take embeds
+    ``[N, B, T, D]`` and ``eot_index [N, B]`` and give ``[N, B, E]``."""
     t = params["text"]
-    B, T, _ = embeds.shape
-    x = embeds + t["positional_embedding"][:T].to(embeds.dtype)
+    T, D = embeds.shape[-2:]
+    pos = t["positional_embedding"][..., :T, :].to(embeds.dtype)
+    x = embeds + (pos[:, None] if pos.dim() == 3 else pos)
     x = L.transformer(x, t["blocks"], cfg.text_heads, mask=L.causal_mask(T, x.device), attn=attn)
     x = L.layer_norm(x, t["ln_final_w"], t["ln_final_b"])
-    pooled = x[torch.arange(B, device=x.device), eot_index.to(x.device)]
+    eot = eot_index.to(x.device)
+    pooled = torch.gather(x, -2, eot[..., None, None].expand(*eot.shape, 1, D)).squeeze(-2)
     return L.linear(pooled, t["projection"])
 
 
 def encode_text(params, cfg: ClipConfig, tokens, attn="dense"):
-    """Pooled text features from token ids [B, T] (T <= context_length). An
-    id past the vocabulary reads its last row, as the JAX package's gather
-    clamps it (the tiny test configs' vocabularies are smaller than the
-    tokenizer's)."""
-    table = params["text"]["token_embedding"]
-    embeds = table[tokens.clamp(max=table.shape[0] - 1)]
-    return encode_text_embeds(params, cfg, embeds, tokens.argmax(dim=-1), attn=attn)
+    """Pooled text features from token ids [B, T] (T <= context_length), or
+    ``[N, B, T]`` with per-episode weights (``encode_text_embeds``; the
+    table ``[N, V, D]`` or shared)."""
+    return encode_text_embeds(params, cfg, embed_tokens(params, tokens), tokens.argmax(dim=-1), attn=attn)
 
 
 def normalize(features, dim=-1):
     return features / features.norm(dim=dim, keepdim=True)
+
+
+def truncate_tokens(tokens):
+    """Drop the all-padding tail of token ids [C, T] (numpy): causal
+    attention + EOT pooling make positions past max(eot) dead compute
+    (exact, not approximate)."""
+    t_max = int(tokens.argmax(axis=-1).max()) + 1
+    t_max = min(tokens.shape[1], -(-t_max // 8) * 8)
+    return tokens[:, :t_max]
+
+
+@torch.no_grad()
+def encode_token_batches(params, cfg: ClipConfig, tokens, batch_size: int = 256, attn: str = "dense"):
+    """Normalized text features [C, E] of token ids [C, T] (numpy), encoded in batches."""
+    tokens = tokens.astype("int64")
+    device = params["logit_scale"].device
+    feats = [encode_text(params, cfg, torch.as_tensor(tokens[s : s + batch_size], device=device), attn=attn)
+             for s in range(0, tokens.shape[0], batch_size)]
+    return normalize(torch.cat(feats).float())
 
 
 # ---------------------------------------------------------------------------

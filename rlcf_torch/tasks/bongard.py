@@ -51,6 +51,7 @@ class BongardTTA:
         self.prompt_state = None
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
+        self.text_attn = clip_model.text_attn(self.device)
 
     def setup(self):
         classnames = ["X", "X"] if self.learned_cls else ["True", "False"]
@@ -60,7 +61,7 @@ class BongardTTA:
 
     def text_features(self, tr):
         """Normalized text features [N, 2, E] of the trainables ``tr`` (ctx [N, n_ctx, D], cls [N, 2, D])."""
-        return prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, tr["ctx"], self.attn,
+        return prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, tr["ctx"], self.text_attn,
                                     tr.get("cls"))
 
     @torch.no_grad()

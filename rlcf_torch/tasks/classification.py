@@ -62,24 +62,11 @@ def normalize_u8_patch_tokens(tokens):
     return (tokens.float() / 255.0 - mean) / std
 
 
-def truncate_tokens(tokens: np.ndarray) -> np.ndarray:
-    """Drop the all-padding tail: causal attention + EOT pooling make
-    positions past max(eot) dead compute (exact, not approximate)."""
-    t_max = int(tokens.argmax(axis=-1).max()) + 1
-    t_max = min(tokens.shape[1], -(-t_max // 8) * 8)
-    return tokens[:, :t_max]
-
-
-@torch.no_grad()
 def compute_class_features(params, cfg, classnames: Sequence[str], prompt_prefix: str = "a photo of a",
                            batch_size: int = 256, attn: str = "dense"):
     """Normalized class text features [C, E], computed in batches."""
-    tokens = truncate_tokens(tokenize(assemble_prompts(classnames, prompt_prefix))).astype(np.int64)
-    device = params["logit_scale"].device
-    feats = [clip_model.encode_text(params, cfg, torch.as_tensor(tokens[s : s + batch_size], device=device),
-                                    attn=attn)
-             for s in range(0, tokens.shape[0], batch_size)]
-    return clip_model.normalize(torch.cat(feats).float())
+    tokens = clip_model.truncate_tokens(tokenize(assemble_prompts(classnames, prompt_prefix)))
+    return clip_model.encode_token_batches(params, cfg, tokens, batch_size, attn)
 
 
 def classify_logits(params, cfg, images, class_features, attn: str = "dense"):
@@ -168,6 +155,7 @@ class PromptTTAClassifier:
         self.prompt_state = None
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
+        self.text_attn = clip_model.text_attn(self.device)
         self.reward_attn = clip_model.best_attn(getattr(reward, "cfg", None), self.device)
 
     def setup(self, classnames: Sequence[str]):
@@ -188,7 +176,7 @@ class PromptTTAClassifier:
 
     def text_features(self, ctx):
         """Normalized class text features [N, C, E] for contexts [N, n_ctx, D]."""
-        return prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.attn)
+        return prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.text_attn)
 
     @torch.no_grad()
     def prepare_tokens(self, ptoks, rtoks=None):
@@ -403,6 +391,7 @@ class EncoderTTAClassifier:
         self.remat = remat
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
+        self.text_attn = clip_model.text_attn(self.device)
         self.reward_attn = clip_model.best_attn(reward.cfg, self.device)
         if only_norm:
             self.trainable0, self.frozen_visual = Po.partition(clip_params["visual"], Po.norm_only_filter)
@@ -414,7 +403,7 @@ class EncoderTTAClassifier:
 
     def setup(self, classnames: Sequence[str]):
         self.class_features = compute_class_features(self.clip_params, self.clip_cfg, classnames,
-                                                     self.prompt_prefix, attn=self.attn)
+                                                     self.prompt_prefix, attn=self.text_attn)
         self.reward.set_class_features(tokenize(assemble_prompts(classnames, self.prompt_prefix)))
         self._episode = make_tta_episode(self.policy_logits, self.reward_image_sim, self.reward.score_samples,
                                          self.ecfg, teacher_scale=self.reward.params["logit_scale"].exp().float(),
@@ -533,6 +522,7 @@ class CoCoOpTTAClassifier:
         self.n_ctx = n_ctx
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
+        self.text_attn = clip_model.text_attn(self.device)
         self.meta_net = ({k: torch.as_tensor(v).to(self.device) for k, v in meta_net.items()} if meta_net else
                          init_meta_net(clip_cfg.embed_dim, clip_cfg.text_width, self.device))
         self.ctx0_override = ctx0
@@ -547,7 +537,7 @@ class CoCoOpTTAClassifier:
 
     def policy_logits(self, ctx, cache, idx):
         """Logits [N, k, C] of the views ``idx [N, k]`` under per-episode contexts ``ctx [N, n_ctx, D]``."""
-        tf = prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.attn)
+        tf = prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.text_attn)
         feats = take_rows(cache["img_feats"], idx)
         return self.clip_params["logit_scale"].exp().float() * torch.einsum("nke,nce->nkc", feats, tf)
 

@@ -1,4 +1,5 @@
-"""Run logs: append-only ``log.txt`` and ``results.json`` (`TPT/tpt_cls_rl.py:199-207`)."""
+"""Run logs: append-only ``log.txt``, ``results.json`` (`TPT/tpt_cls_rl.py:199-207`)
+and JSON result lines."""
 
 from __future__ import annotations
 
@@ -19,6 +20,11 @@ class RunLogger:
                 fh.write(line.rstrip("\n") + "\n")
         for line in lines:
             print(line, flush=True)
+
+    def result_line(self, payload: dict, name: str = "evaluate.txt"):
+        """Append one JSON line (`lavis/tasks/retrieval.py:103-106`)."""
+        with open(os.path.join(self.dir, name), "a") as fh:
+            fh.write(json.dumps(payload) + "\n")
 
     def results_json(self, results: dict, name: str = "results.json"):
         with open(os.path.join(self.dir, name), "a+") as fh:

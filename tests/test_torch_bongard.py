@@ -45,7 +45,7 @@ def test_adapt_tasks_matches_jax(towers, learned_cls, u8, attn, ctx_init):
     ek = dict(tta_steps=3, lr=0.05, weight_decay=5e-4)
     jtta = JB.BongardTTA(jp, jcfg, JEpisodeConfig(**ek), ctx_init=ctx_init, n_ctx=2, learned_cls=learned_cls).setup()
     ttta = TB.BongardTTA(tp, tcfg, EpisodeConfig(**ek), ctx_init=ctx_init, n_ctx=2, learned_cls=learned_cls)
-    ttta.attn = attn   # "fused" runs the kernel's plain version on the CPU
+    ttta.attn = ttta.text_attn = attn   # "fused" runs the kernel's plain version on the CPU
     ttta.setup()
     imgs = _task_images(u8)
     jl, jaux = jtta.adapt_tasks(imgs, LABELS)

@@ -42,3 +42,18 @@ def test_smoke_trees_load_through_the_port(tmp_path):
     task = tasks[7]
     assert len(task["pos_support"]) == len(task["neg_support"]) == 6 and task["annotation"] == "ride horse_7"
     assert task["pos_query"].mean() > task["neg_query"].mean()
+
+
+def test_smoke_retrieval_tree_loads_through_the_port(tmp_path):
+    """The smoke script's karpathy-format tree is read by the port's
+    annotation loader: its images, its captions through the BLIP cleaning
+    (as ``retrieval_tree_captions`` gives them) and the ground-truth maps."""
+    from rlcf_torch.data.transforms import preprocess
+    from rlcf_torch.tasks.retrieval import load_karpathy_annotations
+
+    ann, root = chip_smoke.write_retrieval_tree(str(tmp_path / "coco"), 4, caps_per_image=3, size=(30, 50))
+    gallery = load_karpathy_annotations(ann, root)
+    assert len(gallery.image_paths) == 4 and gallery.texts == chip_smoke.retrieval_tree_captions(4, 3)
+    assert gallery.img2txt[1] == [3, 4, 5] and gallery.txt2img[5] == 1
+    assert gallery.image_paths[2].endswith(".png") and preprocess(gallery.image_paths[2], 32).shape == (32, 32, 3)
+    assert all(t == t.lower() and not t.endswith(".") for t in gallery.texts)

@@ -44,7 +44,7 @@ def test_cocoop_adapt_matches_jax(towers, steps, u8, attn):
     jclf = JT.CoCoOpTTAClassifier(jp, jcfg, JEpisodeConfig(**ek)).setup(CLASSNAMES)
     meta = {k: np.array(v) for k, v in jclf.meta_net.items()}
     tclf = TT.CoCoOpTTAClassifier(tp, tcfg, EpisodeConfig(**ek), meta_net=meta)
-    tclf.attn = attn   # "fused" runs the kernel's plain version on the CPU
+    tclf.attn = tclf.text_attn = attn   # "fused" runs the kernel's plain version on the CPU
     tclf.setup(CLASSNAMES)
     rng = np.random.default_rng(1)
     views = (rng.integers(0, 256, size=(3, 16, 32, 32, 3), dtype=np.uint8) if u8

@@ -787,3 +787,100 @@ def test_augmix_views_counts_one_launch(dev):
     out = X.fused_views(imgs, torch.Generator(device=dev).manual_seed(0), n_views=V, resolution=R, src_size=S)
     torch.cuda.synchronize()
     assert out.shape == (2, V, 3, R, R) and out.is_cuda and X.LAUNCHES["augmix"] == 1
+
+
+def _retrieval_engines(dev, direction, dtype=torch.float32, **kw):
+    """One RetrievalTTA on the card and one on the CPU, same weights (drawn on
+    the CPU): 64-wide heads, the vision tower at T = 65 and the text at T = 77
+    (the long kernels); galleries of 6 captions or 5 images."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.core.episode import EpisodeConfig
+    from rlcf_torch.core.reward import ClipReward, RewardConfig
+    from rlcf_torch.models import clip as TC
+    from rlcf_torch.tasks.retrieval import RetrievalTTA
+
+    cfg = TC.ClipConfig("t", 32, 64, 2, 128, 8, 128, 1, vision_heads_override=2, text_heads_override=2)
+    ecfg = EpisodeConfig(tta_steps=3, lr=1e-3, sample_k=2, adam_eps=1e-6)
+    gallery = np.random.default_rng(1).normal(size=(5, 64, 64, 3)).astype(np.float32)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        move = lambda p: Po.tree_map(lambda v: v.to(device, dtype if v.dim() else v.dtype), p)
+        reward = ClipReward(move(TC.init_clip_params(cfg, seed=1)), cfg, RewardConfig(sample_k=2))
+        tta = RetrievalTTA(move(TC.init_clip_params(cfg, seed=0)), cfg, reward, ecfg, direction=direction, **kw)
+        if direction == "i2t":
+            tta.set_text_gallery(["a dog on a beach", "a red car in the rain", "two cats on a sofa", "a plate of food",
+                                  "a man riding a wave", "a clock tower at night"])
+        else:
+            tta.set_image_gallery([gallery], [gallery])
+        out.append(tta)
+    return out
+
+
+def _retrieval_queries(direction):
+    from rlcf_torch.tokenizer import tokenize
+
+    if direction == "i2t":
+        return np.random.default_rng(2).normal(size=(3, 64, 64, 3)).astype(np.float32)
+    return tokenize(["two dogs chasing three dogs in the snow", "a red car in the rain", "a man riding a wave"])
+
+
+@pytest.mark.parametrize("direction,kw", [("i2t", {}), ("t2i", {}), ("t2i", {"momentum_update": True,
+                                                                            "update_freq": 2, "momentum": 0.5})],
+                         ids=["i2t", "t2i-factored", "t2i-momentum"])
+def test_retrieval_episode_on_the_card_matches_cpu(dev, direction, kw):
+    """fp32 retrieval episodes (3 queries in groups of 2, 3 steps) through the
+    split-TF32 kernels against the CPU's dense plain path: each step's top-k
+    equal, score rows within 2e-4 + 1e-3 relative."""
+    from rlcf_torch.core import losses as Lo
+
+    card, cpu = _retrieval_engines(dev, direction, **kw)
+    records, top_k = [], Lo.top_k_indices
+
+    def recording(x, k):
+        idx = top_k(x, k)
+        records.append(idx.cpu())
+        return idx
+
+    Lo.top_k_indices = recording
+    try:
+        A.reset_launch_counts()
+        got = card.run(iter(_retrieval_queries(direction)), 3, card.gallery_feats.shape[0], group_size=2)
+        torch.cuda.synchronize()
+        card_topk = list(records)
+        records.clear()
+        want = cpu.run(iter(_retrieval_queries(direction)), 3, cpu.gallery_feats.shape[0], group_size=2)
+    finally:
+        Lo.top_k_indices = top_k
+    assert A.LAUNCH_VARIANTS["bwd_tf32x3_long"] > 0 and A.LAUNCH_VARIANTS["tf32x3_long"] > 0
+    assert len(card_topk) == len(records) == 2 * 3 and all(torch.equal(a, b) for a, b in zip(card_topk, records))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("direction", ["i2t", "t2i"])
+def test_retrieval_bf16_episode_runs_the_long_backward(dev, direction):
+    card, _ = _retrieval_engines(dev, direction, torch.bfloat16)
+    A.reset_launch_counts()
+    scores, adapted = card.adapt_queries(_retrieval_queries(direction)[:2], return_adapted=True)
+    torch.cuda.synchronize()
+    assert A.LAUNCH_VARIANTS["bwd_mma_long"] == 3 * (2 if direction == "i2t" else 1)
+    assert scores.shape == (2, card.gallery_feats.shape[0]) and np.isfinite(scores).all()
+
+
+def test_reward_text_takes_the_kernel_under_a_resnet(dev):
+    """A ResNet reward's class features go through the fused forward on the
+    card, and equal the CPU's plain ones (fp32)."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.core.reward import ClipReward, RewardConfig
+    from rlcf_torch.models import clip as TC
+    from rlcf_torch.tokenizer import tokenize
+
+    cfg = TC.ClipConfig("rn", 64, 64, (1, 1, 1, 1), 16, None, 128, 1, text_heads_override=2)
+    params = TC.init_clip_params(cfg, seed=0)
+    card = ClipReward(Po.tree_map(lambda v: v.to(dev), params), cfg, RewardConfig())
+    A.reset_launch_counts()
+    got = card.set_class_features(tokenize(["a goldfish", "a tiger cat", "an airliner"]))
+    torch.cuda.synchronize()
+    want = ClipReward(params, cfg, RewardConfig()).set_class_features(tokenize(["a goldfish", "a tiger cat",
+                                                                               "an airliner"]))
+    assert A.LAUNCHES["fwd"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

@@ -32,7 +32,7 @@ from rlcf_torch.models import clip as TC
 from rlcf_torch.models import convert as TV
 from rlcf_torch.tasks.classification import EncoderTTAClassifier
 
-from torch_port_fixtures import jax_params_numpy, openai_state_dict, tiny_cfgs
+from torch_port_fixtures import jax_params_numpy, openai_state_dict, tiny_cfgs, weights_close
 
 CLASSNAMES = ["goldfish", "tiger cat", "airliner", "acoustic guitar", "great white shark"]
 TOL = dict(rtol=1e-3, atol=2e-4)
@@ -40,20 +40,6 @@ TOL = dict(rtol=1e-3, atol=2e-4)
 
 def _close(got, want):
     np.testing.assert_allclose(np.asarray(got.detach().float()), np.asarray(want), **TOL)
-
-
-def _weights_close(got, want_jax, lr, steps):
-    """Adapted weights: see the module docstring."""
-    flat = jax.tree_util.tree_flatten_with_path(want_jax)[0]
-    diffs = []
-    for path, w in flat:
-        t = got
-        for p in path:
-            t = t[str(getattr(p, "key", p))]
-        diffs.append(np.abs(t.detach().numpy() - np.asarray(w)).ravel())
-    d = np.concatenate(diffs)
-    assert d.max() <= 2.1 * lr * steps, d.max()
-    assert (d > 1e-5).mean() <= 0.005, (d > 1e-5).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -177,8 +163,8 @@ def test_encoder_momentum_across_two_calls_matches_jax(towers):
     assert tclf.momentum_state.counter == jclf.momentum_state.counter == 0
     anchor = Po.tree_leaves(tclf.momentum_state.reset_params)
     assert not all(torch.equal(a, b) for a, b in zip(anchor, Po.tree_leaves(tclf.trainable0)))
-    _weights_close(tclf.momentum_state.reset_params, jclf.momentum_state.reset_params, lr, 3)
-    _weights_close(tclf.momentum_state.ema_params, jclf.momentum_state.ema_params, lr, 3)
+    weights_close(tclf.momentum_state.reset_params, jclf.momentum_state.reset_params, lr, 3)
+    weights_close(tclf.momentum_state.ema_params, jclf.momentum_state.ema_params, lr, 3)
     jclf.momentum_state.reset_params = jax.tree_util.tree_map(
         lambda t: jnp.asarray(t.numpy()), tclf.momentum_state.reset_params)
     _assert_episodes_equal(jclf.adapt(_views(1)), tclf.adapt(_views(1)))
@@ -192,7 +178,7 @@ def test_encoder_adapted_weights_match_jax(towers):
     views = _views(2, n=1)
     jclf.adapt(views)
     _, aux = tclf.adapt(views, return_adapted=True)
-    _weights_close(Po.tree_map(lambda v: v[0], aux["adapted"]), jclf.momentum_state.ema_params, lr, 3)
+    weights_close(Po.tree_map(lambda v: v[0], aux["adapted"]), jclf.momentum_state.ema_params, lr, 3)
 
 
 # ---------------------------------------------------------------------------

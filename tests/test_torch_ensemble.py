@@ -195,7 +195,7 @@ def test_token_path_with_a_reward_at_another_resolution_matches_jax(attn):
     """Token mode, one ViT reward at 64 px: the selected views depatchified
     and resized (``attn="fused"`` runs the kernel's plain version here)."""
     jclf, tclf = _classifiers(POLICY, [(*VIT64, 1)])
-    tclf.attn = tclf.reward_attn = attn
+    tclf.attn = tclf.text_attn = tclf.reward_attn = attn
     toks = np.random.default_rng(4).integers(0, 256, size=(2, 16, 4, 768), dtype=np.uint8)
     _assert_same_episodes(tclf.adapt_tokens(toks), jclf.adapt_tokens(toks))
 

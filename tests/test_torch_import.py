@@ -29,9 +29,12 @@ def test_no_jax_imports(path):
 
 
 def test_cli_import_leaves_jax_unloaded():
+    """... and PyYAML, which only ``utils/config.py::load_config`` imports, when it reads a config."""
     code = ("import sys, rlcf_torch.cli.tta_cls, rlcf_torch.cli.tune_cls, rlcf_torch.tasks.classification, "
-            "rlcf_torch.core.policy, rlcf_torch.core.episode, rlcf_torch.ops.attention, rlcf_torch.ops.augmix; "
-            "bad = [m for m in ('jax', 'optax', 'rlcf_tpu') if m in sys.modules]; "
+            "rlcf_torch.core.policy, rlcf_torch.core.episode, rlcf_torch.ops.attention, rlcf_torch.ops.augmix, "
+            "rlcf_torch.cli.tta_retrieval, rlcf_torch.tasks.retrieval, rlcf_torch.metrics.retrieval, "
+            "rlcf_torch.utils.config; "
+            "bad = [m for m in ('jax', 'optax', 'rlcf_tpu', 'yaml') if m in sys.modules]; "
             "assert not bad, bad; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]

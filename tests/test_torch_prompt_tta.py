@@ -47,7 +47,7 @@ def test_adapt_tokens_matches_jax(towers, loss, attn):
                        ctx_init="a photo of a").setup(CLASSNAMES)
     tclf = PromptTTAClassifier(tp, tcfg, ClipReward(trp, tcfg, RewardConfig(sample_k=2)), EpisodeConfig(**ek),
                                ctx_init="a photo of a")
-    tclf.attn = tclf.reward_attn = attn  # "fused" runs the kernel's plain version on the CPU
+    tclf.attn = tclf.text_attn = tclf.reward_attn = attn  # "fused" runs the kernel's plain version on the CPU
     tclf.setup(CLASSNAMES)
     toks = _tokens()
     jl, jaux = jclf.adapt_tokens(toks)

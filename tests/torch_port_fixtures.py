@@ -30,6 +30,24 @@ def jax_params_numpy(params):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
+def weights_close(got, want_jax, lr, steps):
+    """Adapted weights (the port's nested dicts against JAX's pytree) within
+    2.1 * lr a step, all but 0.5% within 1e-5: AdamW moves a weight whose
+    gradient is zero in exact arithmetic, like a key bias, by +-lr a step on
+    rounding noise in either package (tests/test_torch_encoder_tta.py)."""
+    import jax
+
+    diffs = []
+    for path, w in jax.tree_util.tree_flatten_with_path(want_jax)[0]:
+        t = got
+        for p in path:
+            t = t[str(getattr(p, "key", p))]
+        diffs.append(np.abs(t.detach().numpy() - np.asarray(w)).ravel())
+    d = np.concatenate(diffs)
+    assert d.max() <= 2.1 * lr * steps, d.max()
+    assert (d > 1e-5).mean() <= 0.005, (d > 1e-5).mean()
+
+
 def openai_state_dict(cfg, seed=0):
     """A random OpenAI-format CLIP state dict (ViT or ModifiedResNet) for ``cfg``."""
     rng = np.random.default_rng(seed)
