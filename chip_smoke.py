@@ -24,7 +24,11 @@ Phases, each fatal:
      episodes' towers at a group of 8 queries: the ViT-B/16 policy at T=197
      and its text at T=77 causal, both ways, the ViT-L/14 reward's vision and
      text forward; the COCO-size galleries' batches and ragged tails at the
-     captions' truncated T; the CLI trees' galleries); the ATTN_IMPL="flash"
+     captions' truncated T; the CLI trees' galleries); captioning's (the
+     ViT-B/16 feature tower on a group of 16 images and on the fp32 runs' 4,
+     the ViT-L/14 reward's image tower and its text on 6 captions an image at
+     T=77 causal, clipscore_eval's ViT-B/32: images at T=50, candidates and
+     references at T=77); the ATTN_IMPL="flash"
      switch of models/layers.py at T=128, 256 and 384, with the backward it takes, and
      differentiated at T=384 and 512 (causal), both directions timed there;
      the AugMix kernel at a flagship group (4 images x 64 views, 256 -> 224
@@ -86,13 +90,26 @@ Phases, each fatal:
      two timed groups per direction, a group profiled, the share of weights
      one group changed, the peak memory of groups of 1 and 2, the KD
      variant's i2t episode; REFERENCE retrieval (fp32, fused against dense,
-     one group a direction) and GRAD t2i; the RETRIEVAL line;
+     one group a direction) and GRAD t2i; the RETRIEVAL line; then caption
+     TTA as scripts/tta_capdec_c2f.sh runs it (ViT-B/16 feature CLIP,
+     ViT-L/14 reward, OPT-125m, the transformer mapper, 4 steps at lr 5e-6,
+     sample_k 6, groups of 16, random weights from seeds, a synthetic
+     50,265-entry BPE vocabulary): rlcf_torch.cli.tta_caption on a synthetic
+     COCO-caption tree of 32 images in bf16 (path "caption"; stages timed,
+     decode steps counted), one group profiled, the early exit's host check
+     timed; the CLI in fp32 on 4 images and 1 step ("caption fp32"),
+     REFERENCE caption (fp32, fused against dense, one group of 4,
+     "caption reference fp32"), rlcf_torch.cli.clipscore_eval on the bf16
+     run's captions with the tree's references ("clipscore"); the CAPTION
+     line;
   5. print the run's total seconds, the kernels line (phase 5 also holds
      that Stanford Cars' text ran mma_long at T = 24 both ways on its path,
      that the retrieval paths ran the long backward at T = 77 and at B=8
-     T=197, mma_long in bf16 and tf32x3_long in fp32, and that the reward's
-     class features took the fused forward on the flagship path), then the
-     device line last.
+     T=197, mma_long in bf16 and tf32x3_long in fp32, that the reward's
+     class features took the fused forward on the flagship path, that the
+     caption reward's text ran mma_long at B=96 T=77 and that the fp32
+     caption paths and clipscore_eval ran tf32x3_long), then the device line
+     last.
 
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -181,6 +198,14 @@ RET_TREE, RET_FP32_TREE, RET_TREE_SIZE = (16, 5), (8, 1), (240, 320)
 COCO_IMAGES, COCO_CAPTIONS_PER_IMAGE = 5000, 5
 RET_TEXT_BATCH, RET_REWARD_TEXT_BATCH, RET_IMAGE_BATCH = 256, 512, 32
 RET_TIMED_GROUPS, RET_KD_STEPS, RET_KD_SAMPLE_K = 2, 3, 20
+# captioning (A12) as scripts/tta_capdec_c2f.sh runs it: ViT-B/16 feature CLIP, ViT-L/14 reward, OPT-125m, the
+# transformer mapper (prefix 40, clip length 40, 8 layers), 4 steps at lr 5e-6, weight decay 0, sample_k 6, groups of
+# 16, the segmented beam cache; a warm-up and a timed group; the fp32 run and REFERENCE caption at a smaller depth;
+# clipscore_eval (A13) with its default ViT-B/32 in fp32, images in batches of 32, texts of up to 256
+CAP_GROUP, CAP_STEPS, CAP_LR, CAP_SAMPLE_K, CAP_SEG_LEN = 16, 4, "5e-6", 6, 16
+CAP_IMAGES, CAP_FP32_IMAGES, CAP_FP32_STEPS, CAP_REF_IMAGES, CAP_REFS = 32, 4, 1, 4, 5
+CLIPSCORE_ARCH, CLIPSCORE_IMAGE_BATCH = "ViT-B/32", 32
+EXIT_CHECK_ROUNDS = 3
 
 
 def log(msg):
@@ -1354,6 +1379,74 @@ def write_retrieval_tree(root, n_images, caps_per_image=5, size=(48, 64), seed=0
     return path, str(root)
 
 
+def write_caption_tree(root, n_images, caps_per_image=5, size=(48, 64), seed=0):
+    """A synthetic COCO-caption eval set under ``root``: random JPEG images
+    at ``val2014/COCO_val2014_<id>.jpg`` and ``annotations.json`` ([{"image":
+    rel, "image_id": id, "caption": [...]}]: ``--dataset_mode 0`` parses the
+    id from the name, 2 reads ``image_id``) with ``caps_per_image`` templated
+    captions each, and ``references.json`` ({image path: captions}, keyed as
+    the caption CLI keys ``results_clipscore.json`` under the default
+    ``--dataset_mode``, for ``clipscore_eval`` on the tree's root). Returns
+    (annotation path, image root)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    caps = retrieval_captions(n_images * caps_per_image, seed)
+    os.makedirs(os.path.join(str(root), "val2014"), exist_ok=True)
+    annotations, references = [], {}
+    for i in range(n_images):
+        image_id = 1000 + 7 * i
+        rel = f"val2014/COCO_val2014_{image_id:012d}.jpg"
+        Image.fromarray(rng.integers(0, 256, size=tuple(size) + (3,), dtype=np.uint8)).save(os.path.join(str(root), rel))
+        refs = caps[i * caps_per_image : (i + 1) * caps_per_image]
+        annotations.append({"image": rel, "image_id": image_id, "caption": refs})
+        references[rel] = refs
+    path = os.path.join(str(root), "annotations.json")
+    for name, payload in ((path, annotations), (os.path.join(str(root), "references.json"), references)):
+        with open(name, "w") as fh:
+            json.dump(payload, fh)
+    return path, str(root)
+
+
+def write_opt_vocab(root, size=50265, newline_id=50118, seed=0):
+    """A synthetic byte-level BPE vocabulary in OPT's layout under ``root``
+    (``vocab.json``, ``merges.txt``) -> their paths: ``<s>`` 0, ``<pad>`` 1,
+    ``</s>`` 2, ``<unk>`` 3, then lowercase ASCII words drawn from ``seed``,
+    each the end of a chain of merges left to right, with the leading ``Ġ``
+    and without (the ``Ġ`` chains ranked first, so that a spaced word
+    re-tokenizes to its one id), and the 256 byte symbols in the last 256 ids
+    with the newline's ``Ċ`` at ``newline_id`` (OPT's ``eos_newline_id``;
+    None leaves the byte order). Every id decodes to text."""
+    from rlcf_torch.tokenizer_gpt2 import _byte_to_unicode
+
+    b2u = _byte_to_unicode()
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words, merges, seen = [], {"Ġ": [], "": []}, set(b2u.values())
+    while len(words) < size - 4 - 256:
+        lead = "Ġ" if len(words) % 2 == 0 else ""
+        s = lead + "".join(rng.choice(letters, size=int(rng.integers(2, 9))))
+        cur = s[0]
+        for ch in s[1:]:
+            if cur + ch not in seen and len(words) < size - 4 - 256:
+                seen.add(cur + ch)
+                words.append(cur + ch)
+                merges[lead].append(f"{cur} {ch}")
+            cur += ch
+    byte_syms = list(b2u.values())
+    if newline_id is not None:   # Ċ swaps places with the byte symbol at newline_id
+        at, nl = newline_id - (size - 256), byte_syms.index(b2u[10])
+        byte_syms[at], byte_syms[nl] = byte_syms[nl], byte_syms[at]
+    tokens = ["<s>", "<pad>", "</s>", "<unk>"] + words + byte_syms
+    os.makedirs(str(root), exist_ok=True)
+    vocab, merges_path = os.path.join(str(root), "vocab.json"), os.path.join(str(root), "merges.txt")
+    with open(vocab, "w") as fh:
+        json.dump({t: i for i, t in enumerate(tokens)}, fh)
+    with open(merges_path, "w") as fh:
+        fh.write("#version: synthetic\n" + "\n".join(merges["Ġ"] + merges[""]) + "\n")
+    return vocab, merges_path
+
+
 def fine_argv(data_root, out_dir):
     """``scripts/rlcf-prompt-fine.sh`` on Stanford Cars: ViT-B/16 policy,
     ViT-L/14 reward, 5 steps at lr 7e-3, 64 views, selection 0.1, sample_k 3,
@@ -1851,6 +1944,275 @@ def retrieval(out_dir):
     return paths, line
 
 
+def caption_argv(out_dir, tree, vocab, precision="bf16", limit=CAP_IMAGES, steps=CAP_STEPS):
+    """``scripts/tta_capdec_c2f.sh``'s settings on the annotation tree ``tree``
+    = (annotation file, image root) with the synthetic vocabulary ``vocab``:
+    random OPT-125m and mapper weights from the seed (no checkpoints exist)."""
+    return ["--annotations", tree[0], "--images_root", tree[1], "--opt_vocab", vocab[0], "--opt_merges", vocab[1],
+            "--clip_model_type", POLICY, "--reward_arch", REWARD, "--normalize_prefix", "1", "--tta_steps", str(steps),
+            "--tta_lr", CAP_LR, "--weight_decay", "0.0", "--sample_k", str(CAP_SAMPLE_K), "--episode_group",
+            str(CAP_GROUP), "--decode_seg_len", str(CAP_SEG_LEN), "--limit", str(limit), "--precision", precision,
+            "--device", "cuda", "--seed", "0", "--output", out_dir]
+
+
+@contextlib.contextmanager
+def caption_stage_timer():
+    """Times each stage of ``CaptionTTA`` (synchronised at its edges) and
+    counts the decode steps each generate runs; records the last group's
+    engine and inputs. Yields ``{"ms": {stage: [ms, ...]}, "steps":
+    {stage: [n, ...]}, "last": (tta, images, embs)}``."""
+    from rlcf_torch.models import opt as O
+    from rlcf_torch.tasks.caption import CaptionTTA
+
+    rec = {"ms": {}, "steps": {}, "last": None}
+    stages = {"_generate_k": "generate", "_decode_and_retokenize": "host round trip", "_rewards": "reward",
+              "_update_step": "update", "_generate_final": "final beam", "reward_image_feats": "reward image"}
+    saved = {name: getattr(CaptionTTA, name) for name in list(stages) + ["adapt_batch"]}
+    decode_step, count = O._decode_step, [0]
+
+    def counting(*a, **k):
+        count[0] += 1
+        return decode_step(*a, **k)
+
+    def timed(name):
+        def run(self, *a, **k):
+            torch.cuda.synchronize()
+            count[0], t0 = 0, time.perf_counter()
+            out = saved[name](self, *a, **k)
+            torch.cuda.synchronize()
+            rec["ms"].setdefault(stages[name], []).append(1e3 * (time.perf_counter() - t0))
+            if name in ("_generate_k", "_generate_final"):
+                rec["steps"].setdefault(stages[name], []).append(count[0])
+            if name == "_decode_and_retokenize":   # the update's padded caption length
+                rec["steps"].setdefault("update tokens", []).append(out[1].shape[1])
+            return out
+        return run
+
+    def recording(self, images, embs, trace=None):
+        rec["last"] = (self, images, embs)
+        return saved["adapt_batch"](self, images, embs, trace=trace)
+
+    for name in stages:
+        setattr(CaptionTTA, name, timed(name))
+    CaptionTTA.adapt_batch = recording
+    O._decode_step = counting
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(CaptionTTA, name, fn)
+        O._decode_step = decode_step
+
+
+def run_caption_cli(path, argv, n_images, precision):
+    """Phase 4g (a): ``tta_caption`` through its entry point, its stages timed
+    (``caption_stage_timer``), the launch counters set to 0 just before and
+    read just after; every caption a string, every trace reward finite."""
+    from rlcf_torch.cli import tta_caption
+    from rlcf_torch.ops import attention as A
+
+    torch.cuda.reset_peak_memory_stats()
+    with caption_stage_timer() as rec:
+        A.reset_launch_counts()                 # counts start at 0 just before the path
+        t0 = time.perf_counter()
+        result = tta_caption.main(argv)
+        wall = time.perf_counter() - t0
+        launches, by_shape, variants = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES), dict(A.LAUNCH_VARIANTS)   # read just after
+    out_dir = argv[argv.index("--output") + 1]
+    with open(os.path.join(out_dir, "results_clipscore.json")) as fh:
+        per_image = json.load(fh)
+    with open(os.path.join(out_dir, "caption_trace.txt")) as fh:
+        rewards = [float(line.split("]")[0].strip().lstrip("[")) for line in fh if line.startswith("  [")]
+    groups = -(-n_images // CAP_GROUP)
+    captions = [r["caption"] for r in result["results"]]
+    if len(captions) != n_images or len(per_image) != n_images or not all(isinstance(c, str) for c in captions) \
+            or not rewards or not np.isfinite(rewards).all() or not launches["fwd"]:
+        raise AssertionError(f"{path}: {len(captions)} captions of {n_images}, {len(rewards)} rewards (finite?), "
+                             f"or it did not go through the kernels: launches={launches}")
+    secs = result["group_seconds"]
+    return {"path": path, "precision": precision, "groups": groups, "group_seconds": secs,
+            "img_per_s": CAP_GROUP * (len(secs) - 1) / sum(secs[1:]) if len(secs) > 1 else None,
+            "wall_s": wall, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+            "launch_variants": variants, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()},
+            "stage_ms": rec["ms"], "decode_steps": rec["steps"], "captions": captions[:4],
+            "distinct_captions": len(set(captions))}, rec["last"], out_dir
+
+
+def exit_check_cost(tta, images, embs):
+    """The early exit's host check (``models/opt.py::_all_finished``, a sync
+    each token): one group's K-beam generate timed with it and without it
+    (every step run), EXIT_CHECK_ROUNDS times each in turns (medians). With
+    random weights no beam ends early, so both run every step and give the
+    same sequences."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.models import opt as O
+
+    dev = tta.device
+    embs = torch.as_tensor(embs, dtype=torch.float32, device=dev)
+    mappers = Po.tree_map(lambda a: a.detach()[None].expand(embs.shape[0], *a.shape), tta.params["mapper"])
+    gen = lambda: tta._generate_k(mappers, embs, None)
+    check, out = O._all_finished, {}
+    try:
+        for rnd in range(EXIT_CHECK_ROUNDS):   # in turns: host-bound times drift within a call
+            for label, fn in (("checked", check), ("unchecked", lambda f: False)):
+                O._all_finished = fn
+                if rnd == 0:
+                    gen()   # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                seqs = gen()
+                torch.cuda.synchronize()
+                out.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+                if not torch.equal(seqs, out.setdefault("seqs", seqs)):
+                    raise AssertionError("the generate without the early exit's check gave other sequences")
+    finally:
+        O._all_finished = check
+    ms = {label: float(np.median(out[label])) for label in ("checked", "unchecked")}
+    return {"generate_ms_checked": ms["checked"], "generate_ms_unchecked": ms["unchecked"],
+            "exit_check_rounds": EXIT_CHECK_ROUNDS,
+            "exit_check_ms_per_token": (ms["checked"] - ms["unchecked"]) / tta.max_new_tokens}
+
+
+def caption_reference(args_fp32, tree_images, n_images=CAP_REF_IMAGES):
+    """Phase 4g (c), REFERENCE caption: one fp32 group of CAP_REF_IMAGES images
+    through ``adapt_batch`` with every CLIP tower on the fused attention, then
+    on the plain (dense) one (the CLI's ``args_fp32``), the same OPT and mapper: step 0's sampled
+    captions equal, its rewards within 2e-4 + 2e-4 |dense|; later steps'
+    differing captions printed with the rewards' gap."""
+
+    from rlcf_torch.cli import common, tta_caption
+    from rlcf_torch.models import clip as clip_model
+    from rlcf_torch.models import mappers as M
+    from rlcf_torch.models import opt as O
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.tasks import caption as Cap
+    from rlcf_torch.tokenizer_gpt2 import load_gpt2_tokenizer
+
+    args = tta_caption.get_args(args_fp32)
+    dev = torch.device(args.device)
+    clip_params, clip_cfg = common.load_policy(argparse.Namespace(**{**vars(args), "arch": args.clip_model_type}), dev)
+    reward = common.build_reward(args, dev)
+    ocfg = O.OPT_CONFIGS[args.llm]
+    mcfg = M.MapperConfig(args.mapping_type, clip_dim=clip_cfg.embed_dim, llm_dim=ocfg.embed_dim,
+                          prefix_length=args.prefix_length, clip_length=args.clip_length)
+    ccfg = Cap.CaptionModelConfig(mapper=mcfg, opt=ocfg, normalize_prefix=True)
+    tta = Cap.CaptionTTA(Cap.init_caption_params(args.seed, ccfg, device=dev), ccfg, reward,
+                         load_gpt2_tokenizer(args.opt_vocab, args.opt_merges), tta_steps=args.tta_steps,
+                         lr=args.tta_lr, weight_decay=args.weight_decay, sample_k=args.sample_k,
+                         decode_seg_len=args.decode_seg_len, seed=args.seed)
+    images = torch.as_tensor(np.stack(tree_images[:n_images]), device=dev)
+    out = {}
+    A.reset_launch_counts()                 # the REFERENCE path: counts from 0
+    for attn in ("fused", "dense"):
+        tta.reward_attn = reward.text_attn = attn
+        with torch.no_grad():
+            embs = clip_model.encode_image(clip_params, clip_cfg, images, attn=attn).float().cpu().numpy()
+        embs = embs / np.linalg.norm(embs, axis=-1, keepdims=True)
+        trace = []
+        captions = tta.adapt_batch(images, embs, trace=trace)
+        out[attn] = captions, trace
+        if attn == "fused":
+            by_shape = {" ".join(map(str, k)): v for k, v in A.LAUNCH_SHAPES.items()}   # read just after the fused run
+    (fc, ftr), (dc, dtr) = out["fused"], out["dense"]
+    same0 = [t for t, _ in ftr[0]] == [t for t, _ in dtr[0]]
+    r0 = np.array([[r for _, r in ftr[0]], [r for _, r in dtr[0]]])
+    share = float((np.abs(r0[0] - r0[1]) / (2e-4 + 2e-4 * np.abs(r0[1]))).max())
+    flips = [{"step": s, "index": i, "fused": ft, "dense": dt, "reward_gap": fr - dr}
+             for s in range(1, len(ftr)) for i, ((ft, fr), (dt, dr)) in enumerate(zip(ftr[s], dtr[s])) if ft != dt]
+    log(f"REFERENCE caption fp32 full width, fused vs dense attention in every CLIP tower, one group of "
+        f"{n_images}: step 0 sampled captions equal={same0}; step 0 rewards worst / (2e-4 + 2e-4 |dense|) "
+        f"{share:.3f} (max |d reward| {float(np.abs(r0[0] - r0[1]).max()):.3e}); final captions equal={fc == dc}; "
+        f"later flips {flips[:6]} ({len(flips)} in all)")
+    if not same0 or share > 1:
+        raise AssertionError("the fused-attention caption group disagrees with the dense one in fp32")
+    return {"path": "caption reference fp32", "launches_by_shape": by_shape}, {
+        "step0_captions_equal": same0, "step0_reward_worst_share_of_tolerance": share,
+        "final_captions_equal": fc == dc, "later_flips": len(flips)}
+
+
+def run_clipscore(path, results_json, image_root, references, extra=("--arch", CLIPSCORE_ARCH, "--device", "cuda")):
+    """Phase 4g (d): ``clipscore_eval`` (ViT-B/32, fp32, its default) on a
+    caption run's ``results_clipscore.json`` with the tree's references, the
+    counters set to 0 just before and read just after: finite scores, every
+    image scored, the fused forward launched."""
+    from rlcf_torch.cli import clipscore_eval
+    from rlcf_torch.ops import attention as A
+
+    A.reset_launch_counts()                 # counts start at 0 just before the path
+    t0 = time.perf_counter()
+    out = clipscore_eval.main([results_json, image_root, "--references_json", references, "--seed", "0", *extra])
+    secs = time.perf_counter() - t0
+    launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES)   # read just after
+    n = len(out["per_instance"])
+    if not (np.isfinite(out["clipscore"]) and np.isfinite(out["ref_clipscore"])) or not launches["fwd"]:
+        raise AssertionError(f"{path}: clipscore {out['clipscore']} ref {out.get('ref_clipscore')} or it did not "
+                             f"go through the kernel: launches={launches}")
+    return {"path": path, "seconds": secs, "img_per_s": n / secs, "images": n, "clipscore": out["clipscore"],
+            "ref_clipscore": out["ref_clipscore"], "bleu4": out["bleu"][3], "cider": out["cider"],
+            "meteor_mode": out["meteor_mode"], "launches": launches,
+            "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()}}
+
+
+def captioning(out_dir):
+    """Phase 4g: caption TTA as scripts/tta_capdec_c2f.sh runs it, at full
+    width (ViT-B/16 feature CLIP, ViT-L/14 reward, OPT-125m, the transformer
+    mapper, random weights from seeds, the synthetic 50,265-entry vocabulary):
+    (a) the CLI on a synthetic COCO-caption tree of CAP_IMAGES images, bf16,
+    a warm-up and a timed group, stages timed, then one group profiled and the
+    early exit's host check timed; (b) the CLI in fp32 at a smaller depth;
+    (c) REFERENCE caption; (d) clipscore_eval on (a)'s captions. Returns the
+    paths and the CAPTION line's numbers."""
+    from rlcf_torch.data.transforms import preprocess_many
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(out_dir), "chip_smoke_caption")
+    tree = write_caption_tree(os.path.join(root, "coco"), CAP_IMAGES, size=RET_TREE_SIZE)
+    vocab = write_opt_vocab(os.path.join(root, "vocab"))
+    path, (tta, images, embs), run_dir = run_caption_cli(
+        "caption", caption_argv(os.path.join(root, "bf16"), tree, vocab), CAP_IMAGES, "bf16")
+    log("CAPTION_PATH " + json.dumps(path))
+    prof = profile_episode(lambda: tta.adapt_batch(images, embs), f"caption group of {CAP_GROUP}")
+    sync = exit_check_cost(tta, images, embs)
+    del tta, images, embs
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32, _, _ = run_caption_cli("caption fp32", caption_argv(os.path.join(root, "fp32"), tree, vocab, "fp32",
+                                                               CAP_FP32_IMAGES, CAP_FP32_STEPS),
+                                 CAP_FP32_IMAGES, "fp32")
+    log("CAPTION_PATH " + json.dumps(fp32))
+    with open(tree[0]) as fh:
+        ann = json.load(fh)
+    ref_images = preprocess_many([os.path.join(tree[1], a["image"]) for a in ann[:CAP_REF_IMAGES]], RES)
+    ref_path, reference = caption_reference(caption_argv(os.path.join(root, "ref"), tree, vocab, "fp32"), ref_images)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip = run_clipscore("clipscore", os.path.join(run_dir, "results_clipscore.json"), tree[1],
+                         os.path.join(root, "coco", "references.json"))
+    log("CLIPSCORE_PATH " + json.dumps(clip))
+    timed = lambda stage: path["stage_ms"].get(stage, [])
+    per_group = lambda stage: sum(timed(stage)[len(timed(stage)) // path["groups"]:]) if timed(stage) else 0.0
+    steps = path["decode_steps"]
+    gen_steps = sum(steps["generate"][len(steps["generate"]) // path["groups"]:])
+    line = {"img_per_s": path["img_per_s"], "ms_per_group": 1e3 * sum(path["group_seconds"][1:]) /
+            (len(path["group_seconds"]) - 1),
+            "stage_ms_per_group": {s: per_group(s) for s in ("generate", "host round trip", "reward", "update",
+                                                             "final beam", "reward image")},
+            "decode_steps_per_group": {"generate": gen_steps,
+                                       "final beam": sum(steps["final beam"][len(steps["final beam"]) // path["groups"]:])},
+            "ms_per_decode_token": per_group("generate") / max(gen_steps, 1),
+            "update_caption_tokens": steps["update tokens"][len(steps["update tokens"]) // path["groups"]:],
+            "group_note": "the timed group is the second (the first warms up); the stage split sums the timed "
+                          "group's calls; random weights: no beam ends early, so every generate runs all 50 tokens "
+                          "(the worst case)",
+            **sync, **prof, "peak_mem_gib": path["peak_mem_gib"], "distinct_captions": path["distinct_captions"],
+            "fp32_group_seconds": fp32["group_seconds"], "fp32_peak_mem_gib": fp32["peak_mem_gib"],
+            "reference": reference, "clipscore_eval_s": clip["seconds"], "clipscore_img_per_s": clip["img_per_s"],
+            "clipscore": clip["clipscore"], "ref_clipscore": clip["ref_clipscore"],
+            "launches_per_image_by_shape": {k: v / CAP_IMAGES for k, v in path["launches_by_shape"].items()}}
+    return [path, fp32, ref_path, clip], line
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1956,6 +2318,15 @@ def main():
                    ("fwd", n_img * n_caps, t_tree, 12, True, "retrieval CLI reward text gallery"),
                    ("fwd", n_img, 197, 12, False, "retrieval CLI policy image gallery"),
                    ("fwd", n_img, 257, 16, False, "retrieval CLI reward image gallery")]
+    # captioning: the feature CLIP on a group (and on the fp32 runs' group), the reward's image tower once a group
+    # and its text on the group's sample_k captions every step (T = 77, causal), clipscore_eval's ViT-B/32 (image
+    # batches at T = 50, the candidates and the references at T = 77)
+    for n in (CAP_GROUP, CAP_FP32_IMAGES):
+        shapes += [("fwd", n, 197, 12, False, "caption feature"), ("fwd", n, 257, 16, False, "caption reward image"),
+                   ("fwd", n * CAP_SAMPLE_K, 77, 12, True, "caption reward text")]
+    shapes += [("fwd", CLIPSCORE_IMAGE_BATCH, 50, 12, False, "clipscore image"),
+               ("fwd", CAP_IMAGES, 77, 8, True, "clipscore candidates"),
+               ("fwd", CAP_IMAGES * CAP_REFS, 77, 8, True, "clipscore references")]
     entries, seen_shapes = [], set()
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
@@ -2062,6 +2433,9 @@ def main():
     ret_paths, ret = retrieval(out_dir)
     paths += ret_paths
     log("RETRIEVAL " + json.dumps(ret))
+    cap_paths, cap = captioning(out_dir)
+    paths += cap_paths
+    log("CAPTION " + json.dumps(cap))
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -2106,6 +2480,14 @@ def main():
     k = " ".join(map(str, ("fwd", 200, t_text, 12, str(torch.bfloat16))))
     if not launched.get(k, {}).get("fused"):
         raise AssertionError(f"the reward's class features ({k}) did not take the fused forward on the flagship path")
+    # captioning: the reward's text on mma_long at B = 96, T = 77 every step; the fp32 paths and clipscore_eval on
+    # the fused forward's tf32x3_long
+    k = " ".join(map(str, ("fwd", CAP_GROUP * CAP_SAMPLE_K, 77, 12, str(torch.bfloat16))))
+    if checked[k]["variant"] != "mma_long" or not launched.get(k, {}).get("caption"):
+        raise AssertionError(f"the caption reward's text ({k}) did not run mma_long on the path caption")
+    for path in ("caption fp32", "caption reference fp32", "clipscore"):
+        if not any(by_path.get(path) and checked[key]["variant"] == "tf32x3_long" for key, by_path in launched.items()):
+            raise AssertionError(f"the path {path} launched no tf32x3_long forward")
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:

@@ -68,6 +68,28 @@ def from_jax_params(tree, cfg: ClipConfig, dtype=None, device="cpu"):
     return {k: convert(v) if k == "visual" else _tree_map(leaf, v) for k, v in tree.items()}
 
 
+def _numpy_leaf(a, device="cpu"):
+    """One numpy leaf of a JAX pytree as a tensor of the same dtype (int8 stays int8)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has no torch.from_numpy path
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def from_jax_opt_params(tree, device="cpu"):
+    """The JAX package's OPT parameters (numpy leaves, the layout of
+    ``init_opt_params``/``convert_opt_state_dict``, int8 ``{"q8", "sc"}``
+    entries of ``quantize_opt_params`` included) -> the port's: the same
+    layout, leaf for leaf."""
+    return _tree_map(lambda a: _numpy_leaf(a, device), tree)
+
+
+def from_jax_mapper_params(tree, device="cpu"):
+    """The JAX package's mapper parameters (numpy leaves; a per-image stack
+    keeps its leading axis) -> the port's, leaf for leaf."""
+    return _tree_map(lambda a: _numpy_leaf(a, device), tree)
+
+
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
     """Load a torch checkpoint (eager or TorchScript archive) as CPU tensors."""
     try:

@@ -1,5 +1,5 @@
-"""Run logs: append-only ``log.txt``, ``results.json`` (`TPT/tpt_cls_rl.py:199-207`)
-and JSON result lines."""
+"""Run logs: append-only ``log.txt``, ``results.json`` (`TPT/tpt_cls_rl.py:199-207`),
+JSON result lines, and the caption TTA's sampled-caption/reward trace."""
 
 from __future__ import annotations
 
@@ -33,3 +33,27 @@ class RunLogger:
     def elapsed_line(self, label: str) -> str:
         dt = time.time() - self._t0
         return f"The running time for {label} is {dt // 3600:.1f} Hour {dt % 3600 / 60:.1f} Minute"
+
+
+class CaptionTraceLogger:
+    """Per-image sampled-caption/reward trace (`TxtLogger`, `capdec_tta.py:22-46`),
+    in the JAX package's file format."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._fh = open(path, "a")
+
+    def log_id(self, image_id: str):
+        self._fh.write(f"\n==== {image_id} ====\n")
+
+    def log_samples(self, captions, rewards):
+        for c, r in zip(captions, rewards):
+            self._fh.write(f"  [{r:+.4f}] {c}\n")
+
+    def log_final(self, caption: str):
+        self._fh.write(f"  FINAL: {caption}\n")
+        self._fh.flush()
+
+    def close(self):
+        self._fh.close()

@@ -1,11 +1,16 @@
 """The smoke script's own bookkeeping, on the CPU: what it counts as device
-time in a profile."""
+time in a profile, the trees and vocabulary it writes, its caption phase at a
+tiny size."""
 
 import importlib.util
+import os
 import pathlib
 import types
 
+import numpy as np
 import torch
+
+from torch_port_fixtures import one_thread  # noqa: F401
 
 _PATH = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
 _SPEC = importlib.util.spec_from_file_location("chip_smoke", _PATH)
@@ -57,3 +62,48 @@ def test_smoke_retrieval_tree_loads_through_the_port(tmp_path):
     assert gallery.img2txt[1] == [3, 4, 5] and gallery.txt2img[5] == 1
     assert gallery.image_paths[2].endswith(".png") and preprocess(gallery.image_paths[2], 32).shape == (32, 32, 3)
     assert all(t == t.lower() and not t.endswith(".") for t in gallery.texts)
+
+
+def test_caption_phase_on_the_cpu(tmp_path, monkeypatch, one_thread):
+    """The smoke script's caption phase at a tiny size on the CPU, the card's
+    synchronisation and memory counters stubbed: the CLI with its stages
+    timed, the early exit's check timed (the beams may end early here: without
+    the check the sequences must not change), REFERENCE caption and clipscore_eval on the
+    run's captions. The CPU launches no kernel: each path is credited one
+    forward launch so that the checks on the counts run."""
+    import torch
+
+    from rlcf_torch.ops import attention as A
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    reset = A.reset_launch_counts
+
+    def credited():
+        reset()
+        A.LAUNCHES["fwd"] = 1
+
+    monkeypatch.setattr(A, "reset_launch_counts", credited)
+    tree = chip_smoke.write_caption_tree(str(tmp_path / "coco"), 3, caps_per_image=2, size=(40, 56))
+    vocab = chip_smoke.write_opt_vocab(str(tmp_path / "vocab"), size=600, newline_id=None)
+    tiny = ["--llm", "test-tiny-opt", "--prefix_length", "4", "--clip_length", "2", "--clip_model_type", "test-small",
+            "--reward_arch", "test-small", "--resolution", "64", "--episode_group", "2", "--device", "cpu"]
+    monkeypatch.setattr(chip_smoke, "CAP_GROUP", 2)
+    monkeypatch.setattr(chip_smoke, "EXIT_CHECK_ROUNDS", 1)
+    path, (tta, images, embs), run_dir = chip_smoke.run_caption_cli(
+        "caption", chip_smoke.caption_argv(str(tmp_path / "run"), tree, vocab, "fp32", 3, 2) + tiny, 3, "fp32")
+    assert path["groups"] == 2 and len(path["group_seconds"]) == 2 and len(path["captions"]) == 3
+    assert len(path["stage_ms"]["generate"]) == 2 * 2 and len(path["stage_ms"]["final beam"]) == 2
+    assert all(0 < n <= 50 for n in path["decode_steps"]["generate"])
+    assert len(embs) == 1   # the last group: one image
+    sync = chip_smoke.exit_check_cost(tta, images, embs)
+    assert sync["generate_ms_checked"] > 0 and sync["generate_ms_unchecked"] > 0
+    ref_path, ref = chip_smoke.caption_reference(
+        chip_smoke.caption_argv(str(tmp_path / "ref"), tree, vocab, "fp32", 2, 2) + tiny,
+        [np.random.default_rng(0).normal(size=(64, 64, 3)).astype(np.float32) for _ in range(2)], n_images=2)
+    assert ref["step0_captions_equal"] and ref["step0_reward_worst_share_of_tolerance"] <= 1
+    clip = chip_smoke.run_clipscore("clipscore", os.path.join(run_dir, "results_clipscore.json"), tree[1],
+                                    os.path.join(str(tmp_path / "coco"), "references.json"),
+                                    extra=("--arch", "test-small", "--resolution", "64", "--device", "cpu"))
+    assert clip["images"] == 3 and np.isfinite(clip["clipscore"]) and np.isfinite(clip["ref_clipscore"])

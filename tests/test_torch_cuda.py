@@ -884,3 +884,113 @@ def test_reward_text_takes_the_kernel_under_a_resnet(dev):
                                                                                "an airliner"]))
     assert A.LAUNCHES["fwd"] == 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,masked", [(16, 197, 12, False), (4, 197, 12, False), (16, 257, 16, False),
+                                          (4, 257, 16, False), (96, 77, 12, True), (24, 77, 12, True),
+                                          (32, 50, 12, False), (32, 77, 8, True), (160, 77, 8, True)])
+def test_caption_shapes_match_plain(dev, dtype, B, T, H, masked):
+    """Caption TTA's forward shapes (a group of 16 images, or the fp32 runs'
+    4: the ViT-B/16 feature tower, the ViT-L/14 reward's image tower and its
+    text on sample_k 6 captions an image) and clipscore_eval's (ViT-B/32:
+    image batches of 32 at T = 50, 32 candidates and 160 references at T = 77):
+    the long kernels, one launch each."""
+    g = torch.Generator(device=dev).manual_seed(B * 11 + T)
+    qkv = torch.randn(B, T, 3 * H * 64, device=dev, generator=g).to(dtype)
+    mask = causal_mask(T, dev) if masked else None
+    A.reset_launch_counts()
+    got = A.launch_fwd(qkv, mask, H, 0.125)
+    torch.cuda.synchronize()
+    assert dict(A.LAUNCH_VARIANTS) == {"mma_long" if dtype == torch.bfloat16 else "tf32x3_long": 1}
+    torch.testing.assert_close(got.float(), A.fused_attention_reference(qkv, mask, H, 0.125).float(), **_tol(dtype))
+
+
+def _caption_engines(dev):
+    """One fp32 CaptionTTA on the card and one on the CPU, same weights (drawn
+    on the CPU): a tiny OPT and mapper, a reward CLIP with 64-wide heads (its
+    vision tower at T = 65, its text at T = 77: the long kernels), the
+    synthetic OPT-layout vocabulary of 600 entries."""
+    import importlib.util
+    import pathlib
+    import tempfile
+
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.core.reward import ClipReward, RewardConfig
+    from rlcf_torch.models import clip as TC
+    from rlcf_torch.models import mappers as TM
+    from rlcf_torch.models import opt as TO
+    from rlcf_torch.tasks import caption as Cap
+    from rlcf_torch.tokenizer_gpt2 import Gpt2Tokenizer
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    vocab = smoke.write_opt_vocab(tempfile.mkdtemp(), size=600, newline_id=None)
+    cfg = TC.ClipConfig("t", 32, 64, 2, 128, 8, 128, 1, vision_heads_override=2, text_heads_override=2)
+    ccfg = Cap.CaptionModelConfig(mapper=TM.MapperConfig("transformer", clip_dim=32, llm_dim=32, prefix_length=4,
+                                                         clip_length=2, num_layers=1, n_heads=2),
+                                  opt=TO.OPT_CONFIGS["test-tiny-opt"])
+    params = Cap.init_caption_params(0, ccfg)
+    params["opt"]["embed_tokens"] = params["opt"]["embed_tokens"] * 5.0
+    out = []
+    for device in (dev, torch.device("cpu")):
+        move = lambda p: Po.tree_map(lambda v: v.to(device), p)
+        reward = ClipReward(move(TC.init_clip_params(cfg, seed=1)), cfg, RewardConfig(sample_k=3))
+        out.append(Cap.CaptionTTA(move(params), ccfg, reward, Gpt2Tokenizer(*vocab), tta_steps=2, lr=1e-2,
+                                  sample_k=3, max_new_tokens=8))
+    return out
+
+
+def test_caption_episode_on_the_card_matches_cpu(dev):
+    """fp32 caption TTA of a group of 2 images (2 steps) with the reward on
+    the split-TF32 kernels and OPT's plain attention on the card, against the
+    CPU's dense plain path: sampled captions equal, rewards within 2e-4, the
+    final captions equal."""
+    card, cpu = _caption_engines(dev)
+    r = np.random.default_rng(0)
+    images, embs = r.normal(size=(2, 64, 64, 3)).astype(np.float32), r.normal(size=(2, 32)).astype(np.float32)
+    A.reset_launch_counts()
+    got_trace, want_trace = [], []
+    got = card.adapt_batch(images, embs, trace=got_trace)
+    torch.cuda.synchronize()
+    cfg = card.reward.cfg   # a launch a layer: the group's image features once, the captions' text each step
+    assert A.LAUNCH_VARIANTS["tf32x3_long"] == cfg.vision_layers + card.tta_steps * cfg.text_layers
+    want = cpu.adapt_batch(images, embs, trace=want_trace)
+    assert got == want
+    for g, w in zip(got_trace, want_trace):
+        assert [t for t, _ in g] == [t for t, _ in w]
+        np.testing.assert_allclose([x for _, x in g], [x for _, x in w], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("seg_len", [None, 3])
+def test_beam_early_exit_on_the_card_matches_cpu(dev, seg_len):
+    """Beams that all end early (the EOS logit raised at every position, no
+    minimum length): the card's sequences and scores equal the CPU's, and the
+    early exit stops the decode well before the budget."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.models import opt as TO
+
+    cfg = TO.OPT_CONFIGS["test-tiny-opt"]
+    params = TO.init_opt_params(0, cfg)
+    eos = 7
+    row = params["embed_tokens"][eos]
+    params["final_ln_b"] = 10.0 * row / row.square().sum()   # every position's EOS logit up by 10
+    pre = torch.as_tensor(np.random.default_rng(5).normal(size=(2, 3, 32)).astype(np.float32))
+    card = Po.tree_map(lambda v: v.to(dev), params)
+    steps, step = [], TO._decode_step
+
+    def counting(*a, **k):
+        steps.append(1)
+        return step(*a, **k)
+
+    TO._decode_step = counting
+    try:
+        got = TO.beam_generate(card, cfg, pre.to(dev), num_beams=3, max_new_tokens=12, min_length=0, eos_id=eos,
+                               seg_len=seg_len)
+    finally:
+        TO._decode_step = step
+    want = TO.beam_generate(params, cfg, pre, num_beams=3, max_new_tokens=12, min_length=0, eos_id=eos,
+                            seg_len=seg_len)
+    assert torch.equal(got[0].cpu(), want[0]) and len(steps) < 12
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-5)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``rlcf_torch`` (nor ``chip_smoke.py``)
-imports JAX, optax or the JAX package."""
+imports JAX, optax, the JAX package or ``transformers``."""
 
 import ast
 import pathlib
@@ -9,7 +9,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "rlcf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "rlcf_tpu", "transformers")
 SOURCES = sorted((ROOT / "rlcf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -33,8 +33,10 @@ def test_cli_import_leaves_jax_unloaded():
     code = ("import sys, rlcf_torch.cli.tta_cls, rlcf_torch.cli.tune_cls, rlcf_torch.tasks.classification, "
             "rlcf_torch.core.policy, rlcf_torch.core.episode, rlcf_torch.ops.attention, rlcf_torch.ops.augmix, "
             "rlcf_torch.cli.tta_retrieval, rlcf_torch.tasks.retrieval, rlcf_torch.metrics.retrieval, "
-            "rlcf_torch.utils.config; "
-            "bad = [m for m in ('jax', 'optax', 'rlcf_tpu', 'yaml') if m in sys.modules]; "
+            "rlcf_torch.utils.config, rlcf_torch.cli.tta_caption, rlcf_torch.cli.clipscore_eval, "
+            "rlcf_torch.tasks.caption, rlcf_torch.models.opt, rlcf_torch.models.mappers, rlcf_torch.metrics.clipscore, "
+            "rlcf_torch.metrics.caption_metrics, rlcf_torch.tokenizer_gpt2; "
+            "bad = [m for m in ('jax', 'optax', 'rlcf_tpu', 'yaml', 'transformers', 'regex') if m in sys.modules]; "
             "assert not bad, bad; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]

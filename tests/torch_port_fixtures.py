@@ -6,6 +6,7 @@ import importlib.util
 import pathlib
 
 import numpy as np
+import pytest
 import torch
 
 from rlcf_tpu.models import clip as JC
@@ -14,6 +15,16 @@ from rlcf_torch.models import clip as TC
 _SMOKE = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_SMOKE)
 _SMOKE.loader.exec_module(chip_smoke)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """Torch on one thread for a module's tests (restored after): at these
+    sizes the intra-op threads only contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tiny_cfgs(name="t", embed=16, res=32, layers=2, width=64, patch=16, text_width=64, text_layers=2, heads=2):
@@ -137,3 +148,47 @@ def write_fine_grained_tree(root, set_id, n_classes, per_class=2, seed=0):
     listed = lambda n: [c for _ in range(n) for c in reversed(range(n_classes))]
     return chip_smoke.write_fine_grained_tree(root, set_id, {"test": listed(per_class), "val": listed(1),
                                                              "train": listed(1)}, names=names, seed=seed)
+
+
+def hf_opt_state_dict(proj, final_ln=True, seed=0, D=32, E=16, F=64, L=2, V=256, n_pos=130):
+    """A random HF-format OPT state dict (numpy) at the tiny configs' sizes:
+    ``proj`` OPT-350m's embedding projection, ``final_ln`` the decoder's final LayerNorm."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s: (rng.normal(size=s) * 0.05).astype(np.float32)
+    pre = "model.decoder."
+    sd = {pre + "embed_tokens.weight": t(V, E if proj else D), pre + "embed_positions.weight": t(n_pos, D)}
+    for i in range(L):
+        b = f"{pre}layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[b + f"self_attn.{name}.weight"], sd[b + f"self_attn.{name}.bias"] = t(D, D), t(D)
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[b + f"{ln}.weight"], sd[b + f"{ln}.bias"] = 1 + t(D), t(D)
+        sd[b + "fc1.weight"], sd[b + "fc1.bias"] = t(F, D), t(F)
+        sd[b + "fc2.weight"], sd[b + "fc2.bias"] = t(D, F), t(D)
+    if final_ln:
+        sd[pre + "final_layer_norm.weight"], sd[pre + "final_layer_norm.bias"] = 1 + t(D), t(D)
+    if proj:
+        sd[pre + "project_in.weight"], sd[pre + "project_out.weight"] = t(D, E), t(E, D)
+    return sd
+
+
+def hf_mapper_state_dict(cfg, seed=0):
+    """A random ClipCap/CapDec mapper state dict (``clip_project.*``, numpy) for a mapper config."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s: (rng.normal(size=s) * 0.1).astype(np.float32)
+    p = "clip_project."
+    if cfg.kind == "mlp":
+        h = cfg.llm_dim * cfg.prefix_length // 2
+        return {p + "model.0.weight": t(h, cfg.clip_dim), p + "model.0.bias": t(h),
+                p + "model.2.weight": t(cfg.llm_dim * cfg.prefix_length, h), p + "model.2.bias": t(cfg.llm_dim * cfg.prefix_length)}
+    D, H = cfg.llm_dim, int(cfg.llm_dim * cfg.mlp_ratio)
+    sd = {p + "linear.weight": t(cfg.clip_length * D, cfg.clip_dim), p + "linear.bias": t(cfg.clip_length * D),
+          p + "prefix_const": t(cfg.prefix_length, D)}
+    for i in range(cfg.num_layers):
+        b = f"{p}transformer.layers.{i}."
+        sd.update({b + "norm1.weight": 1 + t(D), b + "norm1.bias": t(D), b + "attn.to_queries.weight": t(D, D),
+                   b + "attn.to_keys_values.weight": t(2 * D, D), b + "attn.project.weight": t(D, D),
+                   b + "attn.project.bias": t(D), b + "norm2.weight": 1 + t(D), b + "norm2.bias": t(D),
+                   b + "mlp.fc1.weight": t(H, D), b + "mlp.fc1.bias": t(H), b + "mlp.fc2.weight": t(D, H),
+                   b + "mlp.fc2.bias": t(D)})
+    return sd
