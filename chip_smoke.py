@@ -28,7 +28,9 @@ Phases, each fatal:
      ViT-B/16 feature tower on a group of 16 images and on the fp32 runs' 4,
      the ViT-L/14 reward's image tower and its text on 6 captions an image at
      T=77 causal, clipscore_eval's ViT-B/32: images at T=50, candidates and
-     references at T=77); the ATTN_IMPL="flash"
+     references at T=77); caption training's extraction (the ViT-B/16
+     images in batches of 32 and the tails, the captions' text at T=77 in
+     batches of 256 and of the shards' 160, and the tails); the ATTN_IMPL="flash"
      switch of models/layers.py at T=128, 256 and 384, with the backward it takes, and
      differentiated at T=384 and 512 (causal), both directions timed there;
      the AugMix kernel at a flagship group (4 images x 64 views, 256 -> 224
@@ -101,15 +103,28 @@ Phases, each fatal:
      REFERENCE caption (fp32, fused against dense, one group of 4,
      "caption reference fp32"), rlcf_torch.cli.clipscore_eval on the bf16
      run's captions with the tree's references ("clipscore"); the CAPTION
-     line;
+     line; then caption training (A12b): rlcf_torch.cli.extract_features as
+     scripts/extract_coco.sh runs it (ViT-B/16, bf16, prefix 40, token_len
+     40) on a synthetic COCO-caption tree of 70 images x 5 captions at
+     480x640, after one untimed warm-up run, to one npz ("extract") and to
+     shards of 160 captions ("extract sharded"), each run split by stage;
+     rlcf_torch.cli.train_caption as scripts/train_capdec_coco.sh ("train
+     capdec", the npz's text embeddings) and train_clipcap_coco.sh ("train
+     clipcap", the shards' image embeddings) run it (a random OPT-125m in
+     fp32, the transformer mapper, batch 40, 2 epochs), each step timed and
+     one profiled; the GPT-2 ClipCap predictor (random GPT-2 124 M, a
+     synthetic 50,257-entry vocabulary in GPT-2's layout) on 4 images, beam 5
+     and greedy over 67 tokens ("clipcap gpt2"); one train step on the card
+     against the CPU; the TRAIN_CAPTION line;
   5. print the run's total seconds, the kernels line (phase 5 also holds
      that Stanford Cars' text ran mma_long at T = 24 both ways on its path,
      that the retrieval paths ran the long backward at T = 77 and at B=8
      T=197, mma_long in bf16 and tf32x3_long in fp32, that the reward's
      class features took the fused forward on the flagship path, that the
      caption reward's text ran mma_long at B=96 T=77 and that the fp32
-     caption paths and clipscore_eval ran tf32x3_long), then the device line
-     last.
+     caption paths and clipscore_eval ran tf32x3_long, and that the
+     extraction ran mma_long on its images at T = 197 and its captions at
+     T = 77), then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -206,6 +221,16 @@ CAP_GROUP, CAP_STEPS, CAP_LR, CAP_SAMPLE_K, CAP_SEG_LEN = 16, 4, "5e-6", 6, 16
 CAP_IMAGES, CAP_FP32_IMAGES, CAP_FP32_STEPS, CAP_REF_IMAGES, CAP_REFS = 32, 4, 1, 4, 5
 CLIPSCORE_ARCH, CLIPSCORE_IMAGE_BATCH = "ViT-B/32", 32
 EXIT_CHECK_ROUNDS = 3
+# caption training (A12b) as scripts/extract_coco.sh, train_capdec_coco.sh and train_clipcap_coco.sh run it: ViT-B/16
+# bf16 features (prefix 40, token_len 40) of a synthetic COCO-caption tree of 70 images x 5 captions at COCO's
+# 480x640 (two full image batches of 32 and a tail of 6; a full text batch of 256 and a tail of 94; shards of 160
+# captions, 32 images each), after one untimed warm-up extraction of the same tree;
+# the transformer mapper (prefix 40, clip length 40) against a random OPT-125m in fp32, batch 40, lr 2e-5, warm-up
+# 5000, two epochs (8 steps each); the ClipCap predictor on a random GPT-2 (124 M) with a transformer mapper at its
+# width, on 4 images' embeddings, beam 5 and greedy over 67 tokens
+TRAIN_IMAGES, TRAIN_CAPS, TRAIN_SHARD, TRAIN_EPOCHS, TRAIN_BATCH = 70, 5, 160, 2, 40
+TRAIN_TREE_SIZE = (480, 640)
+GPT2_IMAGES, GPT2_ENTRY, GPT2_BEAM = 4, 67, 5
 
 
 def log(msg):
@@ -1408,43 +1433,68 @@ def write_caption_tree(root, n_images, caps_per_image=5, size=(48, 64), seed=0):
     return path, str(root)
 
 
-def write_opt_vocab(root, size=50265, newline_id=50118, seed=0):
-    """A synthetic byte-level BPE vocabulary in OPT's layout under ``root``
-    (``vocab.json``, ``merges.txt``) -> their paths: ``<s>`` 0, ``<pad>`` 1,
-    ``</s>`` 2, ``<unk>`` 3, then lowercase ASCII words drawn from ``seed``,
-    each the end of a chain of merges left to right, with the leading ``Ġ``
-    and without (the ``Ġ`` chains ranked first, so that a spaced word
-    re-tokenizes to its one id), and the 256 byte symbols in the last 256 ids
-    with the newline's ``Ċ`` at ``newline_id`` (OPT's ``eos_newline_id``;
-    None leaves the byte order). Every id decodes to text."""
+def bpe_words(n, seed=0):
+    """``n`` lowercase ASCII words drawn from ``seed`` for a synthetic
+    byte-level BPE vocabulary, each the end of a chain of merges left to
+    right, with the leading ``Ġ`` and without -> (words, merges): the ``Ġ``
+    chains ranked first, so that a spaced word re-tokenizes to its one id."""
     from rlcf_torch.tokenizer_gpt2 import _byte_to_unicode
 
-    b2u = _byte_to_unicode()
     rng = np.random.default_rng(seed)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    words, merges, seen = [], {"Ġ": [], "": []}, set(b2u.values())
-    while len(words) < size - 4 - 256:
+    words, merges, seen = [], {"Ġ": [], "": []}, set(_byte_to_unicode().values())
+    while len(words) < n:
         lead = "Ġ" if len(words) % 2 == 0 else ""
         s = lead + "".join(rng.choice(letters, size=int(rng.integers(2, 9))))
         cur = s[0]
         for ch in s[1:]:
-            if cur + ch not in seen and len(words) < size - 4 - 256:
+            if cur + ch not in seen and len(words) < n:
                 seen.add(cur + ch)
                 words.append(cur + ch)
                 merges[lead].append(f"{cur} {ch}")
             cur += ch
-    byte_syms = list(b2u.values())
-    if newline_id is not None:   # Ċ swaps places with the byte symbol at newline_id
-        at, nl = newline_id - (size - 256), byte_syms.index(b2u[10])
-        byte_syms[at], byte_syms[nl] = byte_syms[nl], byte_syms[at]
-    tokens = ["<s>", "<pad>", "</s>", "<unk>"] + words + byte_syms
+    return words, merges["Ġ"] + merges[""]
+
+
+def write_vocab(root, tokens, merges):
+    """``vocab.json`` (token -> its index in ``tokens``) and ``merges.txt``
+    under ``root`` -> their paths."""
     os.makedirs(str(root), exist_ok=True)
     vocab, merges_path = os.path.join(str(root), "vocab.json"), os.path.join(str(root), "merges.txt")
     with open(vocab, "w") as fh:
         json.dump({t: i for i, t in enumerate(tokens)}, fh)
     with open(merges_path, "w") as fh:
-        fh.write("#version: synthetic\n" + "\n".join(merges["Ġ"] + merges[""]) + "\n")
+        fh.write("#version: synthetic\n" + "\n".join(merges) + "\n")
     return vocab, merges_path
+
+
+def write_opt_vocab(root, size=50265, newline_id=50118, seed=0):
+    """A synthetic byte-level BPE vocabulary in OPT's layout under ``root``
+    (``vocab.json``, ``merges.txt``) -> their paths: ``<s>`` 0, ``<pad>`` 1,
+    ``</s>`` 2, ``<unk>`` 3, then the words of ``bpe_words``, and the 256
+    byte symbols in the last 256 ids with the newline's ``Ċ`` at
+    ``newline_id`` (OPT's ``eos_newline_id``; None leaves the byte order).
+    Every id decodes to text."""
+    from rlcf_torch.tokenizer_gpt2 import _byte_to_unicode
+
+    b2u = _byte_to_unicode()
+    words, merges = bpe_words(size - 4 - 256, seed)
+    byte_syms = list(b2u.values())
+    if newline_id is not None:   # Ċ swaps places with the byte symbol at newline_id
+        at, nl = newline_id - (size - 256), byte_syms.index(b2u[10])
+        byte_syms[at], byte_syms[nl] = byte_syms[nl], byte_syms[at]
+    return write_vocab(root, ["<s>", "<pad>", "</s>", "<unk>"] + words + byte_syms, merges)
+
+
+def write_gpt2_vocab(root, size=50257, seed=0):
+    """A synthetic byte-level BPE vocabulary in GPT-2's layout under ``root``
+    -> the paths of ``vocab.json`` and ``merges.txt``: the 256 byte symbols
+    first (``.`` at 13, as in GPT-2's), the words of ``bpe_words``, and
+    ``<|endoftext|>`` last (GPT-2's 50256 at the default size)."""
+    from rlcf_torch.tokenizer_gpt2 import _byte_to_unicode
+
+    words, merges = bpe_words(size - 256 - 1, seed)
+    return write_vocab(root, list(_byte_to_unicode().values()) + words + ["<|endoftext|>"], merges)
 
 
 def fine_argv(data_root, out_dir):
@@ -2213,6 +2263,313 @@ def captioning(out_dir):
     return [path, fp32, ref_path, clip], line
 
 
+def extract_argv(out, tree, vocab, shard_size=0):
+    """``scripts/extract_coco.sh``'s settings (ViT-B/16, bf16, prefix 40,
+    token_len 40, the images' embeddings too) on the annotation tree
+    ``tree`` with the synthetic vocabulary ``vocab``; random CLIP weights
+    from the seed."""
+    argv = ["--annotations", tree[0], "--images_root", tree[1], "--arch", POLICY, "--precision", "bf16",
+            "--opt_vocab", vocab[0], "--opt_merges", vocab[1], "--prefix_length", "40", "--token_len", "40",
+            "--out", out, "--seed", "0", "--device", "cuda"]
+    return argv + ["--shard_size", str(shard_size)] if shard_size else argv
+
+
+@contextlib.contextmanager
+def extract_timer():
+    """Splits an ``extract_features`` run into its stages by timing the
+    functions it calls: set-up (``common.load_policy``: the random tower
+    built and moved to the card; the BPE tokenizer's files read), the host's
+    image decode (``preprocess_many``: PIL decode, resize, crop), the host's
+    tokenizers (CLIP's for the text tower, OPT's BPE for the trainer's
+    ids) and the two towers (each call synchronised at its edges, so it
+    holds the host's launches and the card's work). Yields ``{stage: s}``."""
+    from rlcf_torch.cli import common, extract_features
+    from rlcf_torch.data import transforms
+    from rlcf_torch.models import clip
+    from rlcf_torch.tasks import caption as Cap
+    from rlcf_torch import tokenizer_gpt2
+
+    rec = {}
+
+    def timed(stage, fn, sync=False):
+        def run(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            rec[stage] = rec.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    patches = [(common, "load_policy", "setup_s", False), (tokenizer_gpt2, "load_gpt2_tokenizer", "setup_s", False),
+               (transforms, "preprocess_many", "image_decode_s", False), (Cap, "clip_tokenize", "clip_tokenize_s", False),
+               (extract_features, "_tokens_and_mask", "bpe_s", False), (clip, "encode_image", "image_tower_s", True),
+               (clip, "encode_text", "text_tower_s", True)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in patches]
+    for mod, name, stage, sync in patches:
+        setattr(mod, name, timed(stage, getattr(mod, name), sync))
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def run_extract(path, argv):
+    """Phase 4h (a): ``extract_features`` through its entry point, the
+    counters set to 0 just before and read just after; every embedding
+    float32 and finite, one row a caption, the fused forward launched. The
+    rates count the run without its set-up (``extract_timer``)."""
+    from rlcf_torch.cli import extract_features
+    from rlcf_torch.data.sharded_embeddings import ShardedEmbeddings, is_sharded
+    from rlcf_torch.ops import attention as A
+
+    with extract_timer() as stages:
+        A.reset_launch_counts()                 # counts start at 0 just before the path
+        t0 = time.perf_counter()
+        result = extract_features.main(argv)
+        secs = time.perf_counter() - t0
+        launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES)   # read just after
+    keys = ("text_embeddings", "image_embeddings", "tokens")
+    if is_sharded(result["out"]):
+        store = ShardedEmbeddings(result["out"])
+        cols = {k: store.column(k) for k in keys}
+    else:
+        data = np.load(result["out"])
+        cols = {k: data[k] for k in keys}
+    n = result["captions"]
+    bad = [k for k in ("text_embeddings", "image_embeddings")
+           if cols[k].dtype != np.float32 or cols[k].shape[0] != n or not np.isfinite(cols[k]).all()]
+    if bad or cols["tokens"].shape != (n, 40) or not launches["fwd"]:
+        raise AssertionError(f"{path}: bad columns {bad}, tokens {cols['tokens'].shape} of {n} captions, or it did not "
+                             f"go through the kernel: launches={launches}")
+    encode = secs - stages.get("setup_s", 0.0)
+    stages["other_s"] = secs - sum(stages.values())       # annotations, gathers, the npz or shard writes
+    host = stages.get("image_decode_s", 0.0) + stages.get("clip_tokenize_s", 0.0) + stages.get("bpe_s", 0.0)
+    return {"path": path, "seconds": secs, "encode_seconds": encode, "captions": n, "images": result["images"],
+            "captions_per_s": n / encode, "images_per_s": result["images"] / encode, "stages_s": stages,
+            "host_share_of_encode": host / encode,
+            "tower_share_of_encode": (stages.get("image_tower_s", 0.0) + stages.get("text_tower_s", 0.0)) / encode,
+            "launches": launches, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()}}
+
+
+def train_argv(out, embeddings, cap_model):
+    """``scripts/train_capdec_coco.sh`` (CapDec, noise 0.016, text embeddings)
+    or ``train_clipcap_coco.sh`` (ClipCap, image embeddings, --normalize_prefix
+    1): the transformer mapper, prefix 40, clip length 40, batch 40, lr 2e-5,
+    warm-up 5000, OPT-125m with random weights from the seed."""
+    argv = ["--embeddings", embeddings, "--cap_model", cap_model, "--epochs", str(TRAIN_EPOCHS), "--train_lr", "2e-5",
+            "--train_batch_size", str(TRAIN_BATCH), "--warmup_steps", "5000", "--mapping_type", "transformer",
+            "--prefix_length", "40", "--clip_length", "40", "--llm", "opt-125m", "--seed", "0", "--device", "cuda",
+            "--output", out]
+    return argv + (["--noise_variance", "0.016"] if cap_model == "CapDec" else ["--normalize_prefix", "1"])
+
+
+@contextlib.contextmanager
+def train_step_timer():
+    """Times each ``train_step`` of ``tasks/caption.py::make_caption_trainer``
+    (synchronised at its edges) and keeps the last call's arguments. Yields
+    ``{"ms": [...], "last": args}``."""
+    from rlcf_torch.tasks import caption as Cap
+
+    rec = {"ms": [], "last": None}
+    make = Cap.make_caption_trainer
+
+    def timed_trainer(ccfg, tcfg):
+        init_opt, step = make(ccfg, tcfg)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(*args)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["last"] = (step, args)
+            return loss
+        return init_opt, timed
+
+    Cap.make_caption_trainer = timed_trainer
+    try:
+        yield rec
+    finally:
+        Cap.make_caption_trainer = make
+
+
+def run_train(path, argv, n_samples):
+    """Phase 4h (b): ``train_caption`` through its entry point, each step
+    timed, the counters set to 0 just before and read just after (OPT and
+    the mapper are dense math: no kernel of the port); finite losses, the
+    checkpoints written; one more step profiled on the last step's inputs."""
+    from rlcf_torch.cli import train_caption
+    from rlcf_torch.ops import attention as A
+
+    torch.cuda.reset_peak_memory_stats()
+    with train_step_timer() as rec:
+        A.reset_launch_counts()                 # counts start at 0 just before the path
+        t0 = time.perf_counter()
+        losses = train_caption.main(argv)
+        wall = time.perf_counter() - t0
+        launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES)   # read just after
+    out_dir = argv[argv.index("--output") + 1]
+    steps = n_samples // TRAIN_BATCH * TRAIN_EPOCHS
+    if len(losses) != TRAIN_EPOCHS or not np.isfinite(losses).all() or len(rec["ms"]) != steps or \
+            not os.path.exists(os.path.join(out_dir, "ckpt-latest.npz")):
+        raise AssertionError(f"{path}: losses {losses}, {len(rec['ms'])} steps of {steps}, or no checkpoint")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step, args = rec["last"]
+    prof = profile_episode(lambda: (step(*args), torch.cuda.synchronize()), f"{path} step")
+    ms = float(np.median(rec["ms"][1:]))
+    # the profiler slows the host, so the idle share of a step is read against the timed steps' median
+    return {"path": path, "wall_s": wall, "steps": steps, "first_step_ms": rec["ms"][0], "ms_per_step": ms,
+            "step_ms": rec["ms"], "samples_per_s": 1e3 * TRAIN_BATCH / ms, "peak_mem_gib": peak, "losses": losses,
+            **prof, "idle_share_of_timed_step": 1 - prof.get("profile_device_busy_ms", 0.0) / ms,
+            "launches": launches, "launches_by_shape": {" ".join(map(str, k)): v for k, v in by_shape.items()}}
+
+
+def run_clipcap_gpt2(path, tree, vocab, n_images=GPT2_IMAGES, gpt2="gpt2", clip_arch=POLICY, mapper_kw=None,
+                     device="cuda"):
+    """Phase 4h (c): ClipCap captions through GPT-2 (``clipcap_predict``)
+    with random weights from seeds: ``n_images`` images of the tree through
+    the bf16 ViT-B/16 feature tower (the fused kernel), a transformer mapper
+    at GPT-2's width (prefix 40, clip length 40), then beam search (beam 5)
+    and the greedy loop over 67 tokens, decode steps counted; the counters
+    set to 0 just before and read just after. Every caption a string."""
+    from rlcf_torch.data.transforms import preprocess_many
+    from rlcf_torch.models import clip as clip_model
+    from rlcf_torch.models import gpt2 as G
+    from rlcf_torch.models import mappers as M
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.tasks import caption as Cap
+    from rlcf_torch.tokenizer_gpt2 import Gpt2Tokenizer
+
+    dev = torch.device(device)
+    gcfg = G.GPT2_CONFIGS[gpt2]
+    ccfg_clip = clip_model.get_config(clip_arch)
+    clip_params = clip_model.init_clip_params(ccfg_clip, seed=0, dtype=torch.bfloat16, device=dev)
+    mcfg = M.MapperConfig("transformer", clip_dim=ccfg_clip.embed_dim, llm_dim=gcfg.n_embd,
+                          **(mapper_kw or dict(prefix_length=40, clip_length=40)))
+    ccfg = Cap.CaptionModelConfig(mapper=mcfg, llm="gpt2", gpt2=gcfg)
+    params = Cap.init_caption_params(0, ccfg, device=dev)
+    with open(vocab[0]) as fh:
+        eot = json.load(fh)["<|endoftext|>"]
+    tok = Gpt2Tokenizer(*vocab, bos_id=eot, pad_id=eot)
+    with open(tree[0]) as fh:
+        ann = json.load(fh)[:n_images]
+    images = np.stack(preprocess_many([os.path.join(tree[1], a["image"]) for a in ann], ccfg_clip.image_resolution))
+    decode_step, count = G._decode_step, [0]
+
+    def counting(*a, **k):
+        count[0] += 1
+        return decode_step(*a, **k)
+
+    out = {"path": path}
+    G._decode_step = counting
+    try:
+        A.reset_launch_counts()                 # counts start at 0 just before the path
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            embs = clip_model.encode_image(clip_params, ccfg_clip, torch.as_tensor(images, device=dev),
+                                           attn=clip_model.best_attn(ccfg_clip, dev)).float()
+        torch.cuda.synchronize()
+        out["encode_ms"] = 1e3 * (time.perf_counter() - t0)
+        for mode, beam in (("beam", True), ("greedy", False)):
+            count[0] = 0
+            t0 = time.perf_counter()
+            captions = Cap.clipcap_predict(params, ccfg, embs, tok, use_beam=beam, beam_size=GPT2_BEAM,
+                                           entry_length=GPT2_ENTRY)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            if len(captions) != n_images or not all(isinstance(c, str) for c in captions):
+                raise AssertionError(f"{path} {mode}: captions {captions}")
+            out[mode] = {"ms_per_image": ms / n_images, "decode_steps": count[0],
+                         "ms_per_decode_token": ms / max(count[0], 1), "captions": captions[:2]}
+        launches, by_shape = dict(A.LAUNCHES), dict(A.LAUNCH_SHAPES)   # read just after
+    finally:
+        G._decode_step = decode_step
+    if not launches["fwd"]:
+        raise AssertionError(f"{path}: the feature tower did not go through the kernel: launches={launches}")
+    return dict(out, launches=launches, launches_by_shape={" ".join(map(str, k)): v for k, v in by_shape.items()})
+
+
+def train_step_on_card_vs_cpu():
+    """Phase 4h (d): one ``train_step`` (CapDec, the tiny OPT, a transformer
+    mapper of 1 layer, lr 1e-3 with no warm-up) on the card and on the CPU
+    from the same weights, batch and noise: the loss within rtol 1e-5, the
+    mapper's leaves within 3e-5 (the CPU trainer tests' tolerances)."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.models import mappers as M
+    from rlcf_torch.models import opt as O
+    from rlcf_torch.tasks import caption as Cap
+
+    ccfg = Cap.CaptionModelConfig(mapper=M.MapperConfig("transformer", clip_dim=16, llm_dim=32, prefix_length=4,
+                                                         clip_length=2, num_layers=1, n_heads=2),
+                                  opt=O.OPT_CONFIGS["test-tiny-opt"])
+    tcfg = Cap.TrainConfig(lr=1e-3, warmup_steps=0, total_steps=4, cap_model="CapDec")
+    params = Cap.init_caption_params(0, ccfg)
+    rng = np.random.default_rng(0)
+    batch = [rng.normal(size=(4, 16)).astype(np.float32), rng.integers(3, 256, size=(4, 6)),
+             np.ones((4, 10), np.int64), rng.normal(size=(4, 16)).astype(np.float32)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init_opt, step = Cap.make_caption_trainer(ccfg, tcfg)
+        mapper = Po.tree_map(lambda a: a.detach().to(dev).clone().requires_grad_(True), params["mapper"])
+        llm = Po.tree_map(lambda a: a.to(dev), params["opt"])
+        prefix, tokens, mask, noise = (torch.as_tensor(a, device=dev) for a in batch)
+        loss = step(mapper, llm, init_opt(mapper), prefix, tokens, mask, noise)
+        out[dev] = float(loss), [a.detach().cpu() for a in Po.tree_leaves(mapper)]
+    moved = max(float((a - b).abs().max()) for a, b in zip(out["cpu"][1], Po.tree_leaves(params["mapper"])))
+    worst = max(float((a - b).abs().max()) for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    log(f"TRAIN_STEP card vs cpu: loss {out['cuda'][0]:.7f} vs {out['cpu'][0]:.7f} (rel {loss_rel:.2e}), "
+        f"leaves max |d| {worst:.2e} (the step moved them up to {moved:.2e})")
+    if loss_rel > 1e-5 or worst > 3e-5:
+        raise AssertionError("the train step on the card disagrees with the CPU's")
+    return {"loss_rel_diff": loss_rel, "leaves_max_abs_diff": worst, "step_moved_max": moved}
+
+
+def caption_training(out_dir):
+    """Phase 4h: caption training and the rest of captioning at full width:
+    (a) ``extract_features`` on a synthetic COCO-caption tree, once untimed,
+    then to one npz ("extract") and to shards ("extract sharded"); (b) ``train_caption``
+    CapDec on the npz ("train capdec") and ClipCap on the shards ("train
+    clipcap"); (c) the GPT-2 ClipCap predictor ("clipcap gpt2"); (d) one
+    train step on the card against the CPU. Returns the paths and the
+    TRAIN_CAPTION line's numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(out_dir), "chip_smoke_train_caption")
+    tree = write_caption_tree(os.path.join(root, "coco"), TRAIN_IMAGES, caps_per_image=TRAIN_CAPS, size=TRAIN_TREE_SIZE)
+    vocab = write_opt_vocab(os.path.join(root, "vocab"))
+    npz, shards = os.path.join(root, "feats.npz"), os.path.join(root, "feats_sharded.npz")
+    from rlcf_torch.cli import extract_features
+    extract_features.main(extract_argv(os.path.join(root, "warm.npz"), tree, vocab))   # first calls, not timed
+    ext = [run_extract("extract", extract_argv(npz, tree, vocab)),
+           run_extract("extract sharded", extract_argv(shards, tree, vocab, TRAIN_SHARD))]
+    n = TRAIN_IMAGES * TRAIN_CAPS
+    train = [run_train("train capdec", train_argv(os.path.join(root, "capdec"), npz, "CapDec"), n),
+             run_train("train clipcap", train_argv(os.path.join(root, "clipcap"), shards, "ClipCap"), n)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt2 = run_clipcap_gpt2("clipcap gpt2", tree, write_gpt2_vocab(os.path.join(root, "gpt2_vocab")))
+    check = train_step_on_card_vs_cpu()
+    for p in ext + train + [gpt2]:
+        log("TRAIN_CAPTION_PATH " + json.dumps(p))
+    line = {**{p["path"]: {k: p[k] for k in ("seconds", "encode_seconds", "captions_per_s", "images_per_s", "stages_s",
+                                             "host_share_of_encode", "tower_share_of_encode")} for p in ext},
+            **{p["path"]: {k: p[k] for k in ("ms_per_step", "first_step_ms", "samples_per_s", "peak_mem_gib",
+                                             "losses", "profile_device_busy_ms", "idle_share_of_timed_step",
+                                             "profile_kernels")} for p in train},
+            "clipcap gpt2": {k: gpt2[k] for k in ("encode_ms", "beam", "greedy")},
+            "train_step_card_vs_cpu": check,
+            "extract_launches_per_caption_by_shape": {k: v / n for k, v in ext[0]["launches_by_shape"].items()},
+            "note": "ms a step: the median of the steps after the first, each synchronised; the profile is one more "
+                    "step on the last step's inputs; extraction after a warm-up run, its rates over the run without "
+                    "its set-up (the random ViT-B/16 built and moved to the card, the tokenizer read)"}
+    return ext + train + [gpt2], line
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2327,6 +2684,14 @@ def main():
     shapes += [("fwd", CLIPSCORE_IMAGE_BATCH, 50, 12, False, "clipscore image"),
                ("fwd", CAP_IMAGES, 77, 8, True, "clipscore candidates"),
                ("fwd", CAP_IMAGES * CAP_REFS, 77, 8, True, "clipscore references")]
+    # caption training's extraction: the ViT-B/16 images in batches of 32 and their tail, the captions' text (T = 77,
+    # causal) in batches of 256 and their tail; the sharded run's chunks of TRAIN_SHARD captions (TRAIN_SHARD /
+    # TRAIN_CAPS images each) and their tail
+    n_train = TRAIN_IMAGES * TRAIN_CAPS
+    for B in (32, TRAIN_IMAGES % 32, TRAIN_SHARD // TRAIN_CAPS, (n_train % TRAIN_SHARD) // TRAIN_CAPS):
+        shapes.append(("fwd", B, 197, 12, False, "extract image"))
+    for B in (256, n_train % 256, TRAIN_SHARD, n_train % TRAIN_SHARD):
+        shapes.append(("fwd", B, 77, 8, True, "extract text"))
     entries, seen_shapes = [], set()
     for dtype in (torch.bfloat16, torch.float32):
         for direction, B, T, H, masked, what in shapes:
@@ -2436,6 +2801,9 @@ def main():
     cap_paths, cap = captioning(out_dir)
     paths += cap_paths
     log("CAPTION " + json.dumps(cap))
+    train_paths, train = caption_training(out_dir)
+    paths += train_paths
+    log("TRAIN_CAPTION " + json.dumps(train))
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -2488,6 +2856,11 @@ def main():
     for path in ("caption fp32", "caption reference fp32", "clipscore"):
         if not any(by_path.get(path) and checked[key]["variant"] == "tf32x3_long" for key, by_path in launched.items()):
             raise AssertionError(f"the path {path} launched no tf32x3_long forward")
+    # caption training's extraction: the image tower at T = 197 and the captions' text at T = 77 on mma_long
+    for what, key in (("image", ("fwd", 32, 197, 12)), ("text", ("fwd", 256, 77, 8))):
+        k = " ".join(map(str, (*key, str(torch.bfloat16))))
+        if checked[k]["variant"] != "mma_long" or not launched.get(k, {}).get("extract"):
+            raise AssertionError(f"the extraction's {what} tower ({k}) did not run mma_long on the path extract")
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:

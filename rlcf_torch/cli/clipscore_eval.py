@@ -50,9 +50,7 @@ def refuse_unported(args):
     if args.download_nltk:
         raise SystemExit("rlcf_torch: --download_nltk 1 is refused: the port downloads nothing; install the "
                          "wordnet corpus beforehand for METEOR's synonym stage")
-    if args.decode == "native":
-        raise SystemExit("rlcf_torch: --decode native is not ported yet; it comes with the native decoder "
-                         "binding (ROADMAP A15)")
+    common.refuse({"--decode native": (args.decode == "native", common.DECODE_WAIT)})
 
 
 def main(argv=None):

@@ -77,9 +77,17 @@ def add_run_args(p: argparse.ArgumentParser, classification: bool = True):
     p.add_argument("--corruption", default="defocus_blur")
     p.add_argument("--level", default="5")
     p.add_argument("--print_freq", "-p", type=int, default=500)
+    add_decode_args(p)
+    add_dry_run_arg(p)
+
+
+def add_decode_args(p: argparse.ArgumentParser):
     p.add_argument("--decode", default="pil", choices=["pil", "native"],
                    help="image loader; only 'pil' is ported yet")
     p.add_argument("--decode_workers", type=int, default=0)
+
+
+def add_dry_run_arg(p: argparse.ArgumentParser):
     p.add_argument("--dry_run", action="store_true",
                    help="validate the command line and exit before loading models or data")
 
@@ -89,6 +97,18 @@ def finish_dry_run(args) -> bool:
         return False
     print("DRY RUN OK: " + json.dumps({k: v for k, v in sorted(vars(args).items())}, default=str))
     return True
+
+
+DOWNLOAD_WAIT = "checkpoint download (ROADMAP A15)"
+DECODE_WAIT = "the native decoder binding (ROADMAP A15)"
+
+
+def refuse(waits):
+    """Exit before any model loads for the first flag in use that the port
+    does not run yet. waits: {flag: (in use, the item it comes with)}."""
+    for flag, (used, item) in waits.items():
+        if used:
+            raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
 
 
 def check_policy_digest(args):

@@ -73,18 +73,15 @@ NON_TOKEN_RUNS = ("outside token mode (CoCoOp, a ResNet policy, a patch size tha
 
 def refuse_unported(args):
     """Exit with a message for options this slice of the port does not run."""
-    waits = {
+    common.refuse({
         "--viewgen device": (args.viewgen == "device", "the torch AugMix pipeline (ROADMAP A16); the port "
                              "runs --viewgen fused and --viewgen native"),
         "--tp > 1": (args.tp > 1, "class-axis tensor parallelism (ROADMAP A14)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
         "--resume": (args.resume, "the progress journal (ROADMAP A15)"),
-        "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),
-        "--decode native": (args.decode == "native", "the native decoder binding (ROADMAP A15)"),
-    }
-    for flag, (used, item) in waits.items():
-        if used:
-            raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+        "--download": (bool(args.download), common.DOWNLOAD_WAIT),
+        "--decode native": (args.decode == "native", common.DECODE_WAIT),
+    })
 
 
 def build(args):

@@ -60,14 +60,11 @@ def get_args(argv=None):
 
 def refuse_unported(args):
     """Exit with a message for options this slice of the port does not run."""
-    waits = {
+    common.refuse({
         "--tp > 1": (args.tp > 1, "gallery-axis tensor parallelism (ROADMAP A14)"),
-        "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),
-        "--decode native": (args.decode == "native", "the native decoder binding (ROADMAP A15)"),
-    }
-    for flag, (used, item) in waits.items():
-        if used:
-            raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+        "--download": (bool(args.download), common.DOWNLOAD_WAIT),
+        "--decode native": (args.decode == "native", common.DECODE_WAIT),
+    })
     if args.multiple_reward_models:
         raise SystemExit("rlcf_torch: --multiple_reward_models 1 does not apply to retrieval: RetrievalTTA takes a "
                          "single reward CLIP, as the JAX package's does (`retrieval/clip_rewards.py`)")

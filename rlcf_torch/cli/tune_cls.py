@@ -66,15 +66,12 @@ def refuse_unported(args):
         raise SystemExit("rlcf_torch: --multiple_reward_models: encoder TTA takes a single reward, as the JAX "
                          "package's EncoderTTAClassifier does; the reward ensemble serves prompt TTA "
                          "(rlcf_torch.cli.tta_cls)")
-    waits = {
+    common.refuse({
         "--dp > 1": (args.dp > 1, "episode data parallelism (ROADMAP A14)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
-        "--decode native": (args.decode == "native", "the native decoder binding (ROADMAP A15)"),
-        "--download": (bool(args.download), "checkpoint download (ROADMAP A15)"),
-    }
-    for flag, (used, item) in waits.items():
-        if used:
-            raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+        "--decode native": (args.decode == "native", common.DECODE_WAIT),
+        "--download": (bool(args.download), common.DOWNLOAD_WAIT),
+    })
 
 
 def build(args):

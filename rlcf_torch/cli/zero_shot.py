@@ -28,10 +28,8 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
-    for flag, used, item in (("--download", bool(args.download), "checkpoint download (ROADMAP A15)"),
-                             ("--decode native", args.decode == "native", "the native decoder binding (ROADMAP A15)")):
-        if used:
-            raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+    common.refuse({"--download": (bool(args.download), common.DOWNLOAD_WAIT),
+                   "--decode native": (args.decode == "native", common.DECODE_WAIT)})
     if common.finish_dry_run(args):
         return None
     from ..data.class_names import get_classnames

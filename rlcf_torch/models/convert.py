@@ -76,18 +76,16 @@ def _numpy_leaf(a, device="cpu"):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_jax_opt_params(tree, device="cpu"):
-    """The JAX package's OPT parameters (numpy leaves, the layout of
-    ``init_opt_params``/``convert_opt_state_dict``, int8 ``{"q8", "sc"}``
-    entries of ``quantize_opt_params`` included) -> the port's: the same
-    layout, leaf for leaf."""
+def from_jax_numpy_tree(tree, device="cpu"):
+    """A JAX parameter tree whose layout the port keeps leaf for leaf (numpy
+    leaves: OPT's, int8 ``{"q8", "sc"}`` entries of ``quantize_opt_params``
+    included; a mapper's, a per-image stack keeping its leading axis;
+    GPT-2's) -> the port's: the same tree of tensors, each of its leaf's dtype."""
     return _tree_map(lambda a: _numpy_leaf(a, device), tree)
 
 
-def from_jax_mapper_params(tree, device="cpu"):
-    """The JAX package's mapper parameters (numpy leaves; a per-image stack
-    keeps its leading axis) -> the port's, leaf for leaf."""
-    return _tree_map(lambda a: _numpy_leaf(a, device), tree)
+# the names the OPT, mapper and GPT-2 trees are carried across by
+from_jax_opt_params = from_jax_mapper_params = from_jax_gpt2_params = from_jax_numpy_tree
 
 
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,14 @@
-"""Captioning: the ClipCap/CapDec model and caption TTA with a CLIP reward
-(the TTA side of ``rlcf_tpu/tasks/caption.py``; the supervised trainer, the
-GPT-2 backend and feature extraction come with ROADMAP A12b).
+"""Captioning: the ClipCap/CapDec model, its supervised trainer, caption TTA
+with a CLIP reward, the legacy GPT-2 ClipCap predictor and CLIP feature
+extraction (the counterpart of ``rlcf_tpu/tasks/caption.py``).
 
 - Model (`caption/image_llm/models/modules.py:212-268`): a prefix mapper
   projects a CLIP embedding to ``prefix_length`` LLM token embeddings, which
-  condition a frozen OPT decoder; only the mapper trains.
+  condition a frozen OPT (or GPT-2) decoder; only the mapper trains.
+- Supervised trainer (`caption/train.py:18-76`): teacher-forcing CE on
+  precomputed CLIP embeddings; CapDec adds Gaussian noise to the text
+  embedding (`caption/image_llm/utils.py:24-41`); a linear warm-up then
+  linear decay; the loss slice ``logits[:, P-1:-1]`` with ignore_index 0.
 - TTA (`caption/capdec_tta.py:49-156`): per image, ``tta_steps`` of {beam-
   sample K captions, CLIPScore them against the image, baseline-subtract,
   reward-weighted teacher-forcing CE on the sampled tokens}; then a final
@@ -21,7 +25,8 @@ per-image states instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import os
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +37,7 @@ from ..core.episode import EpisodeConfig, make_optimizer
 from ..core.losses import clipscore, rewards_post_process
 from ..core.reward import reward_image_features
 from ..models import clip as clip_model
+from ..models import gpt2 as G
 from ..models import mappers as M
 from ..models import opt as O
 from ..tokenizer import tokenize as clip_tokenize
@@ -40,31 +46,42 @@ from ..tokenizer import tokenize as clip_tokenize
 @dataclasses.dataclass(frozen=True)
 class CaptionModelConfig:
     """Mapper + frozen LLM. ``llm`` names the backend as the reference's
-    ``LLMModel(config_dir)`` dispatch does (`modules.py:188-209`): only "opt"
-    (the RLCF TTA path) is ported; "gpt2" (the legacy ClipCap path) comes
-    with ROADMAP A12b."""
+    ``LLMModel(config_dir)`` dispatch does (`modules.py:188-209`): "opt"
+    (the RLCF TTA path, ``opt``) or "gpt2" (the legacy ClipCap path,
+    ``gpt2`` a ``models.gpt2.GPT2Config``)."""
 
     mapper: M.MapperConfig
-    opt: O.OPTConfig
+    opt: Optional[O.OPTConfig] = None
     normalize_prefix: bool = False
     llm: str = "opt"
+    gpt2: Optional[G.GPT2Config] = None
 
     @property
     def prefix_length(self) -> int:
         return self.mapper.prefix_length
 
+    @property
+    def llm_key(self) -> str:
+        """The LLM's key in the parameter dict ("opt" or "gpt2")."""
+        return "gpt2" if self.llm == "gpt2" else "opt"
 
-def _check_opt(ccfg: CaptionModelConfig):
-    if ccfg.llm != "opt":
-        raise NotImplementedError(f"llm={ccfg.llm!r}: only the OPT backend is ported; the GPT-2 ClipCap backend "
-                                  "comes with ROADMAP A12b")
+
+def llm_forward(llm_params, ccfg: CaptionModelConfig, tokens=None, prefix_embeds=None, attention_mask=None):
+    """The frozen LLM's teacher-forcing forward on the configured backend."""
+    if ccfg.llm == "gpt2":
+        return G.forward(llm_params, ccfg.gpt2, tokens=tokens, prefix_embeds=prefix_embeds,
+                         attention_mask=attention_mask)
+    return O.forward(llm_params, ccfg.opt, tokens=tokens, prefix_embeds=prefix_embeds, attention_mask=attention_mask)
 
 
 def init_caption_params(seed: int, ccfg: CaptionModelConfig, dtype=torch.float32, device="cpu"):
-    """Random mapper (from ``seed``) and OPT (from ``seed + 1``) parameters."""
-    _check_opt(ccfg)
-    return {"mapper": M.init_mapper_params(ccfg.mapper, seed, dtype, device),
-            "opt": O.init_opt_params(seed + 1, ccfg.opt, dtype, device)}
+    """Random mapper (from ``seed``) and LLM (from ``seed + 1``) parameters."""
+    out = {"mapper": M.init_mapper_params(ccfg.mapper, seed, dtype, device)}
+    if ccfg.llm == "gpt2":
+        out["gpt2"] = G.init_gpt2_params(seed + 1, ccfg.gpt2, dtype, device)
+    else:
+        out["opt"] = O.init_opt_params(seed + 1, ccfg.opt, dtype, device)
+    return out
 
 
 def prefix_tokens(mapper_params, ccfg: CaptionModelConfig, clip_emb):
@@ -75,9 +92,8 @@ def prefix_tokens(mapper_params, ccfg: CaptionModelConfig, clip_emb):
 
 def caption_forward(params, ccfg: CaptionModelConfig, clip_emb, tokens, attention_mask=None):
     """Teacher-forcing logits [B, P+T, V] (`modules.py:239-252`)."""
-    return O.forward(params["opt"], ccfg.opt, tokens=tokens, prefix_embeds=prefix_tokens(params["mapper"], ccfg,
-                                                                                          clip_emb),
-                     attention_mask=attention_mask)
+    return llm_forward(params[ccfg.llm_key], ccfg, tokens=tokens,
+                       prefix_embeds=prefix_tokens(params["mapper"], ccfg, clip_emb), attention_mask=attention_mask)
 
 
 def caption_ce(logits, tokens, prefix_length: int, ignore_id: int = 0, per_sample: bool = False, valid_mask=None):
@@ -109,15 +125,124 @@ def caption_ce(logits, tokens, prefix_length: int, ignore_id: int = 0, per_sampl
     return (ce * keep * in_batch).sum(dim=-1) / l_eff
 
 
-def noise_injection(generator: torch.Generator, x, variance: float = 0.016, dont_norm: bool = False):
-    """CapDec Gaussian noise on the CLIP text embedding (`utils.py:24-41`);
-    the draws come from ``generator``."""
+def noise_injection(x, noise, variance: float = 0.016, dont_norm: bool = False):
+    """CapDec Gaussian noise on the CLIP text embedding (`utils.py:24-41`):
+    ``noise`` holds standard normal draws of ``x``'s shape, scaled here by
+    sqrt(variance); a variance <= 0 returns ``x`` untouched."""
     if variance <= 0:
         return x
     if not dont_norm:
         x = clip_model.normalize(x)
-    noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
     return clip_model.normalize(x + noise * np.sqrt(variance))
+
+
+# ---------------------------------------------------------------------------
+# Supervised trainer (ClipCap / CapDec)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lr: float = 2e-5
+    warmup_steps: int = 5000
+    total_steps: int = 100_000
+    epochs: int = 10
+    batch_size: int = 40
+    cap_model: str = "CapDec"  # CapDec => noise injection on text embeddings
+    noise_variance: float = 0.016
+    normalize_prefix: bool = False
+
+
+def train_lr(tcfg: TrainConfig, step: int) -> float:
+    """The learning rate of update ``step`` (0 first): a linear warm-up then
+    a linear decay to 0 at ``total_steps`` (HF
+    ``get_linear_schedule_with_warmup``, `caption/train.py:96-101`), in fp32
+    as the JAX package computes it."""
+    f32 = np.float32
+    if step < tcfg.warmup_steps:
+        frac = f32(step) / f32(max(tcfg.warmup_steps, 1))
+    else:
+        frac = max(f32(0.0), f32(tcfg.total_steps - step) / f32(max(tcfg.total_steps - tcfg.warmup_steps, 1)))
+    return float(f32(tcfg.lr) * f32(frac))
+
+
+def make_caption_trainer(ccfg: CaptionModelConfig, tcfg: TrainConfig):
+    """-> (init_opt, train_step).
+
+    ``init_opt(mapper)``: AdamW over the mapper's leaves (tensors that
+    require grad), eps 1e-6, weight decay 0 (`caption/train.py:96`).
+    ``train_step(mapper, llm_params, opt, prefix, tokens, mask, noise=None)``
+    -> the loss (detached); the mapper steps in place. Only the mapper
+    trains (`ClipCaptionPrefixV2.parameters()`, `modules.py:255-258`).
+    CapDec takes ``noise``, standard normal draws of ``prefix``'s shape,
+    from the caller (``train_caption_model`` draws them from a torch
+    generator: the JAX package's recipe, not its draws). The schedule is
+    evaluated at the count of updates before this one, as optax counts, so
+    the first update's rate is ``train_lr(tcfg, 0)``.
+
+    The JAX package's quirks are kept: CapDec's noise injection skips its
+    normalisation under ``normalize_prefix`` (``dont_norm``), and ClipCap
+    normalises the prefix under it.
+    """
+
+    def init_opt(mapper):
+        opt = torch.optim.AdamW(Po.tree_leaves(mapper), lr=train_lr(tcfg, 0), betas=(0.9, 0.999), eps=1e-6,
+                                weight_decay=0.0)
+        opt.param_groups[0]["updates"] = 0
+        return opt
+
+    def train_step(mapper, llm_params, opt, prefix, tokens, mask, noise=None):
+        if tcfg.cap_model == "CapDec":
+            prefix = noise_injection(prefix, noise, tcfg.noise_variance, dont_norm=tcfg.normalize_prefix)
+        elif tcfg.normalize_prefix:
+            prefix = clip_model.normalize(prefix)
+        group = opt.param_groups[0]
+        group["lr"] = train_lr(tcfg, group["updates"])
+        group["updates"] += 1
+        opt.zero_grad(set_to_none=True)
+        logits = llm_forward(llm_params, ccfg, tokens=tokens, prefix_embeds=prefix_tokens(mapper, ccfg, prefix),
+                             attention_mask=mask)
+        loss = caption_ce(logits, tokens, ccfg.prefix_length)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return init_opt, train_step
+
+
+def train_caption_model(params, ccfg: CaptionModelConfig, tcfg: TrainConfig, dataset_iter_fn: Callable[[], object],
+                        generator: Optional[torch.Generator] = None, checkpoint_dir: Optional[str] = None,
+                        start_epoch: int = 0):
+    """The epoch loop over an iterator factory yielding numpy (prefix,
+    tokens, mask) batches -> (params with the trained mapper, each epoch's
+    mean loss). CapDec's noise comes from ``generator`` (a torch generator on
+    the mapper's device; seed 0 when None). Writes ``ckpt-latest.npz``
+    every epoch and ``ckpt-{epoch:03d}.npz`` for the last six, as
+    `caption/train.py:62-71`. The losses reach the host once an epoch."""
+    dev = Po.tree_leaves(params["mapper"])[0].device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    noisy = tcfg.cap_model == "CapDec" and tcfg.noise_variance > 0
+    init_opt, train_step = make_caption_trainer(ccfg, tcfg)
+    mapper = Po.tree_map(lambda a: a.detach().clone().requires_grad_(True), params["mapper"])
+    opt = init_opt(mapper)
+    losses = []
+    for epoch in range(start_epoch, tcfg.epochs):
+        step_losses = []
+        for prefix, tokens, mask in dataset_iter_fn():
+            prefix = torch.as_tensor(np.asarray(prefix, np.float32), device=dev)
+            noise = torch.randn(prefix.shape, generator=generator, device=dev) if noisy else None
+            step_losses.append(train_step(mapper, params[ccfg.llm_key], opt, prefix,
+                                          torch.as_tensor(np.asarray(tokens, np.int64), device=dev),
+                                          torch.as_tensor(np.asarray(mask, np.int64), device=dev), noise))
+        total = sum(torch.stack(step_losses).tolist()) if step_losses else 0.0
+        losses.append(total / max(len(step_losses), 1))
+        if checkpoint_dir:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            save_mapper_checkpoint(os.path.join(checkpoint_dir, "ckpt-latest.npz"), mapper, epoch)
+            if epoch >= tcfg.epochs - 6:
+                save_mapper_checkpoint(os.path.join(checkpoint_dir, f"ckpt-{epoch:03d}.npz"), mapper, epoch)
+    return {**params, "mapper": Po.tree_map(lambda a: a.detach(), mapper)}, losses
 
 
 def save_mapper_checkpoint(path: str, mapper_params, epoch: int):
@@ -148,7 +273,7 @@ class CaptionTTA:
                  quantize_decode: bool = False, decode_seg_len: Optional[int] = None, seed: int = 0):
         if ccfg.llm != "opt":
             raise ValueError("CaptionTTA requires the OPT backend (the reference TTA path generates through "
-                             "opt_generate, `capdec_tta.py:98-100`)")
+                             "opt_generate, `capdec_tta.py:98-100`); use clipcap_predict for GPT-2 no-TTA captioning")
         self.params = params
         self.ccfg = ccfg
         self.reward = reward
@@ -325,3 +450,74 @@ class CaptionTTA:
         seqs, _ = O.beam_generate(self.decode_params, self.ccfg.opt, prefixes, num_beams=5,
                                   max_new_tokens=self.max_new_tokens, num_return=1, seg_len=self.decode_seg_len)
         return self._captions(seqs[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# Legacy ClipCap predictor (GPT-2 backend, `caption/image_llm/generate.py`)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def clipcap_predict(params, ccfg: CaptionModelConfig, clip_embs, gpt2_tokenizer, use_beam: bool = True,
+                    beam_size: int = 5, entry_length: int = 67, temperature: float = 1.0,
+                    stop_token: str = ".") -> List[str]:
+    """No-TTA ClipCap captions through the GPT-2 backend, the legacy path of
+    `caption/predictions.py:21-70`: CLIP embedding -> mapper prefix ->
+    ``generate_beam`` (the best beam) or ``generate2`` (greedy), one image
+    at a time. ``clip_embs`` [N, E] -> N caption strings."""
+    if ccfg.llm != "gpt2":
+        raise ValueError("clipcap_predict requires a CaptionModelConfig with llm='gpt2'")
+    # the raw token id: GPT-2 tokenizers prepend no BOS, unlike OPT's </s>
+    stop_id = gpt2_tokenizer.encode(stop_token, add_bos=False)[0]
+    lm = params["gpt2"]
+    prefixes = prefix_tokens(params["mapper"], ccfg, torch.as_tensor(clip_embs, dtype=torch.float32)
+                             .to(lm["wte"].device))
+    out = []
+    for prefix in prefixes:
+        if use_beam:
+            tokens, lengths, order = G.clipcap_beam_generate(lm, ccfg.gpt2, prefix, stop_id, beam_size=beam_size,
+                                                             entry_length=entry_length, temperature=temperature)
+            best = int(order[0])
+            ids = tokens[best][: int(lengths[best])]
+        else:
+            tokens, length = G.clipcap_top_p_generate(lm, ccfg.gpt2, prefix, stop_id, entry_length=entry_length,
+                                                      temperature=temperature)
+            ids = tokens[:length]
+        out.append(gpt2_tokenizer.decode(ids.tolist()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CLIP feature pre-extraction (`caption/extractor_pickle.py`)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def extract_clip_features(clip_params, clip_cfg, images_iter=None, texts: Optional[Sequence[str]] = None,
+                          batch_size: int = 256):
+    """CLIP image embeddings of the batches ``images_iter`` yields (NHWC,
+    normalised) and/or text embeddings of ``texts`` (77 tokens, in batches
+    of ``batch_size``), unnormalised, for caption training -> {"image_embeddings",
+    "text_embeddings"}: float32 arrays whatever the towers' dtype, the
+    values the towers computed (a bf16 -> fp32 cast is exact), so that
+    ``np.load`` reads them as numbers (the JAX package writes bf16 towers'
+    arrays in bf16, which ``np.load`` reads as raw ``|V2`` bytes).
+
+    On the card the image tower takes ``clip_model.best_attn`` and the text
+    tower ``clip_model.text_attn`` (the fused kernel); the JAX package's
+    function runs both dense, the same function within the kernel's
+    tolerance. On the CPU both packages run dense."""
+    dev = clip_params["logit_scale"].device
+    out = {}
+    if images_iter is not None:
+        attn = clip_model.best_attn(clip_cfg, dev)
+        feats = [clip_model.encode_image(clip_params, clip_cfg, torch.as_tensor(b, device=dev), attn=attn)
+                 .float().cpu().numpy() for b in images_iter]
+        out["image_embeddings"] = np.concatenate(feats, axis=0)
+    if texts is not None:
+        attn = clip_model.text_attn(dev)
+        tok = torch.as_tensor(clip_tokenize(list(texts), truncate=True).astype(np.int64), device=dev)
+        feats = [clip_model.encode_text(clip_params, clip_cfg, tok[s : s + batch_size], attn=attn).float().cpu().numpy()
+                 for s in range(0, tok.shape[0], batch_size)]
+        out["text_embeddings"] = np.concatenate(feats, axis=0)
+    return out

@@ -107,3 +107,50 @@ def test_caption_phase_on_the_cpu(tmp_path, monkeypatch, one_thread):
                                     os.path.join(str(tmp_path / "coco"), "references.json"),
                                     extra=("--arch", "test-small", "--resolution", "64", "--device", "cpu"))
     assert clip["images"] == 3 and np.isfinite(clip["clipscore"]) and np.isfinite(clip["ref_clipscore"])
+
+
+def test_caption_training_phase_on_the_cpu(tmp_path, monkeypatch, one_thread):
+    """The smoke script's caption-training phase at a tiny width on the CPU,
+    the card's synchronisation, memory counters and profiler stubbed: the
+    extraction to one npz and to shards, both trainers on them (a tiny OPT
+    from an HF-format checkpoint whose 600 rows hold the synthetic
+    vocabulary's ids), and the GPT-2 predictor. The CPU launches no kernel:
+    each path is credited one forward launch so that the checks on the
+    counts run."""
+    from rlcf_torch.models import opt as O
+    from rlcf_torch.ops import attention as A
+    from torch_port_fixtures import hf_opt_state_dict
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "profile_episode", lambda fn, what: fn() and {})
+    reset = A.reset_launch_counts
+
+    def credited():
+        reset()
+        A.LAUNCHES["fwd"] = 1
+
+    monkeypatch.setattr(A, "reset_launch_counts", credited)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 4)
+    monkeypatch.setitem(O._OPT_N_HEADS, 32, 2)
+    tree = chip_smoke.write_caption_tree(str(tmp_path / "coco"), 3, caps_per_image=3, size=(40, 56))
+    vocab = chip_smoke.write_opt_vocab(str(tmp_path / "vocab"), size=600, newline_id=None)
+    torch.save({k: torch.from_numpy(v) for k, v in hf_opt_state_dict(proj=False, V=600).items()},
+               str(tmp_path / "opt.pt"))
+    tiny = ["--arch", "test-small", "--resolution", "64", "--device", "cpu"]
+    npz, shards = str(tmp_path / "f.npz"), str(tmp_path / "s.npz")
+    ext = [chip_smoke.run_extract("extract", chip_smoke.extract_argv(npz, tree, vocab) + tiny),
+           chip_smoke.run_extract("extract sharded", chip_smoke.extract_argv(shards, tree, vocab, 4) + tiny)]
+    assert [(e["captions"], e["images"]) for e in ext] == [(9, 3), (9, 5)]   # images 1 and 2 straddle shards
+    tiny_llm = ["--llm", "test-tiny-opt", "--opt_checkpoint", str(tmp_path / "opt.pt"), "--device", "cpu"]
+    for path, emb, cap_model in (("train capdec", npz, "CapDec"), ("train clipcap", shards, "ClipCap")):
+        run = chip_smoke.run_train(path, chip_smoke.train_argv(str(tmp_path / path), emb, cap_model) + tiny_llm, 9)
+        assert run["steps"] == 4 and len(run["step_ms"]) == 4 and np.isfinite(run["losses"]).all()
+    gpt2 = chip_smoke.run_clipcap_gpt2("clipcap gpt2", tree, chip_smoke.write_gpt2_vocab(str(tmp_path / "g"), 600),
+                                       n_images=2, gpt2="test-tiny-gpt2", clip_arch="test-small",
+                                       mapper_kw=dict(prefix_length=4, clip_length=2, num_layers=1, n_heads=2),
+                                       device="cpu")
+    assert 0 < gpt2["greedy"]["decode_steps"] <= 2 * (chip_smoke.GPT2_ENTRY - 1)
+    assert 0 < gpt2["beam"]["decode_steps"] <= 2 * (chip_smoke.GPT2_ENTRY - 1)
+    assert all(isinstance(c, str) for c in gpt2["beam"]["captions"] + gpt2["greedy"]["captions"])

@@ -994,3 +994,98 @@ def test_beam_early_exit_on_the_card_matches_cpu(dev, seg_len):
                             seg_len=seg_len)
     assert torch.equal(got[0].cpu(), want[0]) and len(steps) < 12
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cap_model,normalize,llm", [("CapDec", False, "opt"), ("ClipCap", True, "opt"),
+                                                     ("ClipCap", False, "gpt2")])
+def test_caption_train_steps_on_the_card_match_cpu(dev, cap_model, normalize, llm):
+    """Three steps of the caption trainer (warm-up 1: rates 0, lr, lr/2) on
+    the card and on the CPU from the same weights, batches and noise: each
+    loss within rtol 1e-5, the mapper's leaves within 3e-5 after the three
+    (the CPU trainer tests' tolerances against optax)."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.models import gpt2 as TG
+    from rlcf_torch.models import mappers as TM
+    from rlcf_torch.models import opt as TO
+    from rlcf_torch.tasks import caption as Cap
+
+    mcfg = TM.MapperConfig("transformer", clip_dim=16, llm_dim=32, prefix_length=4, clip_length=2, num_layers=1,
+                           n_heads=2)
+    ccfg = Cap.CaptionModelConfig(mapper=mcfg, opt=TO.OPT_CONFIGS["test-tiny-opt"]) if llm == "opt" else \
+        Cap.CaptionModelConfig(mapper=mcfg, llm="gpt2", gpt2=TG.GPT2_CONFIGS["test-tiny-gpt2"])
+    tcfg = Cap.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=3, cap_model=cap_model, normalize_prefix=normalize)
+    params = Cap.init_caption_params(0, ccfg)
+    rng = np.random.default_rng(0)
+    V = 96 if llm == "gpt2" else 256
+    batches = [(rng.normal(size=(4, 16)).astype(np.float32), rng.integers(3, V, size=(4, 6)), np.ones((4, 10), np.int64),
+                rng.normal(size=(4, 16)).astype(np.float32)) for _ in range(3)]
+    out = {}
+    for device in ("cpu", dev):
+        init_opt, step = Cap.make_caption_trainer(ccfg, tcfg)
+        mapper = Po.tree_map(lambda a: a.detach().to(device).clone().requires_grad_(True), params["mapper"])
+        lm = Po.tree_map(lambda a: a.to(device), params[llm])
+        opt = init_opt(mapper)
+        losses = [float(step(mapper, lm, opt, *(torch.as_tensor(a, device=device) for a in b))) for b in batches]
+        out[str(device)] = losses, [a.detach().cpu() for a in Po.tree_leaves(mapper)]
+    (want, want_leaves), (got, got_leaves) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for g, w in zip(got_leaves, want_leaves):
+        torch.testing.assert_close(g, w, rtol=0, atol=3e-5)
+
+
+def test_gpt2_forward_and_beam_on_the_card_match_cpu(dev):
+    """The tiny GPT-2 (its token table 5x, peaked): fp32 logits within 1e-5,
+    and the ClipCap beam search's and greedy loop's tokens, lengths and order
+    equal to the CPU's."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.models import gpt2 as TG
+
+    cfg = TG.GPT2_CONFIGS["test-tiny-gpt2"]
+    params = TG.init_gpt2_params(0, cfg)
+    params["wte"] = params["wte"] * 5.0
+    card = Po.tree_map(lambda v: v.to(dev), params)
+    r = np.random.default_rng(3)
+    pre = torch.as_tensor((r.normal(size=(2, 3, 32)) * 0.5).astype(np.float32))
+    toks = torch.as_tensor(r.integers(0, 96, size=(2, 5)))
+    want = TG.forward(params, cfg, tokens=toks, prefix_embeds=pre)
+    got = TG.forward(card, cfg, tokens=toks.to(dev), prefix_embeds=pre.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for i in range(2):
+        beams = [TG.clipcap_beam_generate(p, cfg, pre[i].to(d), 97, beam_size=5, entry_length=12)
+                 for p, d in ((params, "cpu"), (card, dev))]
+        for w, g in zip(*beams):
+            assert torch.equal(g.cpu(), w)
+        greedy = [TG.clipcap_top_p_generate(p, cfg, pre[i].to(d), 97, entry_length=12)
+                  for p, d in ((params, "cpu"), (card, dev))]
+        assert torch.equal(greedy[1][0].cpu(), greedy[0][0]) and greedy[1][1] == greedy[0][1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_extraction_on_the_card_matches_cpu(dev, dtype):
+    """``extract_clip_features`` with 64-wide heads (the vision tower at
+    T = 65, the text at T = 77: the long kernels) on two image batches and
+    five captions in batches of 2: one launch a layer a batch; within rtol
+    1e-4, atol 1e-5 of the CPU's plain path in the same dtype for fp32, 2e-2
+    for bf16 (the CPU's bf16 against its fp32 reaches 0.76 of 2e-2 + 2e-2
+    relative); float32 arrays either way."""
+    from rlcf_torch.core import policy as Po
+    from rlcf_torch.models import clip as TC
+    from rlcf_torch.tasks import caption as Cap
+
+    cfg = TC.ClipConfig("t", 32, 64, 2, 128, 8, 128, 1, vision_heads_override=2, text_heads_override=2)
+    params = TC.init_clip_params(cfg, seed=0)
+    card = Po.tree_map(lambda v: v.to(dev, dtype if v.dim() else v.dtype), params)
+    r = np.random.default_rng(0)
+    images = [r.normal(size=(n, 64, 64, 3)).astype(np.float32) for n in (3, 2)]
+    texts = ["a dog on a street", "two cats", "a red car parked near a tree", "", "a bowl of fruit"]
+    A.reset_launch_counts()
+    got = Cap.extract_clip_features(card, cfg, images_iter=iter(images), texts=texts, batch_size=2)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fwd"] == 2 * cfg.vision_layers + 3 * cfg.text_layers
+    assert dict(A.LAUNCH_VARIANTS) == {"mma_long" if dtype == torch.bfloat16 else "tf32x3_long": A.LAUNCHES["fwd"]}
+    cpu = Po.tree_map(lambda v: v.to(dtype) if v.dim() else v, params)
+    want = Cap.extract_clip_features(cpu, cfg, images_iter=iter(images), texts=texts, batch_size=2)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    for key in want:
+        assert got[key].dtype == np.float32
+        np.testing.assert_allclose(got[key], want[key], **tol)

@@ -35,7 +35,8 @@ def test_cli_import_leaves_jax_unloaded():
             "rlcf_torch.cli.tta_retrieval, rlcf_torch.tasks.retrieval, rlcf_torch.metrics.retrieval, "
             "rlcf_torch.utils.config, rlcf_torch.cli.tta_caption, rlcf_torch.cli.clipscore_eval, "
             "rlcf_torch.tasks.caption, rlcf_torch.models.opt, rlcf_torch.models.mappers, rlcf_torch.metrics.clipscore, "
-            "rlcf_torch.metrics.caption_metrics, rlcf_torch.tokenizer_gpt2; "
+            "rlcf_torch.metrics.caption_metrics, rlcf_torch.tokenizer_gpt2, rlcf_torch.models.gpt2, "
+            "rlcf_torch.data.sharded_embeddings, rlcf_torch.cli.extract_features, rlcf_torch.cli.train_caption; "
             "bad = [m for m in ('jax', 'optax', 'rlcf_tpu', 'yaml', 'transformers', 'regex') if m in sys.modules]; "
             "assert not bad, bad; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
