@@ -115,8 +115,18 @@ Phases, each fatal:
      one profiled; the GPT-2 ClipCap predictor (random GPT-2 124 M, a
      synthetic 50,257-entry vocabulary in GPT-2's layout) on 4 images, beam 5
      and greedy over 67 tokens ("clipcap gpt2"); one train step on the card
-     against the CPU; the TRAIN_CAPTION line;
-  5. print the run's total seconds, the kernels line (phase 5 also holds
+     against the CPU; the TRAIN_CAPTION line; then serving and infrastructure
+     (A15, phase 4i): the flagship exported by rlcf_torch.cli.export_serving
+     (--input tokens, bf16 and fp32) and served by a fresh process that
+     imports no model code ("serve bf16", "serve fp32": both rlcf:: ops in
+     the graph, both kernels launched, fp32 logits and selections against
+     the eager episode), tta_cls --resume against one run ("resume"),
+     extraction with --decode native beside PIL ("extract pil", "extract
+     native"; one line instead where the machine has no libjpeg or libpng),
+     the runner on the card against the CPU, and the flagship's TFLOP an
+     image; the SERVE, RESUME, DECODE, RUNNER, FLOPS and SERVING lines;
+  5. print each phase's wall seconds (the PHASES line), the run's total
+     seconds, the kernels line (phase 5 also holds
      that Stanford Cars' text ran mma_long at T = 24 both ways on its path,
      that the retrieval paths ran the long backward at T = 77 and at B=8
      T=197, mma_long in bf16 and tf32x3_long in fp32, that the reward's
@@ -124,11 +134,13 @@ Phases, each fatal:
      caption reward's text ran mma_long at B=96 T=77 and that the fp32
      caption paths and clipscore_eval ran tf32x3_long, and that the
      extraction ran mma_long on its images at T = 197 and its captions at
-     T = 77), then the device line last.
+     T = 77, and that each served program launched both attention kernels),
+     then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 
     python3 chip_smoke.py --kernels-only   # phases 1-3, then exit 3 (no device line)
+    python3 chip_smoke.py --serving-only   # phases 1-2 and 4i, then exit 3 (no device line)
 """
 
 from __future__ import annotations
@@ -140,9 +152,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -233,8 +247,31 @@ TRAIN_TREE_SIZE = (480, 640)
 GPT2_IMAGES, GPT2_ENTRY, GPT2_BEAM = 4, 67, 5
 
 
+def host_pipeline_error():
+    """Build and load the host pipeline (``native/rlcf_host.cpp``, with its
+    codecs where the machine has them): None, or why it failed."""
+    from rlcf_torch.data import native
+
+    try:
+        native._load()
+    except Exception as exc:   # reported by phase 2
+        return repr(exc)
+    return None
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+PHASE_SECONDS = {}   # wall seconds each part of the run took, in its order (the PHASES line)
+_phase_mark = [time.perf_counter()]
+
+
+def phase_done(name):
+    """Record the seconds since the last mark under ``name``."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = round(now - _phase_mark[0], 1)
+    _phase_mark[0] = now
 
 
 def time_ms(fn, reps=20, warmup=3, rounds=1):
@@ -267,11 +304,18 @@ def time_ms(fn, reps=20, warmup=3, rounds=1):
 
 
 def device_events(prof):
-    """The device's own events of a torch.profiler profile: not the spans of
-    annotations on its timeline (``Optimizer.step#AdamW.step``), which overlap
-    the kernels they cover."""
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    """The device's own events of a torch.profiler profile, each with its
+    ``name`` and ``device_time`` (us), read off the profiler's raw results
+    (``prof.events()`` first builds an event object for every op and kernel,
+    ~60 us each: two minutes for a caption group's ~190k kernels and their
+    ops); not the spans of annotations on its timeline
+    (``Optimizer.step#AdamW.step``), which overlap the kernels they cover,
+    nor the events the profiler hides."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [types.SimpleNamespace(name=e.name(), device_time=e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()
+            and not getattr(e, "is_hidden_event", lambda: False)()]
 
 
 def device_kernels(fn):
@@ -835,6 +879,7 @@ def gradient_check(clf, toks):
     from rlcf_torch.core import prompt as P
     from rlcf_torch.core.episode import step_loss
     from rlcf_torch.models import clip as clip_model
+    from rlcf_torch.tasks.classification import logit_scale
 
     img_feats, sel, r_sim = clf.prepare_tokens(*toks)
     sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, img_feats.shape[-1]))
@@ -845,9 +890,8 @@ def gradient_check(clf, toks):
     feats = clip_model.encode_text_embeds(clf.clip_params, clf.clip_cfg, prompts.reshape(N * C, T, D),
                                           pt.eot_idx.repeat(N), attn=clf.text_attn)
     text = clip_model.normalize(feats.float()).reshape(N, C, -1)
-    logits = clf._logit_scale() * torch.einsum("nse,nce->nsc", sel_feats, text)
-    loss = step_loss(logits, r_sim, clf.ecfg, clf.reward.score_samples,
-                     clf.reward.params["logit_scale"].exp().float()).sum()
+    logits = logit_scale(clf.clip_params) * torch.einsum("nse,nce->nsc", sel_feats, text)
+    loss = step_loss(logits, r_sim, clf.ecfg, clf.reward.score_samples, logit_scale(clf.reward.params)).sum()
     grads, per_launch, launched = grads_through_backwards(loss, (ctx, prompts))
     (rel_ctx, rel_prompts), (floor_ctx, floor_prompts) = ([rel_l2(x, p) for x, p in zip(grads[name], grads["plain"])]
                                                           for name in ("kernel", "jittered"))
@@ -2222,8 +2266,11 @@ def captioning(out_dir):
     path, (tta, images, embs), run_dir = run_caption_cli(
         "caption", caption_argv(os.path.join(root, "bf16"), tree, vocab), CAP_IMAGES, "bf16")
     log("CAPTION_PATH " + json.dumps(path))
+    phase_done("4h caption CLI bf16")
     prof = profile_episode(lambda: tta.adapt_batch(images, embs), f"caption group of {CAP_GROUP}")
+    phase_done("4h caption profile")
     sync = exit_check_cost(tta, images, embs)
+    phase_done("4h caption exit check")
     del tta, images, embs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2231,10 +2278,12 @@ def captioning(out_dir):
                                                                CAP_FP32_IMAGES, CAP_FP32_STEPS),
                                  CAP_FP32_IMAGES, "fp32")
     log("CAPTION_PATH " + json.dumps(fp32))
+    phase_done("4h caption CLI fp32")
     with open(tree[0]) as fh:
         ann = json.load(fh)
     ref_images = preprocess_many([os.path.join(tree[1], a["image"]) for a in ann[:CAP_REF_IMAGES]], RES)
     ref_path, reference = caption_reference(caption_argv(os.path.join(root, "ref"), tree, vocab, "fp32"), ref_images)
+    phase_done("4h caption REFERENCE")
     gc.collect()
     torch.cuda.empty_cache()
     clip = run_clipscore("clipscore", os.path.join(run_dir, "results_clipscore.json"), tree[1],
@@ -2570,16 +2619,352 @@ def caption_training(out_dir):
     return ext + train + [gpt2], line
 
 
+# serving and infrastructure (A15): the flagship's episode exported (tokens in, bf16 and fp32) and served in a fresh
+# process; tta_cls --resume against one run; extraction with the native decoder beside PIL; the runner on the card
+# against the CPU; the flagship's TFLOP an image. SERVE_TOL is the prompt-TTA parity tolerance on logits (fp32);
+# DECODE_MIN_COS bounds the cosine of an image's embedding decoded natively against PIL's (the native resize is
+# within ~+-2 gray of PIL's on ~0.03% of pixels); RUNNER_RTOL holds the runner's card run to its CPU run
+SERVE_PRECISIONS, SERVE_TOL, SERVE_TIMED = ("bf16", "fp32"), 2e-4, 3
+RESUME_LIMITS = (8, 16)
+DECODE_WORKERS, DECODE_MIN_COS = 8, 0.999
+RUNNER_EPOCHS, RUNNER_STEPS, RUNNER_RTOL = 2, 4, 1e-5
+# the serving process: it imports torch and, of the port, the attention ops (which utils/export.py imports) and the
+# profiling helpers, no model code; loads the artifact and the saved call arguments, serves one group with the
+# launch counters set to 0 just before and read just after, records the selection (the first stable sort of the
+# graph: the views' entropies) on a node-by-node run of the same program, and times SERVE_TIMED groups
+SERVE_CODE = r"""
+import time
+stage, mark = {}, [time.perf_counter()]
+def done(name):
+    stage[name], mark[0] = time.perf_counter() - mark[0], time.perf_counter()
+import json, sys, torch
+from rlcf_torch.ops import attention as A
+from rlcf_torch.utils.export import deserialize_program
+from rlcf_torch.utils.profiling import EpisodeTimer, device_memory_stats
+done("import_s")
+artifact, inputs, out, device, timed = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5])
+with open(artifact, "rb") as fh:
+    program = deserialize_program(fh.read(), device)
+call = program.module()
+saved = torch.load(inputs, map_location=device, weights_only=True)
+args = (*saved["weights"], saved["tokens"])
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+done("load_s")
+A.reset_launch_counts()
+logits = call(*args)
+sync()
+done("first_call_s")
+launches = {"launches": dict(A.LAUNCHES), "variants": dict(A.LAUNCH_VARIANTS),
+            "launches_by_shape": {" ".join(map(str, k)): v for k, v in A.LAUNCH_SHAPES.items()}}
+first_sort = {}
+
+class Recorder(torch.fx.Interpreter):
+    def run_node(self, n):
+        result = super().run_node(n)
+        if n.target is torch.ops.aten.sort.stable and not first_sort:
+            first_sort["indices"] = result[1]
+        return result
+
+Recorder(call).run(*torch.utils._pytree.tree_leaves(args))
+done("record_s")
+timer = EpisodeTimer()
+for _ in range(timed):
+    timer.start()
+    timer.stop(1, call(*args))
+targets = sorted({str(n.target) for n in program.graph.nodes if str(n.target).startswith("rlcf.")})
+torch.save({"logits": logits.cpu(), "sorted": first_sort["indices"].cpu()}, out + ".pt")
+port = sorted(m for m in sys.modules if m.startswith("rlcf_torch"))
+with open(out + ".json", "w") as fh:
+    json.dump({**launches, "group_ms": 1e3 * timer.seconds / max(timed, 1), "memory": device_memory_stats(),
+               "rlcf_nodes": targets, "port_modules": port, "stage_s": stage}, fh)
+"""
+SERVE_MODULES = {"rlcf_torch", "rlcf_torch.ops", "rlcf_torch.ops.attention", "rlcf_torch.ops.cuda_build",
+                 "rlcf_torch.utils", "rlcf_torch.utils.export", "rlcf_torch.utils.profiling"}
+
+
+def export_argv(out, precision, input_="tokens"):
+    """The flagship's settings (``flagship_argv``) for ``export_serving``."""
+    return [".", "--test_sets", "synthetic", "--synthetic_classes", "A", "--arch", POLICY, "--reward_arch", REWARD,
+            "--precision", precision, "--device", "cuda", "--batch_size", str(VIEWS), "--selection_p", "0.1",
+            "--sample_k", "3", "--tta_steps", str(STEPS), "--lr", "7e-3", "--ctx_init", "a_photo_of_a",
+            "--episode_group", str(GROUP), "--seed", "0", "--input", input_, "--out", out]
+
+
+def serve_in_fresh_process(artifact, clf, toks, path, device="cuda", timed=SERVE_TIMED):
+    """Serve one group of ``toks`` from ``artifact`` in a new Python process
+    (``SERVE_CODE``) with ``clf``'s weights, saved beside it; returns its
+    record with the served logits and selection."""
+    inputs = artifact + ".inputs.pt"
+    torch.save({"weights": clf.weights(), "tokens": toks}, inputs)
+    res = subprocess.run([sys.executable, "-c", SERVE_CODE, artifact, inputs, artifact + ".served", device, str(timed)],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=900)
+    os.unlink(inputs)
+    if res.returncode != 0:
+        raise AssertionError(f"{path}: the serving process failed:\n{res.stderr[-4000:]}")
+    with open(artifact + ".served.json") as fh:
+        rec = json.load(fh)
+    rec.update(torch.load(artifact + ".served.pt"))
+    extra = sorted(set(rec["port_modules"]) - SERVE_MODULES)
+    if extra:
+        raise AssertionError(f"{path}: the serving process imported more of the port than the ops: {extra}")
+    return rec
+
+
+def serving_export(out_dir, names, device="cuda"):
+    """Phase 4i (a): ``export_serving --input tokens`` at the flagship's full
+    width in bf16 and fp32, each artifact served in a fresh process against
+    the eager ``adapt_tokens`` on the same tokens and weights; the served
+    program's graph holds both ``rlcf::`` ops and its launches count both
+    kernels. fp32: logits within SERVE_TOL and equal selections; bf16: the
+    served and eager group ms (EpisodeTimer), no claim. Returns (paths, line)."""
+    from rlcf_torch.cli import export_serving
+    from rlcf_torch.data.datasets import SyntheticDataset
+    from rlcf_torch.ops.augmix import fused_views
+    from rlcf_torch.utils.profiling import EpisodeTimer, device_memory_stats
+
+    imgs = np.stack([SyntheticDataset(n=GROUP, n_classes=200)[i][0] for i in range(GROUP)])
+    planar = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()).to(device)
+    toks = fused_views(planar, torch.Generator(device=device).manual_seed(0), n_views=VIEWS, resolution=RES,
+                       src_size=SRC_SIZE, p_policy=16)
+    paths, line = [], {}
+    for precision in SERVE_PRECISIONS:
+        artifact = os.path.join(out_dir, f"episode_{precision}.rlcfx")
+        exported = export_serving.main(export_argv(artifact, precision))
+        phase_done(f"4i export {precision}")
+        clf = exported.pop("classifier")   # the traced classifier, set up for the flagship's classes
+        eager_logits, aux = clf.adapt_tokens(toks)
+        timer = EpisodeTimer()
+        for _ in range(SERVE_TIMED):
+            timer.start()
+            timer.stop(1, clf.adapt_tokens(toks)[0])
+        path = f"serve {precision}"
+        phase_done(f"4i eager {precision}")
+        served = serve_in_fresh_process(artifact, clf, toks, path, device)
+        phase_done(f"4i serve {precision}")
+        S = aux["selected"].shape[1]
+        same_sel = bool(torch.equal(served["sorted"][:, :S], aux["selected"].cpu()))
+        d_logits = float((served["logits"].float() - eager_logits.float().cpu()).abs().max())
+        ops = ["rlcf.fused_attention.default", "rlcf.fused_attention_bwd.default"]
+        rec = {"artifact_mb": exported["bytes"] / 1e6, "trace_seconds": exported["trace_seconds"],
+               "served_ms_per_group": served["group_ms"], "eager_ms_per_group": 1e3 * timer.seconds / SERVE_TIMED,
+               "served_memory": served["memory"], "eager_memory": device_memory_stats(), "selected_equal": same_sel,
+               "max_abs_logit_diff": d_logits, "max_abs_logit": float(eager_logits.float().abs().max()),
+               "served_launches": served["launches"], "served_variants": served["variants"],
+               "rlcf_nodes": served["rlcf_nodes"], "serving_process_port_modules": served["port_modules"],
+               "serving_process_stage_s": served["stage_s"]}
+        log(f"SERVE {precision} " + json.dumps(rec))
+        launched = served["launches"]["fwd"] and served["launches"]["bwd"]
+        if not all(op in served["rlcf_nodes"] for op in ops) or (device == "cuda" and not launched):
+            raise AssertionError(f"{path}: the served program did not go through both kernels: {rec}")
+        if tuple(served["logits"].shape) != (GROUP, len(names)) or not bool(torch.isfinite(served["logits"]).all()):
+            raise AssertionError(f"{path}: served logits {tuple(served['logits'].shape)} not finite [{GROUP}, 200]")
+        if precision == "fp32" and (not same_sel or d_logits > SERVE_TOL):
+            raise AssertionError(f"{path}: served logits differ from the eager episode by {d_logits:.3e} "
+                                 f"(tolerance {SERVE_TOL}) or the selections differ ({same_sel})")
+        line[precision] = rec
+        paths.append({"path": path, "launches_by_shape": served["launches_by_shape"]})
+        del clf, exported
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, line
+
+
+def _journal(out):
+    with open(os.path.join(out, "progress_synthetic.jsonl")) as fh:
+        return [json.loads(x) for x in fh]
+
+
+def serving_resume(out_dir):
+    """Phase 4i (b): ``tta_cls`` at the flagship's settings with --limit 8,
+    then --limit 16 --resume into the same output, against one --limit 16 run,
+    each from an empty output directory (``tta_cls`` appends to its journal):
+    the journals and the final counts are equal, and the resumed groups'
+    logits equal the same groups' in the one run bit for bit (random weights
+    score ~0 right, so the counts alone say little). Where they differ, the
+    uninterrupted run is repeated: a difference is a fault unless the repeat
+    differs from it too (run-to-run nondeterminism, reported). Either way the
+    resumed journal keeps the first run's lines and has one run's samples a
+    line, and the resumed run runs only the groups left."""
+    from rlcf_torch.cli import tta_cls
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.ops import augmix as X
+    from rlcf_torch.tasks.classification import PromptTTAClassifier
+
+    first, full = RESUME_LIMITS
+    resumed, one = os.path.join(out_dir, "resume"), os.path.join(out_dir, "resume_one_run")
+    repeat = os.path.join(out_dir, "resume_repeat")
+    for d in (resumed, one, repeat):
+        shutil.rmtree(d, ignore_errors=True)
+    adapt, logits = PromptTTAClassifier.adapt_tokens, []
+
+    def run(out, limit, *extra):   # each group's logits recorded
+        logits.clear()
+        result = tta_cls.main(flagship_argv(out, limit=limit, extra=extra))["synthetic"]
+        return result, [lg.cpu() for lg in logits]
+
+    def recording(self, *toks):
+        out = adapt(self, *toks)
+        logits.append(out[0])
+        return out
+
+    PromptTTAClassifier.adapt_tokens = recording
+    try:
+        run(resumed, first)
+        first_journal = _journal(resumed)
+        A.reset_launch_counts()                 # counts start at 0 just before the resumed run
+        X.reset_launch_counts()
+        r, r_logits = run(resumed, full, "--resume")
+        by_shape = {" ".join(map(str, k)): v for k, v in {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}.items()}   # read after
+        o, o_logits = run(one, full)
+        counts = lambda res: {k: res[k] for k in ("n", "c1", "c5")}
+        # the resumed run's groups against the same groups of one run, bit for bit (their views' seeds went on)
+        same = len(r_logits) == (full - first) // GROUP and all(
+            torch.equal(a, b) for a, b in zip(r_logits, o_logits[len(o_logits) - len(r_logits):]))
+        sizes = lambda journal: [x["n"] for x in journal]
+        rec = {"resumed_groups_run": len(r["group_seconds"]), "resumed": counts(r), "one_run": counts(o),
+               "journal_equal": _journal(resumed) == _journal(one), "logits_equal": same,
+               "first_run_lines_kept": _journal(resumed)[:len(first_journal)] == first_journal,
+               "journal_sizes_equal": sizes(_journal(resumed)) == sizes(_journal(one)), "journal": _journal(one)}
+        if not (rec["journal_equal"] and same) or counts(r) != counts(o):
+            _, p_logits = run(repeat, full)
+            rec["repeat_equal_to_one_run"] = _journal(repeat) == _journal(one) and all(
+                torch.equal(a, b) for a, b in zip(p_logits, o_logits))
+    finally:
+        PromptTTAClassifier.adapt_tokens = adapt
+    if not (rec["journal_equal"] and rec["logits_equal"]) or counts(r) != counts(o):
+        if rec["repeat_equal_to_one_run"]:
+            raise AssertionError(f"resume: the resumed run differs from one run, which repeats itself: {rec}")
+        log("RESUME the uninterrupted run differs from its own repeat: run-to-run nondeterminism, not a resume fault")
+    if rec["resumed_groups_run"] != (full - first) // GROUP or not rec["first_run_lines_kept"] or \
+            not rec["journal_sizes_equal"] or r["n"] != o["n"]:
+        raise AssertionError(f"resume: the resumed run did not go on from the first run's journal: {rec}")
+    log("RESUME " + json.dumps(rec))
+    return {"path": "resume", "launches_by_shape": by_shape}, rec
+
+
+def serving_decode(out_dir):
+    """Phase 4i (c): phase 4h's extraction (``extract_argv``: 70 images x 5
+    captions at 480x640, ViT-B/16 bf16) with PIL and with ``--decode native
+    --decode_workers 8``, each split by stage; the image embeddings held to
+    each other by their cosine. Where the card's machine lacks the codec
+    headers or libraries, one line says so and nothing runs under the name."""
+    from rlcf_torch.data import native
+
+    if not native.decode_available():
+        log(f"decode native: unavailable on this machine ({native._load()[1]})")
+        return [], {"unavailable": native._load()[1]}
+    root = os.path.join(out_dir, "decode")
+    tree = write_caption_tree(os.path.join(root, "coco"), TRAIN_IMAGES, caps_per_image=TRAIN_CAPS,
+                              size=TRAIN_TREE_SIZE)
+    vocab = write_opt_vocab(os.path.join(root, "vocab"))
+    native_flags = ["--decode", "native", "--decode_workers", str(DECODE_WORKERS)]
+    runs = [run_extract("extract pil", extract_argv(os.path.join(root, "pil.npz"), tree, vocab)),
+            run_extract("extract native", extract_argv(os.path.join(root, "native.npz"), tree, vocab) + native_flags)]
+    emb = [np.load(os.path.join(root, f"{k}.npz"))["image_embeddings"] for k in ("pil", "native")]
+    cos = (emb[0] * emb[1]).sum(-1) / np.linalg.norm(emb[0], axis=-1) / np.linalg.norm(emb[1], axis=-1)
+    rec = {p["path"]: {k: p[k] for k in ("seconds", "encode_seconds", "captions_per_s", "images_per_s", "stages_s",
+                                         "host_share_of_encode")} for p in runs}
+    rec.update(min_image_cosine=float(cos.min()), mean_image_cosine=float(cos.mean()), workers=DECODE_WORKERS,
+               cpu_count=os.cpu_count())
+    log("DECODE " + json.dumps(rec))
+    if not cos.min() >= DECODE_MIN_COS:
+        raise AssertionError(f"decode native: image embeddings differ from PIL's (min cosine {cos.min():.6f}, "
+                             f"bound {DECODE_MIN_COS})")
+    return [{"path": p["path"], "launches_by_shape": p["launches_by_shape"]} for p in runs], rec
+
+
+def runner_problem(device):
+    """A small two-layer model and its batches, from seeds (``core/runner.py``'s check)."""
+    rng = np.random.default_rng(0)
+    params = {"l1": {"w": rng.normal(size=(64, 256)) / 8, "b": np.zeros(256)},
+              "l2": {"w": rng.normal(size=(256, 10)) / 16, "b": np.zeros(10)}, "ln": {"g": np.ones(256)}}
+    params = {k: {n: torch.tensor(v, dtype=torch.float32, device=device) for n, v in d.items()}
+              for k, d in params.items()}
+    batches = [(rng.normal(size=(32, 64)).astype(np.float32), rng.integers(0, 10, 32)) for _ in range(RUNNER_STEPS)]
+
+    def step(p, batch, gen):
+        x, y = (torch.as_tensor(b, device=device) for b in batch)
+        h = torch.relu(x @ p["l1"]["w"] + p["l1"]["b"]) * p["ln"]["g"]
+        return torch.nn.functional.cross_entropy(h @ p["l2"]["w"] + p["l2"]["b"], y)
+    return params, (lambda: batches), step
+
+
+def serving_runner(out_dir, device="cuda"):
+    """Phase 4i (d): ``core/runner.py`` trains a small model RUNNER_EPOCHS
+    epochs on the card and on the CPU (within RUNNER_RTOL); a fresh runner
+    resumed from epoch 0's checkpoint ends on the uninterrupted parameters;
+    ``utils/profiling.py::trace`` writes the card run's trace under build/."""
+    from rlcf_torch.core.runner import Runner, RunnerConfig, _flatten
+    from rlcf_torch.utils.profiling import trace
+
+    cfg = lambda name: RunnerConfig(max_epoch=RUNNER_EPOCHS, steps_per_epoch=RUNNER_STEPS, init_lr=1e-2,
+                                    warmup_steps=2, output_dir=os.path.join(out_dir, name))
+    runs = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        params, loader, step = runner_problem(dev)
+        runs[name] = Runner(cfg(name), params, step)
+        with trace(os.path.join(out_dir, "trace") if name == "card" else None):
+            runs[name].train(loader)
+    params, loader, step = runner_problem(device)
+    resumed = Runner(cfg("resumed"), params, step)
+    resumed.load_checkpoint(os.path.join(out_dir, "card", "checkpoint_0.npz"))
+    resumed.train(loader)
+    rel = lambda a, b: max(float((x.detach().cpu() - y.detach().cpu()).abs().max() / y.detach().cpu().abs().max())
+                           for x, y in zip(_flatten(a.params).values(), _flatten(b.params).values()))
+    trace_file = os.path.join(out_dir, "trace", "trace.json")
+    rec = {"card_vs_cpu_max_rel": rel(runs["card"], runs["cpu"]), "resumed_vs_one_run_max_rel": rel(resumed, runs["card"]),
+           "trace_bytes": os.path.getsize(trace_file) if os.path.exists(trace_file) else 0}
+    log("RUNNER " + json.dumps(rec))
+    if rec["card_vs_cpu_max_rel"] > RUNNER_RTOL or rec["resumed_vs_one_run_max_rel"] > RUNNER_RTOL or \
+            not rec["trace_bytes"]:
+        raise AssertionError(f"runner: {rec}")
+    return rec
+
+
+def serving_and_infrastructure(out_dir):
+    """Phase 4i: serving and infrastructure (A15): (a) the export, (b) the
+    resume, (c) the native decoder, (d) the runner, (e) the flagship's TFLOP
+    an image (``utils/flops.py``, ``bench.py``'s accounting) and its rate at
+    the eager bf16 group's ms. Returns (paths, the SERVING line's numbers)."""
+    from rlcf_torch.data.class_names import get_classnames
+    from rlcf_torch.models.clip import get_config
+    from rlcf_torch.utils.flops import H100_SXM_BF16_PEAK, prompt_tta_flops_per_image
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(os.path.dirname(out_dir), "chip_smoke_serving")
+    os.makedirs(out_dir, exist_ok=True)
+    names = get_classnames("A")
+    paths, export = serving_export(out_dir, names)
+    resume_path, resume = serving_resume(out_dir)
+    phase_done("4i resume")
+    decode_paths, decode = serving_decode(out_dir)
+    phase_done("4i decode")
+    runner = serving_runner(out_dir)
+    phase_done("4i runner")
+    tflop = prompt_tta_flops_per_image(get_config(POLICY), get_config(REWARD), VIEWS, 0.1, STEPS, len(names),
+                                       text_seq_len(names)) / 1e12
+    eager_s = export["bf16"]["eager_ms_per_group"] / 1e3
+    line = {"export": export, "resume": {k: v for k, v in resume.items() if k != "journal"}, "decode": decode,
+            "runner": runner, "tflop_per_image": tflop, "eager_bf16_tflop_per_s": tflop * GROUP / eager_s,
+            "eager_bf16_share_of_dense_peak": tflop * GROUP / eager_s / (H100_SXM_BF16_PEAK / 1e12)}
+    log(f"FLOPS flagship {tflop:.4f} TFLOP an image (bench.py's accounting); the eager bf16 group at "
+        f"{export['bf16']['eager_ms_per_group']:.1f} ms: {line['eager_bf16_tflop_per_s']:.1f} TFLOP/s")
+    return paths + [resume_path] + decode_paths, line
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3 (kernel checks) with exit code 3 and no device line")
+    parser.add_argument("--serving-only", action="store_true",
+                        help="run phases 1-2, then only the serving phase (4i), and exit with code 3 and no device line")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    start = time.perf_counter()
+    start = _phase_mark[0] = time.perf_counter()
     import rlcf_torch  # noqa: F401  (fails outside a checkout of the repo)
     from rlcf_torch.data import native
     from rlcf_torch.data.class_names import get_classnames
@@ -2601,7 +2986,7 @@ def main():
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = [pool.submit(A.build_mma, force=True), pool.submit(A.build_bwd_mma, force=True),
                   pool.submit(A.build_tf32, force=True), pool.submit(A.build_bwd_tf32, force=True),
-                  pool.submit(X.build, force=True), pool.submit(native.available)]
+                  pool.submit(X.build, force=True), pool.submit(host_pipeline_error)]
         results = [b.result() for b in builds]
     for name in ("rlcf_attention_mma", "rlcf_attention_bwd_mma", "rlcf_attention_tf32", "rlcf_attention_bwd_tf32",
                  "rlcf_augmix"):
@@ -2610,10 +2995,17 @@ def main():
                 log(f"PTXAS {name}: " + line.strip()[:200])
             elif "Performance" in line:   # the whole line: it names the function at its end
                 log(f"PTXAS {name}: " + line.strip())
-    if not results[-1]:
-        raise RuntimeError("the host view pipeline (native/rlcf_host.cpp) did not build")
+    if results[-1]:
+        raise RuntimeError(f"the host view pipeline (native/rlcf_host.cpp) did not build: {results[-1]}")
+    log(f"BUILD host pipeline with the JPEG/PNG decoder: {native.decode_available()} "
+        f"({native._load()[1] or 'the codec build'})")
     log(f"BUILD nvcc x5 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
+    phase_done("1-2 device, build")
 
+    if args.serving_only:
+        out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
+        log("SERVING " + json.dumps(serving_and_infrastructure(out)[1]))
+        return 3
     # phase 3: the main path's shapes (group 4: 256 policy views, 24 selected
     # reward views, 4 x 200 text prompts), plus the backward at the vision
     # towers' lengths (T=257, and T=197 as training the policy tower would run it)
@@ -2705,6 +3097,7 @@ def main():
         check_sweep("bwd", dtype)
     flash_entries = check_flash_switch()
     entries += check_augmix()
+    phase_done("3 kernel checks")
     if args.kernels_only:
         return 3
 
@@ -2714,8 +3107,10 @@ def main():
              run_flagship(out_dir, "fused", FP32_IMAGES, precision="fp32")]
     for flag in paths:
         log("FLAGSHIP " + json.dumps(flag))
+    phase_done("4 flagship paths")
     ep = episode_timing_and_reference(out_dir)
     log("EPISODE " + json.dumps(ep))
+    phase_done("4 flagship episode, REFERENCE")
     encoder = [run_encoder(out_dir, ENCODER_IMAGES), run_encoder(out_dir, ENCODER_FP32_IMAGES, precision="fp32")]
     enc = encoder_timing_and_reference(out_dir)
     bf16 = encoder[0]
@@ -2736,6 +3131,7 @@ def main():
     for e in encoder:
         log("ENCODER_PATH " + json.dumps(e))
     paths += encoder
+    phase_done("4b encoder")
     encoder336 = [run_encoder(out_dir, ENCODER336_IMAGES, arch=POLICY336, res=RES336, path="encoder 336"),
                   run_encoder(out_dir, ENCODER336_FP32_IMAGES, "fp32", arch=POLICY336, res=RES336,
                               path="encoder 336 fp32")]
@@ -2761,6 +3157,7 @@ def main():
                        "forward counts 72 step forwards and 72 recomputed ones an image, the backward 72",
         **{k: enc336[k] for k in ("grad_visual_rel_l2", "grad_visual_noise_floor", "grad_launch_rel_l2_max",
                                   "fp32_selected_equal", "fp32_max_abs_logit_diff", "fp32_max_abs_loss_diff")}}))
+    phase_done("4c encoder 336")
     resnet = [run_encoder(out_dir, RESNET_IMAGES, arch=RESNET_POLICY, path=f"encoder {RESNET_POLICY}"),
               run_encoder(out_dir, RESNET_IMAGES, arch=RESNET_POLICY, path=f"encoder {RESNET_POLICY} bn_prior",
                           extra=("--prior_strength", str(BN_PRIOR)))]
@@ -2772,6 +3169,7 @@ def main():
          "launches_per_image_by_shape": {k: v / e["images"] for k, v in e["launches_by_shape"].items()}, **ep}
         for e, ep in zip(resnet, rn_eps)]))
     paths += encoder336 + resnet
+    phase_done("4d encoder RN50")
     ensemble = [run_flagship(out_dir, "native", ENSEMBLE_IMAGES, extra=ENSEMBLE_ARGS, path="ensemble"),
                 run_flagship(out_dir, "fused", REWARD336_IMAGES, reward=REWARD336, path="fused reward 336"),
                 run_zero_shot(out_dir)]
@@ -2794,16 +3192,25 @@ def main():
                        "idle share and kernels over one group's episode on views built beforehand"}))
     reference = {"path": "ensemble reference fp32", "launches_by_shape": ens_ep["reference_launches_by_shape"]}
     paths += ensemble + [reference]
+    phase_done("4e ensemble, zero-shot")
     paths += classification_rest(out_dir)
+    phase_done("4f cars, CoCoOp, Bongard")
     ret_paths, ret = retrieval(out_dir)
     paths += ret_paths
     log("RETRIEVAL " + json.dumps(ret))
+    phase_done("4g retrieval")
     cap_paths, cap = captioning(out_dir)
     paths += cap_paths
     log("CAPTION " + json.dumps(cap))
+    phase_done("4h clipscore")
     train_paths, train = caption_training(out_dir)
     paths += train_paths
     log("TRAIN_CAPTION " + json.dumps(train))
+    phase_done("4h caption training")
+    serve_paths, serve = serving_and_infrastructure(out_dir)
+    paths += serve_paths
+    log("SERVING " + json.dumps(serve))
+    phase_done("4i flops")
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -2861,11 +3268,18 @@ def main():
         k = " ".join(map(str, (*key, str(torch.bfloat16))))
         if checked[k]["variant"] != "mma_long" or not launched.get(k, {}).get("extract"):
             raise AssertionError(f"the extraction's {what} tower ({k}) did not run mma_long on the path extract")
+    # serving: the exported program, served in a fresh process, launched the forward and the backward kernels
+    for precision in SERVE_PRECISIONS:
+        for direction in ("fwd", "bwd"):
+            if not any(key.startswith(direction) and by_path.get(f"serve {precision}") for key, by_path in launched.items()):
+                raise AssertionError(f"the served {precision} program launched no {direction} kernel")
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:
         key = " ".join(map(str, e.pop("shape")))
         line.append(dict(e, launches=sum(launched.get(key, {}).values()), launches_by_path=launched.get(key, {})))
+    phase_done("5 kernels line")
+    log("PHASES " + json.dumps(PHASE_SECONDS))
     log(f"TOTAL chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

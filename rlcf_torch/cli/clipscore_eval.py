@@ -35,10 +35,8 @@ def get_args(argv=None):
     p.add_argument("--precision", default="fp32", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the scorer runs; 'cuda' fails when there is no card")
-    p.add_argument("--decode", default="pil", choices=["pil", "native"], help="image loader; only 'pil' is ported yet")
-    p.add_argument("--decode_workers", type=int, default=0)
-    p.add_argument("--dry_run", action="store_true",
-                   help="validate the command line and exit before loading models or data")
+    common.add_decode_args(p)
+    common.add_dry_run_arg(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--download_nltk", type=int, default=0,
                    help="not supported by the port (refused when 1): it downloads nothing; METEOR runs with "
@@ -50,7 +48,6 @@ def refuse_unported(args):
     if args.download_nltk:
         raise SystemExit("rlcf_torch: --download_nltk 1 is refused: the port downloads nothing; install the "
                          "wordnet corpus beforehand for METEOR's synonym stage")
-    common.refuse({"--decode native": (args.decode == "native", common.DECODE_WAIT)})
 
 
 def main(argv=None):
@@ -58,6 +55,7 @@ def main(argv=None):
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
+    common.check_decode(args)
     from ..data.transforms import preprocess_many
     from ..metrics.caption_metrics import get_all_metrics
     from ..metrics.clipscore import evaluate_captions
@@ -79,7 +77,8 @@ def main(argv=None):
     def images_iter(batch=32):
         paths = [resolve(i) for i in image_ids]
         for s0 in range(0, len(paths), batch):
-            yield np.stack(preprocess_many(paths[s0 : s0 + batch], args.resolution, decode=args.decode))
+            yield np.stack(preprocess_many(paths[s0 : s0 + batch], args.resolution, decode=args.decode,
+                                           workers=args.decode_workers))
 
     references = None
     if args.references_json:
@@ -108,6 +107,7 @@ def main(argv=None):
         summary["n_images"] = len(image_ids)
         with open(args.out_json, "w") as fh:
             json.dump(summary, fh, indent=2)
+    common.report_decode(args)
     return out
 
 

@@ -81,10 +81,44 @@ def add_run_args(p: argparse.ArgumentParser, classification: bool = True):
     add_dry_run_arg(p)
 
 
+def class_names(set_id: str, synthetic_classes: str = "10"):
+    """The class names of a test set; the 'synthetic' set takes
+    ``--synthetic_classes``: a count (class_0, class_1, ...) or a dataset id."""
+    from ..data.class_names import get_classnames
+
+    if set_id != "synthetic":
+        return get_classnames(set_id)
+    if synthetic_classes.isdigit():
+        return ["class_%d" % i for i in range(int(synthetic_classes))]
+    return get_classnames(synthetic_classes)
+
+
 def add_decode_args(p: argparse.ArgumentParser):
     p.add_argument("--decode", default="pil", choices=["pil", "native"],
-                   help="image loader; only 'pil' is ported yet")
-    p.add_argument("--decode_workers", type=int, default=0)
+                   help="image loader: PIL, or the repo's C++ JPEG/PNG decoder (native/rlcf_host.cpp, built with "
+                   "libjpeg and libpng; a build without them is refused)")
+    p.add_argument("--decode_workers", type=int, default=0,
+                   help="threads of the native decoder (0: up to 8, one a core)")
+
+
+def check_decode(args):
+    """Before any model loads: build the native decoder where ``--decode
+    native`` asks for it (raising when the build has no codecs), and start
+    the run's count of decoded images."""
+    from ..data import transforms
+
+    transforms.check_decode(args.decode)
+    transforms.DECODE_COUNTS.clear()
+
+
+def report_decode(args):
+    """Print once a run how many images ``--decode native`` decoded natively
+    and how many it left to PIL."""
+    from ..data.transforms import DECODE_COUNTS
+
+    if args.decode == "native":
+        print(f"decode native: {DECODE_COUNTS['native']} images by the native decoder, {DECODE_COUNTS['pil']} by PIL "
+              "(other containers, CMYK or truncated JPEGs, bomb headers, arrays)")
 
 
 def add_dry_run_arg(p: argparse.ArgumentParser):
@@ -99,8 +133,7 @@ def finish_dry_run(args) -> bool:
     return True
 
 
-DOWNLOAD_WAIT = "checkpoint download (ROADMAP A15)"
-DECODE_WAIT = "the native decoder binding (ROADMAP A15)"
+DOWNLOAD_WAIT = "checkpoint download, which ROADMAP A15 left out: the port downloads nothing"
 
 
 def refuse(waits):

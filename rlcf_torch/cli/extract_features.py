@@ -58,7 +58,8 @@ def _image_batches(args, rel_paths):
 
     paths = [os.path.join(args.images_root, p) for p in rel_paths]
     for s in range(0, len(paths), IMAGE_BATCH):
-        yield np.stack(preprocess_many(paths[s : s + IMAGE_BATCH], args.resolution, decode=args.decode))
+        yield np.stack(preprocess_many(paths[s : s + IMAGE_BATCH], args.resolution, decode=args.decode,
+                                       workers=args.decode_workers))
 
 
 def _tokens_and_mask(tok, captions, args):
@@ -101,10 +102,10 @@ def _extract_sharded(args, params, cfg, tok, captions, image_for_caption):
 def main(argv=None):
     """Returns ``{"out": path, "captions": n, "images": images encoded}``."""
     args = get_args(argv)
-    common.refuse({"--download": (bool(args.download), common.DOWNLOAD_WAIT),
-                   "--decode native": (args.decode == "native", common.DECODE_WAIT)})
+    common.refuse({"--download": (bool(args.download), common.DOWNLOAD_WAIT)})
     if common.finish_dry_run(args):
         return None
+    common.check_decode(args)
 
     from ..tasks.caption import extract_clip_features
     from ..tokenizer_gpt2 import load_gpt2_tokenizer
@@ -123,6 +124,7 @@ def main(argv=None):
 
     if args.shard_size > 0:
         n_images = _extract_sharded(args, params, cfg, tok, captions, image_for_caption)
+        common.report_decode(args)
         return {"out": args.out, "captions": len(captions), "images": n_images}
 
     feats = extract_clip_features(params, cfg, texts=captions, batch_size=TEXT_BATCH)
@@ -136,6 +138,7 @@ def main(argv=None):
     np.savez(args.out, tokens=tokens, mask=mask, captions=np.array(captions, dtype=object),
              images=np.array(image_for_caption, dtype=object), **feats)
     print(f"wrote {args.out}: {tokens.shape[0]} captions")
+    common.report_decode(args)
     return {"out": args.out, "captions": len(captions), "images": n_images}
 
 

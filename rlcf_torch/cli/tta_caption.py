@@ -79,7 +79,6 @@ def refuse_unported(args):
         "--dp > 1": (args.dp > 1, "episode data parallelism (ROADMAP A14)"),
         "--tp > 1": (args.tp > 1, "OPT decode tensor parallelism (ROADMAP A14)"),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
-        "--decode native": (args.decode == "native", common.DECODE_WAIT),
     })
     if args.multiple_reward_models:
         raise SystemExit("rlcf_torch: --multiple_reward_models 1 does not apply to captioning: CaptionTTA scores "
@@ -129,6 +128,7 @@ def main(argv=None):
         return None
     if not args.synthetic and not args.annotations:
         raise SystemExit("tta_caption: pass --annotations (and --images_root) or --synthetic")
+    common.check_decode(args)
 
     import torch
 
@@ -202,7 +202,7 @@ def main(argv=None):
         with open(args.annotations) as fh:
             ann = json.load(fh)[: args.limit]
         imgs = preprocess_many([os.path.join(args.images_root, a["image"]) for a in ann], args.resolution,
-                               decode=args.decode)
+                               decode=args.decode, workers=args.decode_workers)
         samples = [(entry_id(a, dmode), os.path.basename(a["image"]) if dmode >= 0 else a["image"], im)
                    for a, im in zip(ann, imgs)]
 
@@ -244,6 +244,7 @@ def main(argv=None):
     with open(out_cs, "w") as fh:
         json.dump(per_image, fh)
     logger.text(f"wrote {out_results} ({len(results)} captions)")
+    common.report_decode(args)
     return {"results": results, "group_seconds": group_seconds}
 
 

@@ -11,7 +11,9 @@ reward ensemble of ``--multiple_reward_models``) the host builds NHWC u8
 views for the classifier's ``adapt``, as the JAX package does. ``bongard``
 in ``--test_sets`` runs Bongard-HOI's few-shot tasks (``tasks/bongard.py``);
 the ten fine-grained sets (``flower102``, ..., ``cars``, ``aircraft``) read
-their Zhou-split and FGVC-Aircraft trees under DIR.
+their Zhou-split and FGVC-Aircraft trees under DIR. Each group's counts go
+to ``progress_<set>.jsonl`` in ``--output``, from which ``--resume`` goes on;
+``--decode native`` decodes the images with the repo's C++ decoder.
 
 Example (random weights, no data):
   python -m rlcf_torch.cli.tta_cls --test_sets synthetic --limit 8 \\
@@ -25,7 +27,9 @@ the 3-CLIP reward (``--viewgen native``); ``--cocoop --loss tpt`` for CoCoOp;
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import os
 import time
 
 import numpy as np
@@ -42,7 +46,9 @@ def get_args(argv=None):
     p.add_argument("--loss", default="rlcf", choices=["rlcf", "tpt", "kd", "dkd", "atkd"])
     p.add_argument("--tpt", action="store_true", help="compat flag: TPT entropy loss")
     p.add_argument("--cocoop", action="store_true", help="CoCoOp image-conditioned prompts (entropy TTA)")
-    p.add_argument("--resume", action="store_true", help="not ported yet (refused)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the progress journal (progress_<set>.jsonl) in --output: the samples it "
+                   "scored are counted and passed over, and the groups' seeds go on from there")
     p.add_argument(
         "--bongard_split", default="unseen_obj_unseen_act",
         help="Bongard-HOI split name (used when 'bongard' is in --test_sets)",
@@ -78,9 +84,7 @@ def refuse_unported(args):
                              "runs --viewgen fused and --viewgen native"),
         "--tp > 1": (args.tp > 1, "class-axis tensor parallelism (ROADMAP A14)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
-        "--resume": (args.resume, "the progress journal (ROADMAP A15)"),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
-        "--decode native": (args.decode == "native", common.DECODE_WAIT),
     })
 
 
@@ -129,11 +133,11 @@ def main(argv=None):
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
+    common.check_decode(args)
 
     import torch
 
     from ..data import native
-    from ..data.class_names import get_classnames
     from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
     from ..metrics.classification import AccuracyMeter, topk_correct
     from ..ops.augmix import fused_views
@@ -166,19 +170,25 @@ def main(argv=None):
             results[set_id] = run_bongard(args, clf.clip_params, cfg, logger)
             logger.text(logger.elapsed_line(f"dataset {set_id}"))
             continue
-        if set_id != "synthetic":
-            classnames = get_classnames(set_id)
-        elif args.synthetic_classes.isdigit():
-            classnames = ["class_%d" % i for i in range(int(args.synthetic_classes))]
-        else:
-            classnames = get_classnames(args.synthetic_classes)
+        classnames = common.class_names(set_id, args.synthetic_classes)
         clf.setup(classnames)
         dataset = build_dataset(set_id, args.data, mode=args.dataset_mode, corruption=args.corruption,
                                 level=args.level, n_classes=len(classnames))
         meter = AccuracyMeter()
         group_seconds = []
         group_imgs, group_labels = [], []
-        counter = [0]
+        # a seeded sample order and a journal of each group's counts make a
+        # resume a skip count, as in the JAX package
+        journal_path = os.path.join(args.output, f"progress_{set_id.replace('/', '_')}.jsonl")
+        skip = 0
+        if args.resume and os.path.exists(journal_path):
+            with open(journal_path) as fh:
+                for line in fh:
+                    rec = json.loads(line)
+                    meter.update_counts({1: rec["c1"], 5: rec["c5"]}, rec["n"])
+                    skip += rec["n"]
+            print(f"resuming {set_id}: {skip} samples already scored")
+        counter = [skip // max(args.episode_group, 1)]
 
         def flush():
             if not group_imgs:
@@ -208,16 +218,22 @@ def main(argv=None):
             group_seconds.append(time.perf_counter() - t0)
             counts = topk_correct(logits, np.asarray(group_labels))
             meter.update_counts(counts, len(group_labels))
+            journal.write(json.dumps({"n": len(group_labels), "c1": counts[1], "c5": counts[5]}) + "\n")
+            journal.flush()
             group_imgs.clear()
             group_labels.clear()
 
-        for img, label in PrefetchIterator(iter_canonical(dataset, 256, seed=args.seed, limit=args.limit)):
-            group_imgs.append(img)
-            group_labels.append(label)
-            if len(group_imgs) == args.episode_group:
-                flush()
-        flush()
-        results[set_id] = dict(meter.summary(), n=meter.count, group_seconds=group_seconds)
+        stream = iter_canonical(dataset, 256, seed=args.seed, limit=args.limit, workers=args.decode_workers,
+                                decode=args.decode)
+        with open(journal_path, "a") as journal:
+            for img, label in PrefetchIterator(itertools.islice(stream, skip, None)):
+                group_imgs.append(img)
+                group_labels.append(label)
+                if len(group_imgs) == args.episode_group:
+                    flush()
+            flush()
+        results[set_id] = dict(meter.summary(), n=meter.count, c1=meter.correct[1], c5=meter.correct[5],
+                               group_seconds=group_seconds)
         logger.text(
             logger.elapsed_line(f"dataset {set_id}"),
             f"=> Acc. on testset [{set_id}]: @1 {results[set_id]['top1']} / @5 {results[set_id]['top5']}",
@@ -225,6 +241,7 @@ def main(argv=None):
     logger.results_json(results)
     print("======== Result Summary ========", json.dumps({k: {m: v[m] for m in ("top1", "top5", "n", "n_queries")
                                                            if m in v} for k, v in results.items()}))
+    common.report_decode(args)
     return results
 
 

@@ -63,7 +63,6 @@ def refuse_unported(args):
     common.refuse({
         "--tp > 1": (args.tp > 1, "gallery-axis tensor parallelism (ROADMAP A14)"),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
-        "--decode native": (args.decode == "native", common.DECODE_WAIT),
     })
     if args.multiple_reward_models:
         raise SystemExit("rlcf_torch: --multiple_reward_models 1 does not apply to retrieval: RetrievalTTA takes a "
@@ -99,6 +98,7 @@ def main(argv=None):
         return None
     if not args.synthetic and not args.annotations:
         raise SystemExit("tta_retrieval: pass --annotations (a karpathy-format json) or --synthetic")
+    common.check_decode(args)
 
     from ..core.episode import EpisodeConfig
     from ..data.transforms import preprocess, preprocess_many
@@ -128,7 +128,8 @@ def main(argv=None):
         def image_batches(batch=32):
             paths = gallery.image_paths
             for s0 in range(0, len(paths), batch):
-                yield np.stack(preprocess_many(paths[s0 : s0 + batch], args.resolution, decode=args.decode))
+                yield np.stack(preprocess_many(paths[s0 : s0 + batch], args.resolution, decode=args.decode,
+                                               workers=args.decode_workers))
 
     n_img, n_txt = len(gallery.image_paths), len(gallery.texts)
     momentum_kw = dict(momentum_update=bool(args.momentum_update), update_freq=args.update_freq,
@@ -167,6 +168,7 @@ def main(argv=None):
         print("single-direction run complete; score matrix saved")
         np.save(os.path.join(args.output, f"scores_{args.retrieval_task}.npy"),
                 scores_i2t if scores_i2t is not None else scores_t2i)
+    common.report_decode(args)
     return {"metrics": metrics, "group_seconds": group_seconds}
 
 

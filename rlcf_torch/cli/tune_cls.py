@@ -69,7 +69,6 @@ def refuse_unported(args):
     common.refuse({
         "--dp > 1": (args.dp > 1, "episode data parallelism (ROADMAP A14)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
-        "--decode native": (args.decode == "native", common.DECODE_WAIT),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
     })
 
@@ -105,10 +104,10 @@ def main(argv=None):
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
+    common.check_decode(args)
 
     import torch
 
-    from ..data.class_names import get_classnames
     from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
     from ..metrics.classification import AccuracyMeter, topk_correct
     from ..ops.augmix import fused_views
@@ -121,12 +120,7 @@ def main(argv=None):
 
     results = {}
     for set_id in args.test_sets.split("/"):
-        if set_id != "synthetic":
-            classnames = get_classnames(set_id)
-        elif args.synthetic_classes.isdigit():
-            classnames = ["class_%d" % i for i in range(int(args.synthetic_classes))]
-        else:
-            classnames = get_classnames(args.synthetic_classes)
+        classnames = common.class_names(set_id, args.synthetic_classes)
         clf.setup(classnames)
         dataset = build_dataset(set_id, args.data, mode=args.dataset_mode, corruption=args.corruption,
                                 level=args.level, n_classes=len(classnames))
@@ -151,7 +145,8 @@ def main(argv=None):
             group_imgs.clear()
             group_labels.clear()
 
-        for img, label in PrefetchIterator(iter_canonical(dataset, 256, seed=args.seed, limit=args.limit)):
+        for img, label in PrefetchIterator(iter_canonical(dataset, 256, seed=args.seed, limit=args.limit,
+                                                          workers=args.decode_workers, decode=args.decode)):
             group_imgs.append(img)
             group_labels.append(label)
             if len(group_imgs) == args.episode_group:
@@ -165,6 +160,7 @@ def main(argv=None):
     logger.results_json(results)
     print("======== Result Summary ========", json.dumps({k: {m: v[m] for m in ("top1", "top5", "n")}
                                                        for k, v in results.items()}))
+    common.report_decode(args)
     return results
 
 

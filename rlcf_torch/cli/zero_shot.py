@@ -28,11 +28,10 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
-    common.refuse({"--download": (bool(args.download), common.DOWNLOAD_WAIT),
-                   "--decode native": (args.decode == "native", common.DECODE_WAIT)})
+    common.refuse({"--download": (bool(args.download), common.DOWNLOAD_WAIT)})
     if common.finish_dry_run(args):
         return None
-    from ..data.class_names import get_classnames
+    common.check_decode(args)
     from ..data.datasets import build_dataset
     from ..tasks.classification import zero_shot_eval_ensemble
     from ..utils.config import save_hparams
@@ -48,20 +47,17 @@ def main(argv=None):
 
     results = {}
     for set_id in args.test_sets.split("/"):
-        if set_id != "synthetic":
-            classnames = get_classnames(set_id)
-        elif args.synthetic_classes.isdigit():
-            classnames = ["class_%d" % i for i in range(int(args.synthetic_classes))]
-        else:
-            classnames = get_classnames(args.synthetic_classes)
+        classnames = common.class_names(set_id, args.synthetic_classes)
         dataset = build_dataset(set_id, args.data, mode=args.dataset_mode, corruption=args.corruption,
                                 level=args.level, n_classes=len(classnames))
         results[set_id] = zero_shot_eval_ensemble(models, dataset, classnames, prompt_prefix=prefix,
                                                   batch_size=args.batch_size, resolution=args.resolution,
-                                                  limit=args.limit, seed=args.seed)
+                                                  limit=args.limit, seed=args.seed, decode=args.decode,
+                                                  decode_workers=args.decode_workers)
         logger.text(f"=> Zero-shot acc on [{set_id}]: {results[set_id]}")
     logger.results_json(results)
     print(results)
+    common.report_decode(args)
     return results
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,9 +38,44 @@ class EpisodeConfig:
 
 def make_optimizer(params, ecfg: EpisodeConfig) -> torch.optim.AdamW:
     """AdamW with torch defaults (betas 0.9/0.999, decoupled weight decay),
-    `TPT/tpt_cls_rl.py:120`; equal to ``optax.adamw`` step for step."""
+    `TPT/tpt_cls_rl.py:120`; equal to ``optax.adamw`` step for step within
+    float32 roundings. The episodes that step a tower or a mapper (encoder
+    TTA, retrieval, caption TTA: one to a few hundred tensors) take it for
+    its foreach path, a handful of launches a step where ``adamw_step`` takes
+    16 a tensor on host-bound paths; the episodes of one or two tensors, which a
+    graph capture must trace, take ``adamw_step``."""
     return torch.optim.AdamW(params, lr=ecfg.lr, betas=(0.9, 0.999), eps=ecfg.adam_eps,
                              weight_decay=ecfg.weight_decay)
+
+
+def adamw_init(params):
+    """A fresh functional AdamW state for ``params``: (first, second) moments."""
+    return [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+
+
+def adamw_step(params, grads, state, count: int, lr: float, weight_decay: float = 0.0, eps: float = 1e-8,
+               betas=(0.9, 0.999)):
+    """One AdamW step out of place, as ``optax.adamw`` takes it op for op in
+    float32: the moments, the bias corrections ``1 - b**count`` in float32
+    (``torch.optim.AdamW`` takes them in float64, which moves a step by up to
+    ~1e-5 relative at small counts), eps outside the square root, the decay
+    added after the normalisation, then the rate. ``count`` >= 1 counts the
+    steps with this one. Plain tensor ops, which a graph capture traces (the
+    foreach path of ``torch.optim.AdamW`` does not). The prompt episodes,
+    Bongard's and ``core/runner.py`` take it. Returns (params, state)."""
+    (b1, b2), f32 = betas, np.float32
+    bc1, bc2 = (float(f32(1) - f32(b) ** f32(count)) for b in betas)
+    out, mus, nus = [], [], []
+    for p, g, mu, nu in zip(params, grads, *state):
+        mu = b1 * mu + (1 - b1) * g
+        nu = b2 * nu + (1 - b2) * (g * g)
+        update = (mu / bc1) / ((nu / bc2).sqrt() + eps)
+        if weight_decay:
+            update = update + weight_decay * p
+        out.append(p + update * -lr)
+        mus.append(mu)
+        nus.append(nu)
+    return out, (mus, nus)
 
 
 def step_loss(logits, reward_sim, ecfg: EpisodeConfig, score_samples: Optional[Callable], teacher_scale=None):

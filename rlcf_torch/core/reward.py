@@ -41,6 +41,12 @@ def reward_image_features(params, cfg: clip_model.ClipConfig, images, attn: str 
     return clip_model.normalize(clip_model.encode_image(params, cfg, images, attn=attn).float())
 
 
+def image_sim(params, cfg: clip_model.ClipConfig, class_features, images, attn: str = "dense"):
+    """Cosine similarities [B, C] of normalized NHWC images against class
+    features [C, E] (``reward_image_features``)."""
+    return reward_image_features(params, cfg, images, attn) @ class_features.T
+
+
 def _score(sims, sampled_idx, rcfg: RewardConfig, weights):
     """The weighted sum of the members' CLIPScores of sampled classes, then
     the shared post-processing; ``sims`` one [..., S, C] similarity a member."""
@@ -87,7 +93,7 @@ class ClipReward:
     def image_sim(self, images, attn: str = "dense"):
         """Cosine similarities [B, C] of normalized NHWC images against the
         cached class features."""
-        return reward_image_features(self.params, self.cfg, images, attn) @ self.class_features.T
+        return image_sim(self.params, self.cfg, self.class_features, images, attn)
 
     def score_samples(self, sim, sampled_idx):
         """CLIPScore of sampled classes: sim [..., S, C], sampled_idx

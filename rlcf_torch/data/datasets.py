@@ -18,7 +18,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..utils.registry import Registry
-from .transforms import center_crop, load_image, preprocess_pil, resize_short_side_pil
+from .transforms import canonical, check_decode, load_image, preprocess_many, preprocess_pil
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff")
 
@@ -79,6 +79,10 @@ class ImageFolderDataset:
     def __getitem__(self, idx) -> Tuple[np.ndarray, int]:
         path, label = self.samples[idx]
         return load_image(path), label
+
+    def sample_ref(self, idx) -> Tuple[str, int]:
+        """(file path, label) without decoding, for the native decoder."""
+        return self.samples[idx]
 
 
 class JsonSplitDataset:
@@ -259,14 +263,27 @@ def iter_batches(
     shuffle: bool = True,
     seed: int = 0,
     limit: Optional[int] = None,
+    decode: str = "pil",
+    workers: int = 0,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yield (images [B, R, R, 3] float32, CLIP-normalized; labels [B] int32)
-    with the host's CLIP eval transform, for zero-shot evaluation."""
+    with the host's CLIP eval transform, for zero-shot evaluation.
+    ``decode="native"`` takes a batch of file paths through the native
+    decoder on ``workers`` threads (``transforms.preprocess_many``); a dataset
+    without paths is decoded with PIL."""
+    check_decode(decode)
     order = _order(len(dataset), shuffle, seed, limit)
+    sample_ref = getattr(dataset, "sample_ref", None) if decode == "native" else None
     for start in range(0, len(order), batch_size):
-        samples = [dataset[int(i)] for i in order[start : start + batch_size]]
-        yield (np.stack([preprocess_pil(img, resolution) for img, _ in samples]),
-               np.array([label for _, label in samples], dtype=np.int32))
+        idxs = order[start : start + batch_size]
+        if sample_ref is not None:
+            refs = [sample_ref(int(i)) for i in idxs]
+            yield (np.stack(preprocess_many([r[0] for r in refs], resolution, decode, workers)),
+                   np.array([r[1] for r in refs], dtype=np.int32))
+        else:
+            samples = [dataset[int(i)] for i in idxs]
+            yield (np.stack([preprocess_pil(img, resolution) for img, _ in samples]),
+                   np.array([label for _, label in samples], dtype=np.int32))
 
 
 def iter_canonical(
@@ -275,13 +292,43 @@ def iter_canonical(
     shuffle: bool = True,
     seed: int = 0,
     limit: Optional[int] = None,
+    workers: int = 0,
+    decode: str = "pil",
 ) -> Iterator[Tuple[np.ndarray, int]]:
     """Yield (canonical [size, size, 3] u8, label) for the episode stream, in
     the (shuffle, seed, limit)-determined order of ``rlcf_tpu``'s iterator:
-    bicubic short-side resize + center crop on the host."""
-    for i in _order(len(dataset), shuffle, seed, limit):
+    bicubic short-side resize + center crop on the host. ``decode="native"``
+    takes a file path to the canonical square in one C++ call that releases
+    the GIL, on ``workers`` threads (0: up to 8, one a core) with at most
+    ``2 * workers`` images in flight, yielded in order; a dataset without
+    paths, and the files the native call does not take, are decoded with PIL."""
+    check_decode(decode)
+    order = _order(len(dataset), shuffle, seed, limit)
+    sample_ref = getattr(dataset, "sample_ref", None) if decode == "native" else None
+
+    def load_one(i) -> Tuple[np.ndarray, int]:
+        if sample_ref is not None:
+            path, label = sample_ref(int(i))
+            return canonical(path, size, decode), label
         img, label = dataset[int(i)]
-        yield center_crop(resize_short_side_pil(img, size), size), label
+        return canonical(img, size), label
+
+    workers = workers or (min(8, os.cpu_count() or 1) if decode == "native" else 1)
+    if workers <= 1:
+        for i in order:
+            yield load_one(i)
+        return
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        pending: deque = deque()
+        for i in order:
+            pending.append(ex.submit(load_one, i))
+            if len(pending) >= 2 * workers:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
 
 
 class PrefetchIterator:

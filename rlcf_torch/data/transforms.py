@@ -1,8 +1,19 @@
-"""Host image helpers and the CLIP normalization constants (the part of
-``rlcf_tpu/data/transforms.py`` the episode stream, zero-shot and retrieval
-need; PIL decoding only)."""
+"""Host image helpers and the CLIP normalization constants (the host part
+of ``rlcf_tpu/data/transforms.py``): PIL decoding, and the native decoder of
+``data/native.py`` behind ``decode="native"``.
+
+With ``decode="native"`` a JPEG or PNG path is decoded, resized and cropped
+in one C++ call; the files that call does not take (other containers, CMYK
+or truncated JPEGs, bomb headers, arrays instead of paths) are decoded with
+PIL, as the JAX package does, and counted in ``DECODE_COUNTS``. A library
+built without its codecs raises instead (``native.require_decoder``).
+"""
 
 from __future__ import annotations
+
+import collections
+import os
+import threading
 
 import numpy as np
 
@@ -56,14 +67,76 @@ def preprocess_pil(path_or_array, resolution: int = 224) -> np.ndarray:
     return normalize(center_crop(resize_short_side_pil(img, resolution), resolution))
 
 
+# images decoded under decode="native": by the native decoder, and by PIL
+# (the files the native call does not take); reset and read by the CLIs
+DECODE_COUNTS = collections.Counter()
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(route: str):
+    with _COUNT_LOCK:
+        DECODE_COUNTS[route] += 1
+
+
+def check_decode(decode: str):
+    """Refuse an unknown decoder, and ``"native"`` when the library has no
+    codecs (this builds the library, once, before any thread pool)."""
+    if decode not in ("pil", "native"):
+        raise ValueError(f"decode must be 'pil' or 'native', not {decode!r}")
+    if decode == "native":
+        from .native import require_decoder
+
+        require_decoder()
+
+
+def load_canonical(path, size: int):
+    """Native file bytes -> the canonical [size, size, 3] u8 square (decode,
+    bicubic short-side resize, center crop in one GIL-releasing C++ call;
+    decode bit-identical to PIL, the resize within ~+-2 gray on ~0.03% of
+    pixels), or None where the caller decodes with PIL: not a JPEG or PNG
+    path, or a file the native decoder refuses. Needs a library with codecs
+    (``check_decode("native")`` first)."""
+    if not (isinstance(path, str) and path.lower().endswith((".jpg", ".jpeg", ".png"))):
+        return None
+    from .native import load_canonical_native
+
+    with open(path, "rb") as fh:
+        return load_canonical_native(fh.read(), size)
+
+
+def canonical(path_or_array, size: int, decode: str = "pil") -> np.ndarray:
+    """The canonical [size, size, 3] u8 square of an image (a path or an
+    array): the native call under ``decode="native"``, else (and for the
+    files it does not take) PIL's decode, resize and crop."""
+    if decode == "native":
+        arr = load_canonical(path_or_array, size)
+        _count("pil" if arr is None else "native")
+        if arr is not None:
+            return arr
+    img = path_or_array if isinstance(path_or_array, np.ndarray) else load_image(path_or_array)
+    return center_crop(resize_short_side_pil(img, size), size)
+
+
 def preprocess(path_or_array, resolution: int = 224, decode: str = "pil") -> np.ndarray:
-    """``preprocess_pil``; ``decode="native"`` (the JAX package's C++ decoder)
-    is not ported yet (ROADMAP A15), and the CLIs refuse it up front."""
-    if decode != "pil":
-        raise ValueError(f"decode {decode!r} is not ported yet; only 'pil' is (ROADMAP A15)")
+    """``preprocess_pil``, or with ``decode="native"`` the native decode,
+    resize and crop (``canonical``), then the normalization."""
+    if decode == "native":
+        return normalize(canonical(path_or_array, resolution, decode))
     return preprocess_pil(path_or_array, resolution)
 
 
-def preprocess_many(items, resolution: int = 224, decode: str = "pil"):
-    """``preprocess`` over a list of paths or arrays, in order."""
-    return [preprocess(i, resolution, decode) for i in items]
+def preprocess_many(items, resolution: int = 224, decode: str = "pil", workers: int = 0):
+    """``preprocess`` over a list of paths or arrays, in order; under
+    ``decode="native"`` on a pool of ``workers`` threads (0: up to 8, one a
+    core), whose native calls run in parallel."""
+    items = list(items)
+    check_decode(decode)
+    if decode != "native" or len(items) <= 1:
+        return [preprocess(i, resolution, decode) for i in items]
+    workers = workers or min(8, os.cpu_count() or 1)
+    if workers <= 1:
+        return [preprocess(i, resolution, decode) for i in items]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=min(workers, len(items))) as ex:
+        return list(ex.map(lambda i: preprocess(i, resolution, decode), items))

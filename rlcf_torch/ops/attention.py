@@ -14,8 +14,10 @@ max-subtracted fp32 softmax, probabilities rounded to the input dtype before
 ``ds = P * (dp - rowsum(dp * P))``, ``dq = ds k * scale``,
 ``dk = ds^T q * scale``.
 
-``fused_attention`` is a ``torch.autograd.Function``: a CUDA tensor runs the
-CUDA kernels (or raises), a CPU tensor runs the plain version. ``LAUNCHES``
+``fused_attention`` is the custom op ``rlcf::fused_attention``, whose
+gradient is the op ``rlcf::fused_attention_bwd``: a CUDA tensor runs the
+CUDA kernels (or raises), a CPU tensor runs the plain version, and a graph
+capture (``torch.export``) records the two ops as nodes. ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the kernel.
 Which kernel a CUDA tensor runs is a rule of ``(T, dtype)`` in both
 directions (``forward_variant``, ``backward_variant``), not a fallback: one
@@ -47,6 +49,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -427,26 +430,67 @@ def launch_bwd(qkv, g, mask, n_heads: int, scale: float):
     return dqkv
 
 
-class _FusedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, mask, n_heads, scale):
-        ctx.save_for_backward(qkv, mask)
-        ctx.n_heads, ctx.scale = n_heads, scale
-        if qkv.is_cuda:
-            return launch_fwd(qkv, mask, n_heads, scale)
-        return fused_attention_reference(qkv, mask, n_heads, scale)
+# ---------------------------------------------------------------------------
+# The custom ops: the one route from a model to the kernels, eager or traced
+# ---------------------------------------------------------------------------
+# ``torch.export`` and other graph captures trace through fake tensors, which
+# a ctypes launch cannot take: each direction is a ``torch.library`` op whose
+# CUDA implementation launches the kernel (``launch_fwd`` / ``launch_bwd``,
+# looked up when called) and whose CPU implementation is the plain version.
+# The fake implementations give the outputs' shapes; the backward op is wired
+# to the forward with ``register_autograd``, so an exported episode holds both
+# as graph nodes and a program loaded with ``torch.export.load`` runs them once
+# this module is imported (it registers them).
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, mask = ctx.saved_tensors
-        if qkv.is_cuda:
-            dqkv = launch_bwd(qkv, g, mask, ctx.n_heads, ctx.scale)
-        else:
-            dqkv = fused_attention_reference_bwd(qkv, g, mask, ctx.n_heads, ctx.scale)
-        return dqkv, None, None, None
+
+@torch.library.custom_op("rlcf::fused_attention", mutates_args=(), device_types="cuda")
+def _fused_attention_op(qkv: torch.Tensor, mask: Optional[torch.Tensor], n_heads: int, scale: float) -> torch.Tensor:
+    return launch_fwd(qkv, mask, n_heads, scale)
+
+
+@_fused_attention_op.register_kernel("cpu")
+def _(qkv, mask, n_heads, scale):
+    return fused_attention_reference(qkv, mask, n_heads, scale)
+
+
+@_fused_attention_op.register_fake
+def _(qkv, mask, n_heads, scale):
+    return qkv.new_empty((qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3))
+
+
+@torch.library.custom_op("rlcf::fused_attention_bwd", mutates_args=(), device_types="cuda")
+def _fused_attention_bwd_op(qkv: torch.Tensor, g: torch.Tensor, mask: Optional[torch.Tensor], n_heads: int,
+                            scale: float) -> torch.Tensor:
+    return launch_bwd(qkv, g, mask, n_heads, scale)
+
+
+@_fused_attention_bwd_op.register_kernel("cpu")
+def _(qkv, g, mask, n_heads, scale):
+    return fused_attention_reference_bwd(qkv, g, mask, n_heads, scale)
+
+
+@_fused_attention_bwd_op.register_fake
+def _(qkv, g, mask, n_heads, scale):
+    return torch.empty_like(qkv)
+
+
+def _setup_context(ctx, inputs, output):
+    qkv, mask, n_heads, scale = inputs
+    ctx.save_for_backward(qkv, mask)
+    ctx.n_heads, ctx.scale = n_heads, scale
+
+
+def _backward(ctx, g):
+    qkv, mask = ctx.saved_tensors
+    return _fused_attention_bwd_op(qkv, g, mask, ctx.n_heads, ctx.scale), None, None, None
+
+
+_fused_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_attention(qkv, mask, n_heads: int, scale: float):
     """MHA from the fused projection: [B, T, 3*H*D] (+ optional additive
-    [T, T] mask) -> [B, T, H*D]; differentiable in ``qkv``."""
-    return _FusedAttention.apply(qkv, mask, n_heads, float(scale))
+    [T, T] mask) -> [B, T, H*D]; differentiable in ``qkv``. The op
+    ``rlcf::fused_attention``: the kernel on a CUDA tensor (or it raises),
+    the plain version on a CPU tensor."""
+    return _fused_attention_op(qkv, mask, n_heads, float(scale))

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import prompt as P
-from ..core.episode import EpisodeConfig, make_optimizer
+from ..core.episode import EpisodeConfig, adamw_init, adamw_step
 from ..models import clip as clip_model
 from .classification import maybe_normalize_u8, prompt_text_features
 
@@ -92,15 +92,16 @@ class BongardTTA:
             tr["cls"] = pt.cls0
         tr = {k: v.detach()[None].expand(N, *v.shape).clone().requires_grad_(True) for k, v in tr.items()}
         scale = self.clip_params["logit_scale"].exp().float()
-        opt = make_optimizer(list(tr.values()), self.ecfg)   # fresh state per group: the per-task reset
+        ecfg, state = self.ecfg, adamw_init(list(tr.values()))   # fresh state per group: the per-task reset
         losses = []
-        for _ in range(self.ecfg.tta_steps):
-            opt.zero_grad(set_to_none=True)
+        for step in range(1, ecfg.tta_steps + 1):
             logits = scale * torch.einsum("nse,nce->nsc", sup_feats, self.text_features(tr))   # [N, 12, 2]
             loss = F.cross_entropy(logits.reshape(-1, 2), labels.reshape(-1), reduction="none").reshape(N, -1)
             loss = loss.mean(dim=-1)   # [N]: each task's mean support cross-entropy
-            loss.sum().backward()
-            opt.step()
+            grads = torch.autograd.grad(loss.sum(), list(tr.values()))
+            new, state = adamw_step([v.detach() for v in tr.values()], grads, state, step, ecfg.lr,
+                                    ecfg.weight_decay, ecfg.adam_eps)
+            tr = {k: v.requires_grad_(True) for k, v in zip(tr, new)}
             losses.append(loss.detach())
         with torch.no_grad():
             q_logits = scale * torch.einsum("nqe,nce->nqc", q_feats, self.text_features(tr))

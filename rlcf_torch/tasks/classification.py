@@ -2,8 +2,8 @@
 test-time adaptation (RLCF / TPT / KD episodes): prompt TTA on patch-major u8
 views or NHWC views, encoder TTA on NHWC views, and CoCoOp's
 instance-conditioned prompt TTA on NHWC views (the counterpart of
-``rlcf_tpu/tasks/classification.py``; serving and the device mesh are not
-ported yet).
+``rlcf_tpu/tasks/classification.py``, with its serving hooks; the device
+mesh is not ported yet).
 
 Prompt TTA, per group of N test images: the frozen policy encodes all
 views of each image, the lowest-entropy views are selected against the
@@ -22,6 +22,7 @@ and backward over the N episodes' selected views.
 
 from __future__ import annotations
 
+import types
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -30,7 +31,8 @@ import torch
 from ..core import losses as Lo
 from ..core import prompt as P
 from ..core import policy as Po
-from ..core.episode import make_optimizer, make_tta_episode, step_loss, take_rows
+from ..core.reward import image_sim
+from ..core.episode import adamw_init, adamw_step, make_tta_episode, step_loss, take_rows
 from ..data.class_names import assemble_prompts
 from ..data.transforms import CLIP_MEAN, CLIP_STD
 from ..metrics.classification import AccuracyMeter
@@ -69,10 +71,15 @@ def compute_class_features(params, cfg, classnames: Sequence[str], prompt_prefix
     return clip_model.encode_token_batches(params, cfg, tokens, batch_size, attn)
 
 
+def logit_scale(params):
+    """A CLIP's logit scale, ``exp(logit_scale)`` in float32."""
+    return params["logit_scale"].exp().float()
+
+
 def classify_logits(params, cfg, images, class_features, attn: str = "dense"):
     """Cosine-similarity logits [B, C] of normalized NHWC images."""
     img = clip_model.normalize(clip_model.encode_image(params, cfg, images, attn=attn).float())
-    return params["logit_scale"].exp().float() * (img @ class_features.T)
+    return logit_scale(params) * (img @ class_features.T)
 
 
 def resize_bicubic_batch(images, resolution: int):
@@ -83,26 +90,29 @@ def resize_bicubic_batch(images, resolution: int):
 
 @torch.no_grad()
 def zero_shot_eval(params, cfg, dataset, classnames: Sequence[str], prompt_prefix: str = "a photo of a",
-                   batch_size: int = 64, resolution: int = 224, limit: Optional[int] = None, seed: int = 0) -> dict:
+                   batch_size: int = 64, resolution: int = 224, limit: Optional[int] = None, seed: int = 0,
+                   decode: str = "pil", decode_workers: int = 0) -> dict:
     """Zero-shot top-1/top-5 over a dataset loader (`TPT/zero_shot.py`)."""
     return zero_shot_eval_ensemble([(params, cfg)], dataset, classnames, prompt_prefix, batch_size, resolution,
-                                   limit, seed)
+                                   limit, seed, decode, decode_workers)
 
 
 @torch.no_grad()
 def zero_shot_eval_ensemble(models: List, dataset, classnames: Sequence[str], prompt_prefix: str = "a photo of a",
                             batch_size: int = 64, resolution: int = 224, limit: Optional[int] = None,
-                            seed: int = 0) -> dict:
+                            seed: int = 0, decode: str = "pil", decode_workers: int = 0) -> dict:
     """Logit-averaged multi-architecture ensemble (`custom_clip.py:555-566`)
     of ``models``, a list of (params, cfg): each model takes the batch
-    resized to its own resolution. One model is ``zero_shot_eval``."""
+    resized to its own resolution. One model is ``zero_shot_eval``. The
+    images come through ``iter_batches`` (``decode``: "pil" or "native")."""
     from ..data.datasets import iter_batches
 
     device = models[0][0]["logit_scale"].device
     attn = clip_model.best_attn(None, device)
     feats = [compute_class_features(p, c, classnames, prompt_prefix, attn=attn) for p, c in models]
     meter = AccuracyMeter()
-    for images, labels in iter_batches(dataset, batch_size, resolution, shuffle=True, seed=seed, limit=limit):
+    for images, labels in iter_batches(dataset, batch_size, resolution, shuffle=True, seed=seed, limit=limit,
+                                       decode=decode, workers=decode_workers):
         x = torch.as_tensor(images).to(device)
         logits = [classify_logits(p, c, x if c.image_resolution == resolution else resize_bicubic_batch(
             x, c.image_resolution), cf, attn) for (p, c), cf in zip(models, feats)]
@@ -170,27 +180,54 @@ class PromptTTAClassifier:
         return self
 
     # -- pieces ---------------------------------------------------------
+    # Each piece is a function of its weights (the ``*_fn`` methods): every
+    # weight-derived value (params, prompt init, template embeddings, logit
+    # scale, text and class features) is an argument, never a closure, so the
+    # eager entry points and the exported serving functions run the same code
+    # and one artifact serves any checkpoint of the architecture.
 
-    def _logit_scale(self):
-        return self.clip_params["logit_scale"].exp().float()
+    def weights(self):
+        """The weight arguments of the ``*_fn`` pieces for the set-up class
+        set: ``(cparams, rparams, trainable0, pt_args, tf0, r_feats)``, an
+        ensemble's ``rparams`` and ``r_feats`` one entry a member."""
+        reward = self.reward
+        if is_ensemble(reward):
+            rparams = tuple(m.params for m in reward.members)
+            r_feats = tuple(m.class_features for m in reward.members)
+        else:
+            rparams, r_feats = reward.params, reward.class_features
+        return self.clip_params, rparams, self.prompt_state.ctx0, self._pt_args(), self._tf0, r_feats
+
+    def _pt_args(self):
+        pt = self.prompt_state
+        return {"fixed_embed": pt.fixed_embed, "ctx_map": pt.ctx_map, "eot_idx": pt.eot_idx}
+
+    def text_features_fn(self, cparams, ctx, pt_args):
+        """Normalized class text features [N, C, E] for contexts [N, n_ctx, D]."""
+        return prompt_text_features(cparams, self.clip_cfg, types.SimpleNamespace(**pt_args), ctx, self.text_attn)
 
     def text_features(self, ctx):
-        """Normalized class text features [N, C, E] for contexts [N, n_ctx, D]."""
-        return prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.text_attn)
+        """``text_features_fn`` on the classifier's own weights."""
+        return self.text_features_fn(self.clip_params, ctx, self._pt_args())
 
-    @torch.no_grad()
-    def prepare_tokens(self, ptoks, rtoks=None):
+    def _select(self, cparams, tf0, img, N: int, B: int):
+        """(img_feats [N, B, E], sel [N, S]): the lowest-entropy views of each
+        episode against the initial text features."""
+        n_keep = max(1, int(B * self.ecfg.selection_p))
+        img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
+        logits0 = logit_scale(cparams) * torch.einsum("nbe,ce->nbc", img_feats, tf0)
+        return img_feats, Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
+
+    def prepare_tokens_fn(self, cparams, rparams, tf0, r_feats, ptoks, rtoks=None):
         """u8 policy tokens [N, B, Tp, p*p*3] (and optionally the same views
         as reward tokens [N, B, Tr, q*q*3]) -> (img_feats [N, B, E],
         sel [N, S], reward_sim [N, S, C])."""
         cfg, rcfg = self.clip_cfg, self.reward.cfg
         N, B, Tp, Dp = ptoks.shape
-        n_keep = max(1, int(B * self.ecfg.selection_p))
         x = normalize_u8_patch_tokens(ptoks).reshape(N * B, Tp, Dp)
-        img = clip_model.encode_image_tokens(self.clip_params, cfg, x, attn=self.attn)
-        img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
-        logits0 = self._logit_scale() * torch.einsum("nbe,ce->nbc", img_feats, self._tf0)
-        sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
+        img = clip_model.encode_image_tokens(cparams, cfg, x, attn=self.attn)
+        img_feats, sel = self._select(cparams, tf0, img, N, B)
+        n_keep = sel.shape[1]
         if rtoks is not None:
             # the reward's own tokens of the selected views (ViT reward at the
             # view resolution)
@@ -198,64 +235,85 @@ class PromptTTAClassifier:
             sel_r = torch.gather(rtoks, 1, sel[:, :, None, None].expand(N, n_keep, Tr, Dr))
             rx = normalize_u8_patch_tokens(sel_r).reshape(N * n_keep, Tr, Dr)
             feats = clip_model.normalize(
-                clip_model.encode_image_tokens(self.reward.params, rcfg, rx, attn=self.reward_attn).float())
-            r_sim = feats @ self.reward.class_features.T
+                clip_model.encode_image_tokens(rparams, rcfg, rx, attn=self.reward_attn).float())
+            r_sim = feats @ r_feats.T
         else:
             # depatchify ONLY the selected views back to NHWC for the reward tower
             sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
             sel_views = clip_model.images_from_patch_tokens(
                 normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
-            r_sim = self._reward_sim(sel_views, N, n_keep)
+            r_sim = self._reward_sim_fn(rparams, r_feats, sel_views, N, n_keep)
         return img_feats, sel, r_sim.reshape(N, n_keep, -1)
 
-    def _reward_sim(self, sel_views, N: int, n_keep: int):
+    @torch.no_grad()
+    def prepare_tokens(self, ptoks, rtoks=None):
+        """``prepare_tokens_fn`` on the classifier's own weights."""
+        cparams, rparams, _, _, tf0, r_feats = self.weights()
+        return self.prepare_tokens_fn(cparams, rparams, tf0, r_feats, ptoks, rtoks)
+
+    def _reward_sim_fn(self, rparams, r_feats, sel_views, N: int, n_keep: int):
         """Frozen reward similarities of the N * n_keep selected views
         (normalized NHWC), each tower taking them resized to its own
         resolution: [N, S, C] for one reward, [N, M, S, C] for an ensemble
         of M."""
+        sim = lambda params, cfg, feats: image_sim(params, cfg, feats, sel_views, self.reward_attn).reshape(
+            N, n_keep, -1)
         if is_ensemble(self.reward):
-            sims = [m.image_sim(sel_views, self.reward_attn).reshape(N, n_keep, -1) for m in self.reward.members]
-            return torch.stack(sims, dim=1)
-        return self.reward.image_sim(sel_views, self.reward_attn).reshape(N, n_keep, -1)
+            return torch.stack([sim(p, m.cfg, f) for p, m, f in zip(rparams, self.reward.members, r_feats)], dim=1)
+        return sim(rparams, self.reward.cfg, r_feats)
 
-    @torch.no_grad()
-    def prepare(self, views):
+    def prepare_fn(self, cparams, rparams, tf0, r_feats, views):
         """NHWC views [N, B, H, W, 3], u8 (CLIP-normalized here) or float
         (normalized) -> (img_feats [N, B, E], sel [N, S], reward_sim [N, S, C])."""
         views = maybe_normalize_u8(views)
         N, B = views.shape[:2]
-        n_keep = max(1, int(B * self.ecfg.selection_p))
-        img = clip_model.encode_image(self.clip_params, self.clip_cfg, views.reshape((N * B,) + views.shape[2:]),
+        img = clip_model.encode_image(cparams, self.clip_cfg, views.reshape((N * B,) + views.shape[2:]),
                                       attn=self.attn)
-        img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
-        logits0 = self._logit_scale() * torch.einsum("nbe,ce->nbc", img_feats, self._tf0)
-        sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
-        r_sim = self._reward_sim(take_rows(views, sel).reshape((N * n_keep,) + views.shape[2:]), N, n_keep)
+        img_feats, sel = self._select(cparams, tf0, img, N, B)
+        n_keep = sel.shape[1]
+        r_sim = self._reward_sim_fn(rparams, r_feats, take_rows(views, sel).reshape((N * n_keep,) + views.shape[2:]),
+                                    N, n_keep)
         return img_feats, sel, r_sim
 
-    def episodes(self, img_feats, sel, reward_sim):
-        """N batched episodes -> (final logits [N, C], per-step losses [N, steps])."""
+    @torch.no_grad()
+    def prepare(self, views):
+        """``prepare_fn`` on the classifier's own weights."""
+        cparams, rparams, _, _, tf0, r_feats = self.weights()
+        return self.prepare_fn(cparams, rparams, tf0, r_feats, views)
+
+    def episodes_fn(self, cparams, trainable0, pt_args, tf0, img_feats, sel, reward_sim):
+        """N batched episodes from the context ``trainable0`` [n_ctx, D] ->
+        (final logits [N, C], per-step losses [N, steps]). The step is the
+        functional AdamW of ``core/episode.py`` (``adamw_step``), which a
+        graph capture traces; a fresh state per group is the per-sample reset.
+        KD losses take the reward's logit scale from the classifier (bound at
+        export time, as in the JAX package)."""
         ecfg = self.ecfg
         N, _, E = img_feats.shape
-        scale = self._logit_scale()
-        teacher_scale = None if is_ensemble(self.reward) else self.reward.params["logit_scale"].exp().float()
+        scale = logit_scale(cparams)
+        teacher_scale = None if is_ensemble(self.reward) else logit_scale(self.reward.params)
         sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, E))  # [N, S, E]
-        ctx0 = self.prompt_state.ctx0
-        ctx = ctx0.detach()[None].expand(N, *ctx0.shape).clone().requires_grad_(True)
-        opt = make_optimizer([ctx], ecfg)  # fresh state per group: the per-sample reset
+        ctx = trainable0.detach()[None].expand(N, *trainable0.shape).clone()
+        state = adamw_init([ctx])
         losses = []
-        for _ in range(ecfg.tta_steps):
-            opt.zero_grad(set_to_none=True)
-            logits = scale * torch.einsum("nse,nce->nsc", sel_feats, self.text_features(ctx))
-            loss = step_loss(logits, reward_sim, ecfg, self.reward.score_samples, teacher_scale)  # [N]
-            loss.sum().backward()
-            opt.step()
+        for step in range(1, ecfg.tta_steps + 1):
+            with torch.enable_grad():
+                ctx = ctx.detach().requires_grad_(True)
+                logits = scale * torch.einsum("nse,nce->nsc", sel_feats, self.text_features_fn(cparams, ctx, pt_args))
+                loss = step_loss(logits, reward_sim, ecfg, self.reward.score_samples, teacher_scale)  # [N]
+                grad, = torch.autograd.grad(loss.sum(), ctx)
+            (ctx,), state = adamw_step([ctx.detach()], [grad], state, step, ecfg.lr, ecfg.weight_decay, ecfg.adam_eps)
             losses.append(loss.detach())
         with torch.no_grad():
-            tf = self.text_features(ctx) if ecfg.tta_steps > 0 else self._tf0.expand(N, -1, -1)
+            tf = self.text_features_fn(cparams, ctx, pt_args) if ecfg.tta_steps > 0 else tf0.expand(N, -1, -1)
             final = scale * torch.einsum("ne,nce->nc", img_feats[:, 0], tf)
         stacked = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
         return final, stacked
+
+    def episodes(self, img_feats, sel, reward_sim):
+        """``episodes_fn`` on the classifier's own weights."""
+        cparams, _, trainable0, pt_args, tf0, _ = self.weights()
+        return self.episodes_fn(cparams, trainable0, pt_args, tf0, img_feats, sel, reward_sim)
 
     # -- entry points ---------------------------------------------------
 
@@ -346,6 +404,43 @@ class PromptTTAClassifier:
 
         return adapt
 
+    # -- serving export -------------------------------------------------
+
+    def serving_fn(self):
+        """The episode as a pure function for export (``utils/export.py``):
+        ``(cparams, rparams, trainable0, pt_args, tf0, r_feats, views) ->
+        logits [N, C]``, NHWC views as ``adapt`` takes them. Every weight-derived
+        value is an argument, so one artifact serves any checkpoint of this
+        architecture and class count; KD losses bind the reward's logit scale
+        at export time."""
+        def serve(cparams, rparams, trainable0, pt_args, tf0, r_feats, views):
+            img_feats, sel, r_sim = self.prepare_fn(cparams, rparams, tf0, r_feats, views)
+            return self.episodes_fn(cparams, trainable0, pt_args, tf0, img_feats, sel, r_sim)[0]
+
+        return serve
+
+    def serving_example_args(self, views_shape, views_dtype=torch.float32):
+        """Example arguments of ``serving_fn``: the classifier's weights and
+        zero views of the served shape and dtype on its device."""
+        return (*self.weights(), torch.zeros(tuple(views_shape), dtype=views_dtype, device=self.device))
+
+    def serving_fn_tokens(self):
+        """Token-input serving (the hot path): ``(cparams, rparams, trainable0,
+        pt_args, tf0, r_feats, policy_tokens u8 [N, B, T, p*p*3]) -> logits
+        [N, C]``; the reward takes the selected views depatchified in the
+        graph, so any single reward works."""
+        self._check_token_mode("serving_fn_tokens")
+
+        def serve(cparams, rparams, trainable0, pt_args, tf0, r_feats, policy_tokens):
+            img_feats, sel, r_sim = self.prepare_tokens_fn(cparams, rparams, tf0, r_feats, policy_tokens)
+            return self.episodes_fn(cparams, trainable0, pt_args, tf0, img_feats, sel, r_sim)[0]
+
+        return serve
+
+    def serving_example_args_tokens(self, tokens_shape, tokens_dtype=torch.uint8):
+        """Example arguments of ``serving_fn_tokens``."""
+        return self.serving_example_args(tokens_shape, tokens_dtype)
+
 
 # ---------------------------------------------------------------------------
 # Encoder TTA: `TPT/tune_cls_rl.py` (CLIPCLS_TTA): tune the visual tower
@@ -406,7 +501,7 @@ class EncoderTTAClassifier:
                                                      self.prompt_prefix, attn=self.text_attn)
         self.reward.set_class_features(tokenize(assemble_prompts(classnames, self.prompt_prefix)))
         self._episode = make_tta_episode(self.policy_logits, self.reward_image_sim, self.reward.score_samples,
-                                         self.ecfg, teacher_scale=self.reward.params["logit_scale"].exp().float(),
+                                         self.ecfg, teacher_scale=logit_scale(self.reward.params),
                                          return_adapted=True)
         return self
 
@@ -429,7 +524,7 @@ class EncoderTTAClassifier:
                                                    remat=self.remat)
         else:
             feats = clip_model.encode_image({"visual": visual}, self.clip_cfg, views, bn_prior=self.bn_prior)
-        scale = self.clip_params["logit_scale"].exp().float()
+        scale = logit_scale(self.clip_params)
         return scale * torch.einsum("nke,ce->nkc", clip_model.normalize(feats.float()), self.class_features)
 
     def reward_image_sim(self, views):
@@ -539,7 +634,7 @@ class CoCoOpTTAClassifier:
         """Logits [N, k, C] of the views ``idx [N, k]`` under per-episode contexts ``ctx [N, n_ctx, D]``."""
         tf = prompt_text_features(self.clip_params, self.clip_cfg, self.prompt_state, ctx, self.text_attn)
         feats = take_rows(cache["img_feats"], idx)
-        return self.clip_params["logit_scale"].exp().float() * torch.einsum("nke,nce->nkc", feats, tf)
+        return logit_scale(self.clip_params) * torch.einsum("nke,nce->nkc", feats, tf)
 
     def reward_image_sim(self, views):
         """The TPT loss takes no reward: zeros [N, S, C]."""

@@ -114,7 +114,7 @@ def test_cli_synthetic(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "A14"), (["--dp", "2"], "A14"), (["--decode", "native"], "A15"), (["--download", "1"], "A15"),
+    (["--tp", "2"], "A14"), (["--dp", "2"], "A14"), (["--download", "1"], "A15"),
     (["--multiple_reward_models", "1"], "one reward CLIP"),
 ])
 def test_cli_refusals(flags, item, monkeypatch):

@@ -175,7 +175,7 @@ def test_train_synthetic_and_capdec_noise(tmp_path):
 
 
 @pytest.mark.parametrize("cli,flags,item", [
-    ("extract", ["--decode", "native"], "A15"), ("extract", ["--download", "1"], "A15"),
+    ("extract", ["--download", "1"], "A15"),
     ("train", ["--download", "1"], "A15")])
 def test_refusals(tree, monkeypatch, cli, flags, item):
     """Each refusal comes before any model loads."""

@@ -8,6 +8,7 @@ import pathlib
 import types
 
 import numpy as np
+import pytest
 import torch
 
 from torch_port_fixtures import one_thread  # noqa: F401
@@ -22,12 +23,27 @@ def test_device_busy_counts_kernels_not_annotation_spans():
     """An annotation on the device timeline (``Optimizer.step#AdamW.step``)
     spans kernels that are counted on their own; device busy leaves it out."""
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    event = lambda name, device, annotation=False: types.SimpleNamespace(name=name, device_type=device,
-                                                                        is_user_annotation=annotation)
-    events = [event("gemm", cuda), event("Optimizer.step#AdamW.step", cuda, annotation=True),
-              event("aten::add", cpu), event("mha_bwd_mma_long", cuda)]
-    prof = types.SimpleNamespace(events=lambda: events)
-    assert [e.name for e in chip_smoke.device_events(prof)] == ["gemm", "mha_bwd_mma_long"]
+
+    def event(name, device, ns, annotation=False, hidden=False):   # the profiler's raw event's accessors
+        return types.SimpleNamespace(name=lambda: name, device_type=lambda: device, duration_ns=lambda: ns,
+                                     is_user_annotation=lambda: annotation, is_hidden_event=lambda: hidden)
+
+    events = [event("gemm", cuda, 2500), event("Optimizer.step#AdamW.step", cuda, 9000, annotation=True),
+              event("aten::add", cpu, 700), event("mha_bwd_mma_long", cuda, 1500), event("hidden", cuda, 50, hidden=True)]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(kineto_results=types.SimpleNamespace(
+        events=lambda: events)))
+    got = chip_smoke.device_events(prof)
+    assert [e.name for e in got] == ["gemm", "mha_bwd_mma_long"] and [e.device_time for e in got] == [2.5, 1.5]
+
+
+def test_device_events_read_a_real_profile():
+    """``device_events`` reads a torch.profiler profile's raw results: on the
+    CPU there are no device events, and the CPU's ops are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(4).add_(1)
+    assert chip_smoke.device_events(prof) == [] and len(prof.profiler.kineto_results.events()) > 0
 
 
 def test_smoke_trees_load_through_the_port(tmp_path):
@@ -154,3 +170,86 @@ def test_caption_training_phase_on_the_cpu(tmp_path, monkeypatch, one_thread):
     assert 0 < gpt2["greedy"]["decode_steps"] <= 2 * (chip_smoke.GPT2_ENTRY - 1)
     assert 0 < gpt2["beam"]["decode_steps"] <= 2 * (chip_smoke.GPT2_ENTRY - 1)
     assert all(isinstance(c, str) for c in gpt2["beam"]["captions"] + gpt2["greedy"]["captions"])
+
+
+
+
+@pytest.fixture
+def tiny_serving(monkeypatch):
+    """The smoke script's serving phase (4i) at a tiny width on the CPU: the
+    card's synchronisation and memory counters stubbed, the towers on the
+    attention op (whose CPU implementation is the plain version). The CPU
+    launches no kernel: each path is credited one forward launch so that the
+    checks on the counts run, and the served program's launch check is the card's."""
+    from rlcf_torch.models import clip as clip_model
+    from rlcf_torch.ops import attention as A
+
+    tiny = ["--arch", "test-small", "--reward_arch", "test-small", "--resolution", "64", "--device", "cpu"]
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(clip_model, "best_attn", lambda *a, **k: "fused")
+    reset = A.reset_launch_counts
+
+    def credited():
+        reset()
+        A.LAUNCHES["fwd"] = 1
+
+    monkeypatch.setattr(A, "reset_launch_counts", credited)
+    for name, value in (("GROUP", 2), ("VIEWS", 8), ("RES", 64), ("SERVE_PRECISIONS", ("fp32",)), ("SERVE_TIMED", 1),
+                        ("RESUME_LIMITS", (2, 4)), ("TRAIN_IMAGES", 3), ("TRAIN_TREE_SIZE", (40, 56)),
+                        ("DECODE_WORKERS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    for fn, flags in (("flagship_argv", tiny), ("export_argv", tiny + ["--synthetic_classes", "5"]),
+                      ("extract_argv", tiny[:2] + tiny[4:])):
+        monkeypatch.setattr(chip_smoke, fn, (lambda f, x: lambda *a, **k: f(*a, **k) + x)(getattr(chip_smoke, fn), flags))
+    vocab = chip_smoke.write_opt_vocab
+    monkeypatch.setattr(chip_smoke, "write_opt_vocab", lambda root: vocab(root, size=600, newline_id=None))
+
+
+def test_serving_export_phase_on_the_cpu(tmp_path, tiny_serving, one_thread):
+    """The export served in a fresh process against the eager episode (fp32:
+    logits within SERVE_TOL, equal selections), the graph's ``rlcf::`` nodes,
+    and a serving process that imports no model code."""
+    paths, export = chip_smoke.serving_export(str(tmp_path), [f"class_{i}" for i in range(5)], device="cpu")
+    fp32 = export["fp32"]
+    assert fp32["selected_equal"] and fp32["max_abs_logit_diff"] <= chip_smoke.SERVE_TOL
+    assert fp32["rlcf_nodes"] == ["rlcf.fused_attention.default", "rlcf.fused_attention_bwd.default"]
+    assert set(fp32["serving_process_port_modules"]) <= chip_smoke.SERVE_MODULES
+    assert [p["path"] for p in paths] == ["serve fp32"]
+
+
+def test_serving_resume_decode_runner_on_the_cpu(tmp_path, tiny_serving, one_thread):
+    """The resume against one run, extraction with the native decoder beside
+    PIL, the runner on two devices (here both the CPU) and resumed."""
+    _, resume = chip_smoke.serving_resume(str(tmp_path))
+    assert resume["journal_equal"] and resume["resumed"] == resume["one_run"] and resume["resumed"]["n"] == 4
+    decode_paths, decode = chip_smoke.serving_decode(str(tmp_path))
+    assert [p["path"] for p in decode_paths] == ["extract pil", "extract native"]
+    assert decode["min_image_cosine"] >= chip_smoke.DECODE_MIN_COS
+    runner = chip_smoke.serving_runner(str(tmp_path), device="cpu")
+    assert runner["card_vs_cpu_max_rel"] == 0 and runner["resumed_vs_one_run_max_rel"] == 0 and runner["trace_bytes"]
+
+
+def test_serving_resume_twice_in_one_checkout(tmp_path, tiny_serving, one_thread):
+    """A second smoke run in the same checkout starts the resume check from
+    empty journals: the one run's journal holds one line a group, the
+    resumed run runs only the groups left, and the check passes again."""
+    for _ in range(2):
+        _, resume = chip_smoke.serving_resume(str(tmp_path))
+        assert resume["journal_equal"] and resume["logits_equal"] and resume["first_run_lines_kept"]
+        assert len(resume["journal"]) == 2 and resume["resumed_groups_run"] == 1
+        assert "repeat_equal_to_one_run" not in resume
+
+
+def test_smoke_runs_the_serving_phase_and_the_a15_refusals_are_gone():
+    """``main`` runs phase 4i and phase 5 holds the served programs' launches;
+    ``--resume`` and ``--decode native`` are no longer refused."""
+    from rlcf_torch.cli import common, tta_cls
+
+    src = _PATH.read_text()
+    main = src[src.index("\ndef main():"):]
+    assert "serving_and_infrastructure(out_dir)" in main and 'log("SERVING "' in main
+    assert 'f"serve {precision}"' in main and "--serving-only" in main
+    assert not hasattr(common, "DECODE_WAIT") and "DECODE_WAIT" not in src
+    tta_cls.refuse_unported(tta_cls.get_args(["--resume", "--decode", "native"]))   # raises nothing

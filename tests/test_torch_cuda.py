@@ -1089,3 +1089,48 @@ def test_extraction_on_the_card_matches_cpu(dev, dtype):
     for key in want:
         assert got[key].dtype == np.float32
         np.testing.assert_allclose(got[key], want[key], **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,masked", [(16, True), (197, False), (577, False)])
+def test_custom_ops_launch_the_kernels(dev, dtype, T, masked):
+    """``fused_attention`` on a CUDA tensor is the op ``rlcf::fused_attention``:
+    it and its gradient through ``rlcf::fused_attention_bwd`` equal the direct
+    launches bit for bit, each launch counted once; ``opcheck`` holds the
+    registration (fake implementation, autograd) on the card."""
+    H = 12
+    g = torch.Generator(device=dev).manual_seed(T)
+    qkv = torch.randn(2, T, 3 * H * 64, device=dev, generator=g).to(dtype).requires_grad_(True)
+    cot = torch.randn(2, T, H * 64, device=dev, generator=g).to(dtype)
+    mask = causal_mask(T, dev) if masked else None
+    A.reset_launch_counts()
+    out = A.fused_attention(qkv, mask, H, 0.125)
+    dqkv, = torch.autograd.grad(out, qkv, cot)
+    assert A.LAUNCHES == {"fwd": 1, "bwd": 1}
+    assert torch.equal(out, A.launch_fwd(qkv.detach(), mask, H, 0.125))
+    assert torch.equal(dqkv, A.launch_bwd(qkv.detach(), cot, mask, H, 0.125))
+    torch.library.opcheck(torch.ops.rlcf.fused_attention.default, (qkv, mask, H, 0.125),
+                          test_utils=("test_schema", "test_faketensor", "test_autograd_registration"))
+
+
+def test_exported_program_serves_on_the_card(dev, tmp_path):
+    """A tiny episode exported from the card serves there, launching both
+    kernels, with the eager episode's logits (fp32, 1e-5)."""
+    from rlcf_torch.core.episode import EpisodeConfig
+    from rlcf_torch.core.reward import ClipReward, RewardConfig
+    from rlcf_torch.models import clip as C
+    from rlcf_torch.tasks.classification import PromptTTAClassifier
+    from rlcf_torch.utils.export import export_serving, load_exported, save_exported
+
+    cfg = C.ClipConfig("p", 16, 32, 1, 128, 16, 128, 1, vision_heads_override=2, text_heads_override=2)
+    clf = PromptTTAClassifier(C.init_clip_params(cfg, seed=0, device=dev), cfg,
+                              ClipReward(C.init_clip_params(cfg, seed=1, device=dev), cfg, RewardConfig(sample_k=2)),
+                              EpisodeConfig(tta_steps=2, selection_p=0.25, sample_k=2)).setup(["cat", "dog", "bird"])
+    assert clf.attn == clf.text_attn == "fused"
+    toks = torch.randint(0, 256, (2, 8, 4, 768), dtype=torch.uint8, generator=torch.Generator().manual_seed(0)).to(dev)
+    path = str(tmp_path / "e.rlcfx")
+    save_exported(path, export_serving(clf.serving_fn_tokens(), clf.serving_example_args_tokens(toks.shape)))
+    A.reset_launch_counts()
+    served = load_exported(path, device="cuda")(*clf.weights(), toks)
+    assert A.LAUNCHES["fwd"] and A.LAUNCHES["bwd"]
+    torch.testing.assert_close(served, clf.adapt_tokens(toks)[0], rtol=1e-5, atol=1e-5)

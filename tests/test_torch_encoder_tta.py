@@ -301,8 +301,7 @@ def test_tune_cls_cpu_drive_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--dp", "2"), "A14"), (("--hard_aug", "1"), "A16"), (("--decode", "native"), "A15"),
-    (("--download", "1"), "A15")])
+    (("--dp", "2"), "A14"), (("--hard_aug", "1"), "A16"), (("--download", "1"), "A15")])
 def test_tune_cls_refusals_name_their_roadmap_item(tmp_path, extra, item):
     from rlcf_torch.cli import tune_cls
 

@@ -123,6 +123,32 @@ def test_three_adamw_steps_match_optax():
     np.testing.assert_allclose(x.detach().numpy(), np.stack(want), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("weight_decay", [0.0, 5e-4])
+def test_functional_adamw_step_matches_optax(weight_decay):
+    """``adamw_step`` (the prompt episodes', Bongard's and the runner's
+    AdamW) on one [N, ...] tensor, three steps == N independent optax.adamw
+    episodes, within float32 roundings of optax's own arithmetic."""
+    rng = np.random.default_rng(5)
+    x0 = rng.normal(size=(3, 4, 8)).astype(np.float32)
+    targets = rng.normal(size=(3, 4, 8)).astype(np.float32)
+    loss_j = lambda x, t: jnp.sum((x - t) ** 3 * jnp.sin(x))
+    opt = optax.adamw(7e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay)
+    want = []
+    for n in range(3):
+        x = jnp.asarray(x0[n])
+        s = opt.init(x)
+        for _ in range(3):
+            u, s = opt.update(jax.grad(loss_j)(x, jnp.asarray(targets[n])), s, x)
+            x = optax.apply_updates(x, u)
+        want.append(np.asarray(x))
+    x, state = _t(x0), TE.adamw_init([_t(x0)])
+    for step in (1, 2, 3):
+        xg = x.clone().requires_grad_(True)
+        g, = torch.autograd.grad(((xg - _t(targets)) ** 3 * torch.sin(xg)).sum(), xg)
+        (x,), state = TE.adamw_step([x], [g], state, step, 7e-3, weight_decay)
+    np.testing.assert_allclose(x.numpy(), np.stack(want), rtol=1e-6, atol=1e-7)
+
+
 def test_prompt_state_and_splice_match_jax():
     jcfg, tcfg = tiny_cfgs()
     jp = JC.init_clip_params(jax.random.PRNGKey(0), jcfg)

@@ -151,14 +151,6 @@ def test_cli_refusals_name_what_the_port_runs(tmp_path, extra, items):
     assert "use --viewgen device" not in msg
 
 
-def test_cli_resume_refusal_names_its_item(tmp_path):
-    """``--resume`` waits for the progress journal, which A15 brings."""
-    from rlcf_torch.cli import tta_cls
-
-    with pytest.raises(SystemExit, match=r"--resume is not ported yet; .*\(ROADMAP A15\)"):
-        tta_cls.main(_cli_argv(tmp_path, "--resume"))
-
-
 def test_fine_grained_ids_are_the_jax_packages():
     from rlcf_tpu.data.datasets import ID_TO_DIRNAME as JAX_IDS, JSON_SPLITS as JAX_SPLITS
     from rlcf_torch.data.datasets import FINE_GRAINED_IDS, ID_TO_DIRNAME, JSON_SPLITS

@@ -36,8 +36,21 @@ def test_cli_import_leaves_jax_unloaded():
             "rlcf_torch.utils.config, rlcf_torch.cli.tta_caption, rlcf_torch.cli.clipscore_eval, "
             "rlcf_torch.tasks.caption, rlcf_torch.models.opt, rlcf_torch.models.mappers, rlcf_torch.metrics.clipscore, "
             "rlcf_torch.metrics.caption_metrics, rlcf_torch.tokenizer_gpt2, rlcf_torch.models.gpt2, "
-            "rlcf_torch.data.sharded_embeddings, rlcf_torch.cli.extract_features, rlcf_torch.cli.train_caption; "
+            "rlcf_torch.data.sharded_embeddings, rlcf_torch.cli.extract_features, rlcf_torch.cli.train_caption, "
+            "rlcf_torch.cli.export_serving, rlcf_torch.utils.export, rlcf_torch.utils.profiling, rlcf_torch.utils.flops, "
+            "rlcf_torch.core.runner, rlcf_torch.data.native, rlcf_torch.data.transforms; "
             "bad = [m for m in ('jax', 'optax', 'rlcf_tpu', 'yaml', 'transformers', 'regex') if m in sys.modules]; "
             "assert not bad, bad; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
+def test_serving_loader_imports_no_model_code():
+    """A serving process needs the ``rlcf::`` ops, not the models: importing
+    the export module loads, of the port, only the attention ops and their build."""
+    code = ("import sys, rlcf_torch.utils.export; "
+            "print(sorted(m for m in sys.modules if m.startswith('rlcf_torch')))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert eval(res.stdout.strip()) == ["rlcf_torch", "rlcf_torch.ops", "rlcf_torch.ops.attention",
+                                        "rlcf_torch.ops.cuda_build", "rlcf_torch.utils", "rlcf_torch.utils.export"]

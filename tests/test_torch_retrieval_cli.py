@@ -105,8 +105,7 @@ def test_single_direction_saves_its_scores(tmp_path, checkpoints):
     assert np.load(tmp_path / "scores_text2image.npy").shape == (12, 6)
 
 
-@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "A14"), (["--decode", "native"], "A15"),
-                                        (["--download", "1"], "A15"),
+@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "A14"), (["--download", "1"], "A15"),
                                         (["--multiple_reward_models", "1"], "single reward CLIP")])
 def test_unported_options_are_refused(flags, item):
     from rlcf_torch.cli import tta_retrieval as tcli
