@@ -124,7 +124,20 @@ Phases, each fatal:
      extraction with --decode native beside PIL ("extract pil", "extract
      native"; one line instead where the machine has no libjpeg or libpng),
      the runner on the card against the CPU, and the flagship's TFLOP an
-     image; the SERVE, RESUME, DECODE, RUNNER, FLOPS and SERVING lines;
+     image; the SERVE, RESUME, DECODE, RUNNER, FLOPS and SERVING lines; then
+     parallelism (A14, phase 4j): the sharded CLIs under torchrun, every rank
+     a process on this one card, the ranks sharing it over gloo: one launch of
+     4 ranks (dp 2 x tp 2) runs tta_cls --tp 2 at the flagship's width in bf16
+     (2 groups of 4) and fp32 (1 group), tta_retrieval --tp 2 both ways in fp32
+     on the 8 x 1 tree and tta_caption --dp 2 --tp 2 (OPT-125m, fp32, 4
+     images, 1 step), one of 2 ranks tune_cls --dp 2 in bf16 and fp32 (a group
+     of 2 images), each rank's counters set to 0 just before its CLI's main and
+     read just after; the fp32 runs held to the same flags in this process
+     (logits and scores within 2e-4 + 2e-4 relative; selections equal or a
+     near-tie of the one-process entropies, reported; captions equal or a
+     beam tie); a world-1 NCCL group running dp_gather and all_reduce_grads;
+     the attention shapes the ranks launched that phase 3 did not check,
+     checked and timed here; the PARALLEL line;
   5. print each phase's wall seconds (the PHASES line), the run's total
      seconds, the kernels line (phase 5 also holds
      that Stanford Cars' text ran mma_long at T = 24 both ways on its path,
@@ -134,13 +147,16 @@ Phases, each fatal:
      caption reward's text ran mma_long at B=96 T=77 and that the fp32
      caption paths and clipscore_eval ran tf32x3_long, and that the
      extraction ran mma_long on its images at T = 197 and its captions at
-     T = 77, and that each served program launched both attention kernels),
-     then the device line last.
+     T = 77, that each served program launched both attention kernels, and
+     that every rank of every sharded run launched the attention forward and
+     backward, the caption run the forward, and the fused runs the AugMix
+     kernel), then the device line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 
     python3 chip_smoke.py --kernels-only   # phases 1-3, then exit 3 (no device line)
     python3 chip_smoke.py --serving-only   # phases 1-2 and 4i, then exit 3 (no device line)
+    python3 chip_smoke.py --parallel-only  # phases 1-2, the AugMix checks and 4j, then exit 3 (no device line)
 """
 
 from __future__ import annotations
@@ -211,7 +227,8 @@ AUGMIX_MIX_COST, AUGMIX_FINAL_COST = 2, 4
 # pixels unequal to the plain version in the checks with augmix on: the
 # flagship's as the first design of the AugMix kernel gave them on these
 # inputs, and the encoder's group of one image held to the same 0
-AUGMIX_UNEQUAL = {"flagship augmix on": 0, "flagship augmix on, seed 1": 0, "encoder group augmix on": 0}
+AUGMIX_UNEQUAL = {"flagship augmix on": 0, "flagship augmix on, seed 1": 0, "encoder group augmix on": 0,
+                  "dp slice augmix on": 0}
 LARGE_RES = (336, 448)   # the AugMix kernel's layout with one plane on chip: ViT-L/14@336px's views, RN50x64's
 # the rest of the classification application: Stanford Cars as scripts/rlcf-prompt-fine.sh runs it (its prompts
 # truncate to T = 24: the text tower on the long kernels), CoCoOp as scripts/tpt-prompt.sh, Bongard-HOI's tasks
@@ -647,7 +664,8 @@ def check_augmix():
              (RES, "flagship augmix off", GROUP, 0, False, None, 1, False),
              (RES, "flagship augmix on, seed 1", GROUP, 1, True, AUGMIX_UNEQUAL["flagship augmix on, seed 1"], None,
               False),
-             (RES, "encoder group augmix on", 1, 2, True, AUGMIX_UNEQUAL["encoder group augmix on"], None, True)]
+             (RES, "encoder group augmix on", 1, 2, True, AUGMIX_UNEQUAL["encoder group augmix on"], None, True),
+             (RES, "dp slice augmix on", GROUP // 2, 3, True, AUGMIX_UNEQUAL["dp slice augmix on"], None, True)]
     for R in LARGE_RES:
         if not X.large_layout(R, SRC_SIZE):
             raise AssertionError(f"R={R} was meant to take the AugMix kernel's large layout")
@@ -2953,12 +2971,373 @@ def serving_and_infrastructure(out_dir):
     return paths + [resume_path] + decode_paths, line
 
 
+# parallelism (A14, phase 4j): the sharded CLIs under torchrun on the one card, every rank a process and all of
+# them sharing the card over gloo (NCCL refuses two ranks on one device): 4 ranks (dp 2 x tp 2) run tta_cls --tp 2
+# (the flagship in bf16, 2 groups of 4; and in fp32, one group), tta_retrieval --tp 2 (both directions, fp32, the
+# 8 x 1 tree) and tta_caption --dp 2 --tp 2 (OPT-125m, fp32, 4 images, 1 step); 2 ranks run tune_cls --dp 2 (one
+# group of 2 images, bf16 and fp32); each fp32 run against the same flags in this process
+PAR_CLS_IMAGES, PAR_CLS_FP32_IMAGES, PAR_ENC_IMAGES, PAR_CAP_IMAGES, PAR_CAP_STEPS = 8, 4, 2, 4, 1
+PAR_FP32_TOL = 2e-4   # logits and scores: |sharded - one process| <= tol + tol * |one process|; entropies' near-tie
+PAR_BEAM_TIE = 1e-5   # ROADMAP's beam-tie rule
+# the kernels every rank of each run must launch (the caption path has no attention backward: its update
+# differentiates OPT and the mapper, not a CLIP tower)
+PAR_NEEDS = {"tp cls bf16": ("fwd", "bwd", "augmix"), "tp cls fp32": ("fwd", "bwd", "augmix"),
+             "tp retrieval fp32": ("fwd", "bwd"), "dp tp caption fp32": ("fwd",),
+             "dp encoder bf16": ("fwd", "bwd", "augmix"), "dp encoder fp32": ("fwd", "bwd", "augmix")}
+# each rank: the runs of a JSON list in turn, the engine entry point of each recorded (rank 0 saves what it
+# returned), the launch counters set to 0 just before the CLI's main and read just after, one JSON a rank
+RANK_CODE = r"""
+import gc, importlib, json, os, sys, time
+import torch
+runs = json.load(open(sys.argv[1]))
+from rlcf_torch.ops import attention as A
+from rlcf_torch.ops import augmix as X
+from rlcf_torch.parallel import mesh as M
+
+cuda = torch.cuda.is_available()   # the ranks of the CPU tests run this too
+sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+def to_cpu(x):
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    return x
+
+stdout = sys.stdout
+for run in runs:
+    module, name, attr = run["record"]
+    owner = getattr(importlib.import_module(module), name)
+    original, seen = getattr(owner, attr), []
+    def recording(self, *a, _original=original, _seen=seen, **k):
+        out = _original(self, *a, **k)
+        _seen.append(to_cpu(out))
+        return out
+    setattr(owner, attr, recording)
+    cli = importlib.import_module(run["module"])
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    X.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(run["argv"])
+        sync()
+    finally:
+        setattr(owner, attr, original)
+        sys.stdout = stdout
+    rank = M.rank()
+    rec = {"rank": rank, "world": M.world_size(), "backend": M.backend(), "ranks_per_device": M.ranks_per_device(),
+           "wall_s": time.perf_counter() - t0,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+           "launches": {**A.LAUNCHES, **X.LAUNCHES}, "variants": dict(A.LAUNCH_VARIANTS),
+           "launches_by_shape": {" ".join(map(str, k)): v for k, v in {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}.items()}}
+    with open(os.path.join(run["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    if rank == 0:
+        torch.save(seen, os.path.join(run["out"], "recorded.pt"))
+    del seen
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    M.barrier()
+"""
+
+
+def launch_ranks(out_dir, nproc, runs, timeout=900):
+    """Every run of ``runs`` ({"name", "module", "argv", "record"}) in turn on
+    ``nproc`` ranks of one ``torchrun --standalone`` launch (``RANK_CODE``);
+    returns {name: (per-rank records, rank 0's recorded outputs)} and the
+    launch's wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    script, spec = os.path.join(out_dir, "rank_main.py"), os.path.join(out_dir, f"runs_{nproc}.json")
+    for run in runs:
+        run["out"] = os.path.join(out_dir, run["name"].replace(" ", "_"))
+        shutil.rmtree(run["out"], ignore_errors=True)
+        os.makedirs(run["out"])
+    with open(script, "w") as fh:
+        fh.write(RANK_CODE)
+    with open(spec, "w") as fh:
+        json.dump(runs, fh)
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                          str(nproc), script, spec], cwd=root, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"torchrun_{nproc}.log"), "w") as fh:
+        fh.write(res.stdout + "\n--- stderr ---\n" + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"torchrun of {nproc} ranks failed (rc {res.returncode}):\n{res.stderr[-5000:]}")
+    out = {}
+    for run in runs:
+        ranks = []
+        for r in range(nproc):
+            with open(os.path.join(run["out"], f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        out[run["name"]] = (ranks, torch.load(os.path.join(run["out"], "recorded.pt"), weights_only=False))
+    return out, wall
+
+
+@contextlib.contextmanager
+def recorded_calls(owner, attr):
+    """The values ``owner.attr`` returns while inside, moved to the CPU."""
+    original, seen = getattr(owner, attr), []
+
+    def recording(*a, **k):
+        out = original(*a, **k)
+        seen.append(out)
+        return out
+
+    setattr(owner, attr, recording)
+    try:
+        yield seen
+    finally:
+        setattr(owner, attr, original)
+
+
+def swaps_at_boundary(entropies, n_keep, got, want, tol=PAR_FP32_TOL):
+    """How many views one row's two selections swap (``got`` and ``want``,
+    the kept views' indices), or None if a swapped view's entropy (of
+    ``entropies`` [B], the one-process run's) lies more than ``tol`` from
+    the selection boundary: a swap may only cross the boundary between the
+    n_keep-th and the next lowest entropy, and only where the two lie
+    within ``tol``."""
+    e = entropies.float()
+    ranked = e.sort().values
+    lo, hi = float(ranked[n_keep - 1]), float(ranked[n_keep])
+    swapped = sorted(set(got.tolist()) ^ set(want.tolist()))
+    if all(hi - tol <= float(e[v]) <= lo + tol for v in swapped):
+        return len(swapped) // 2
+    return None
+
+
+def compare_group_logits(label, got, want, n_keep, want_entropies):
+    """Sharded against one process, group by group: logits within the fp32
+    tolerance; selections equal, or differing only by views swapped across
+    a near-tie of the one-process entropies at the selection boundary
+    (reported with the count of swapped views, not re-seeded)."""
+    worst, ties, swaps = 0.0, [], 0
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} groups sharded, {len(want)} in one process")
+    for g, ((gl, gaux), (wl, waux), ent) in enumerate(zip(got, want, want_entropies)):
+        gl, wl = gl.float().cpu(), wl.float().cpu()
+        worst = max(worst, float((gl - wl).abs().max()))
+        if not bool(((gl - wl).abs() <= PAR_FP32_TOL + PAR_FP32_TOL * wl.abs()).all()):
+            raise AssertionError(f"{label} group {g}: logits differ by {float((gl - wl).abs().max()):.3e}")
+        gsel, wsel, ent = gaux["selected"].cpu(), waux["selected"].cpu(), ent.cpu()
+        for row in range(gsel.shape[0]):
+            n = swaps_at_boundary(ent[row], n_keep, gsel[row], wsel[row])
+            if n is None:
+                raise AssertionError(f"{label} group {g} row {row}: selections differ off a near-tie at the "
+                                     f"selection boundary")
+            if n:
+                swaps += n
+                ties.append(g)
+    ties = sorted(set(ties))
+    return {"max_abs_logit_diff": worst, "selections_equal": not ties, "near_tie_groups": ties,
+            "views_swapped": swaps}
+
+
+def parallelism(out_dir, entries):
+    """Phase 4j: parallelism (A14). The sharded CLIs under torchrun, ranks
+    sharing the one card over gloo, each rank's launches counted from 0 just
+    before its CLI's main and read just after: every rank of every run must
+    launch the attention forward and backward (the caption path has no
+    attention backward: its update differentiates OPT and the mapper) and,
+    where views are fused, the AugMix kernel. The fp32 runs against the same
+    flags in this process. Then a world-1 NCCL group runs dp_gather and
+    all_reduce_grads through the port's helpers. New attention shapes are
+    checked against the plain version here (appended to ``entries``).
+    Returns (paths, the PARALLEL line's numbers)."""
+    from rlcf_torch.cli import tta_caption, tta_cls, tta_retrieval, tune_cls
+    from rlcf_torch.core import losses as Lo
+    from rlcf_torch.models import opt as O
+    from rlcf_torch.tasks.caption import CaptionTTA
+    from rlcf_torch.tasks.classification import EncoderTTAClassifier, PromptTTAClassifier
+    from rlcf_torch.tasks.retrieval import RetrievalTTA
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(os.path.dirname(out_dir), "chip_smoke_parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    ret_tree = write_retrieval_tree(os.path.join(out_dir, "retrieval_tree"), *RET_FP32_TREE, size=RET_TREE_SIZE)
+    cap_tree = write_caption_tree(os.path.join(out_dir, "caption_tree"), PAR_CAP_IMAGES, size=RET_TREE_SIZE)
+    vocab = write_opt_vocab(os.path.join(out_dir, "vocab"))
+    o = lambda name: os.path.join(out_dir, name)
+    # the engines' group runs: what a group's episodes return, gathered in episode order (a dp rank whose
+    # slice of the views it built itself runs them there, not through adapt_tokens / adapt)
+    cls_rec = ("rlcf_torch.tasks.classification", "PromptTTAClassifier", "_run_group")
+    argv = {
+        "tp cls bf16": flagship_argv(o("cls_bf16"), limit=PAR_CLS_IMAGES, extra=("--tp", "2")),
+        "tp cls fp32": flagship_argv(o("cls_fp32"), "fp32", limit=PAR_CLS_FP32_IMAGES, extra=("--tp", "2")),
+        "tp retrieval fp32": retrieval_argv(o("ret_fp32"), "both", "fp32", tree=ret_tree, extra=("--tp", "2")),
+        "dp tp caption fp32": caption_argv(o("cap_fp32"), cap_tree, vocab, "fp32", limit=PAR_CAP_IMAGES,
+                                           steps=PAR_CAP_STEPS) + ["--dp", "2", "--tp", "2"],
+        "dp encoder bf16": encoder_argv(o("enc_bf16"), limit=PAR_ENC_IMAGES, extra=("--dp", "2")),
+        "dp encoder fp32": encoder_argv(o("enc_fp32"), "fp32", limit=PAR_ENC_IMAGES, extra=("--dp", "2")),
+    }
+    four = [{"name": n, "module": m, "argv": argv[n], "record": r} for n, m, r in (
+        ("tp cls bf16", "rlcf_torch.cli.tta_cls", cls_rec), ("tp cls fp32", "rlcf_torch.cli.tta_cls", cls_rec),
+        ("tp retrieval fp32", "rlcf_torch.cli.tta_retrieval",
+         ("rlcf_torch.tasks.retrieval", "RetrievalTTA", "adapt_queries")),
+        ("dp tp caption fp32", "rlcf_torch.cli.tta_caption", ("rlcf_torch.tasks.caption", "CaptionTTA", "adapt_batch")))]
+    enc_rec = ("rlcf_torch.tasks.classification", "EncoderTTAClassifier", "_run_group")
+    two = [{"name": n, "module": "rlcf_torch.cli.tune_cls", "argv": argv[n], "record": enc_rec}
+           for n in ("dp encoder bf16", "dp encoder fp32")]
+    runs, wall4 = launch_ranks(out_dir, 4, four)
+    phase_done("4j torchrun 4 ranks")
+    more, wall2 = launch_ranks(out_dir, 2, two)
+    runs.update(more)
+    phase_done("4j torchrun 2 ranks")
+
+    paths, line = [], {"launch_wall_s": {"4 ranks": wall4, "2 ranks": wall2}, "runs": {}}
+    for name, (ranks, _) in runs.items():
+        for rec in ranks:
+            if rec["backend"] != "gloo" or rec["ranks_per_device"] != len(ranks):
+                raise AssertionError(f"{name} rank {rec['rank']}: backend {rec['backend']}, "
+                                     f"{rec['ranks_per_device']} ranks a card; expected gloo, {len(ranks)}")
+            paths.append({"path": f"{name} rank{rec['rank']}", "launches_by_shape": rec["launches_by_shape"]})
+        line["runs"][name] = {"ranks": len(ranks), "wall_s": [r["wall_s"] for r in ranks],
+                              "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+                              "launches": [r["launches"] for r in ranks]}
+
+    # the flagship in bf16: finite logits of every group on the whole class axis
+    for logits, aux in runs["tp cls bf16"][1]:
+        if tuple(logits.shape) != (GROUP, 200) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"tp cls bf16: logits {tuple(logits.shape)} not finite [{GROUP}, 200]")
+    if len(runs["tp cls bf16"][1]) != PAR_CLS_IMAGES // GROUP:
+        raise AssertionError("tp cls bf16: not every group ran")
+    for logits, aux in runs["dp encoder bf16"][1]:
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("dp encoder bf16: logits not finite")
+
+    # the fp32 runs against one process
+    def one_process(cli, args, owner, attr):
+        """``cli`` on ``args`` in this process: what ``owner.attr`` returned and
+        the entropies each selection saw."""
+        entropies = []
+        select = Lo.select_confident_entropy
+
+        def recording_select(ent, n):
+            entropies.append(ent.detach().cpu())
+            return select(ent, n)
+
+        Lo.select_confident_entropy = recording_select
+        try:
+            with recorded_calls(owner, attr) as seen:
+                cli.main(args)
+        finally:
+            Lo.select_confident_entropy = select
+        return seen, entropies
+
+    n_keep = int(VIEWS * 0.1)
+    want, ent = one_process(tta_cls, flagship_argv(o("cls_fp32_one"), "fp32", limit=PAR_CLS_FP32_IMAGES),
+                            PromptTTAClassifier, "_run_group")
+    line["cls_fp32"] = compare_group_logits("tp cls fp32", runs["tp cls fp32"][1], want, n_keep, ent)
+    want, ent = one_process(tune_cls, encoder_argv(o("enc_fp32_one"), "fp32", limit=PAR_ENC_IMAGES,
+                                                   extra=("--episode_group", "2")), EncoderTTAClassifier, "_run_group")
+    line["encoder_fp32"] = compare_group_logits("dp encoder fp32", runs["dp encoder fp32"][1], want, n_keep, ent)
+    want, _ = one_process(tta_retrieval, retrieval_argv(o("ret_fp32_one"), "both", "fp32", tree=ret_tree),
+                          RetrievalTTA, "adapt_queries")
+    got = runs["tp retrieval fp32"][1]
+    worst = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    if len(got) != len(want) or not all(np.all(np.abs(g - w) <= PAR_FP32_TOL + PAR_FP32_TOL * np.abs(w))
+                                        for g, w in zip(got, want)):
+        raise AssertionError(f"tp retrieval fp32: score rows differ from one process by {worst:.3e}")
+    line["retrieval_fp32"] = {"groups": len(got), "max_abs_score_diff": worst}
+    with recorded_calls(O, "beam_generate") as beams:
+        want, _ = one_process(tta_caption, caption_argv(o("cap_fp32_one"), cap_tree, vocab, "fp32",
+                                                        limit=PAR_CAP_IMAGES, steps=PAR_CAP_STEPS),
+                              CaptionTTA, "adapt_batch")
+    got = runs["dp tp caption fp32"][1]
+    line["caption_fp32"] = {"groups": len(got), "captions_equal": got == want, "captions": got[0][:2]}
+    if got != want:   # a beam may differ only on a near-tie of its candidates' scores
+        line["caption_fp32"]["one_process_beam_score_gaps"] = [
+            float((s[:, 0] - s[:, 1]).abs().min()) for _, s in beams if s.shape[1] > 1]
+        log("PARALLEL caption fp32: captions differ from one process: " + json.dumps(line["caption_fp32"]))
+        if not any(gap <= PAR_BEAM_TIE for gap in line["caption_fp32"]["one_process_beam_score_gaps"]):
+            raise AssertionError("dp tp caption fp32: captions differ from one process off a beam tie")
+    phase_done("4j one-process references")
+
+    # a world-1 NCCL group on the card through the port's helpers
+    line["nccl_world_1"] = nccl_world_one(out_dir)
+
+    # the shapes the ranks launched that phase 3 did not check
+    checked = {" ".join(map(str, e["shape"])) for e in entries}
+    new = sorted({k for p in paths for k in p["launches_by_shape"]} - checked)
+    for key in new:
+        kind, *dims = key.split(" ")
+        if kind not in ("fwd", "bwd"):
+            raise AssertionError(f"a sharded path launched {key}, which phase 3 did not check")
+        B, T, H = (int(d) for d in dims[:3])
+        dtype = torch.bfloat16 if dims[3] == str(torch.bfloat16) else torch.float32
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        entries.append(check_kernel(kind, B, T, H, dtype, T <= 77, f"sharded rank B={B} T={T} H={H} {tag}"))
+    line["shapes_checked_here"] = new
+    return paths, line
+
+
+def check_rank_launches(runs):
+    """Phase 5 for the sharded runs of phase 4j (the PARALLEL line's "runs"):
+    every rank of every run launched the kernels ``PAR_NEEDS`` names."""
+    for name, run in runs.items():
+        for rank, launches in enumerate(run["launches"]):
+            missing = [kind for kind in PAR_NEEDS[name] if not launches.get(kind)]
+            if missing:
+                raise AssertionError(f"{name} rank {rank} launched no {missing}: {launches}")
+
+
+def nccl_world_one(out_dir):
+    """A world-1 process group on the card, the backend the port picks for a
+    card of its own (NCCL), running ``dp_gather`` and ``all_reduce_grads``."""
+    import torch.distributed as dist
+    from rlcf_torch.parallel import mesh as M
+    from rlcf_torch.parallel.collectives import all_reduce_grads
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    store = os.path.join(out_dir, "nccl_rendezvous")
+    if os.path.exists(store):
+        os.unlink(store)
+    os.environ.update(env)
+    try:
+        M.init_distributed("cuda", init_method=f"file://{store}", timeout_s=60)
+        mesh = M.Mesh(1, 1, dp_group=dist.group.WORLD)
+        x = torch.arange(12.0, device="cuda").reshape(4, 3)
+        gathered = M.dp_gather(mesh, x)
+        grads = all_reduce_grads([torch.ones(5, device="cuda"), torch.full((2,), 2.0, device="cuda")],
+                                 dist.group.WORLD)
+        torch.cuda.synchronize()
+        ok = torch.equal(gathered, x) and all(torch.equal(g, w) for g, w in zip(
+            grads, (torch.ones(5, device="cuda"), torch.full((2,), 2.0, device="cuda"))))
+        rec = {"backend": M.backend(), "dp_gather_and_all_reduce_grads_ok": ok}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rec["backend"] != "nccl" or not ok:
+        raise AssertionError(f"the world-1 NCCL group failed: {rec}")
+    log("NCCL world-1 group on the card: dp_gather and all_reduce_grads ran through the port's helpers")
+    return rec
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3 (kernel checks) with exit code 3 and no device line")
     parser.add_argument("--serving-only", action="store_true",
                         help="run phases 1-2, then only the serving phase (4i), and exit with code 3 and no device line")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="run phases 1-2, the AugMix checks, then only the parallelism phase (4j), and exit with "
+                        "code 3 and no device line")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3005,6 +3384,13 @@ def main():
     if args.serving_only:
         out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
         log("SERVING " + json.dumps(serving_and_infrastructure(out)[1]))
+        return 3
+    if args.parallel_only:
+        out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
+        par = parallelism(out, check_augmix())[1]
+        log("PARALLEL " + json.dumps(par))
+        check_rank_launches(par["runs"])
+        log("PHASES " + json.dumps(PHASE_SECONDS))
         return 3
     # phase 3: the main path's shapes (group 4: 256 policy views, 24 selected
     # reward views, 4 x 200 text prompts), plus the backward at the vision
@@ -3211,6 +3597,10 @@ def main():
     paths += serve_paths
     log("SERVING " + json.dumps(serve))
     phase_done("4i flops")
+    par_paths, par = parallelism(out_dir, entries)
+    paths += par_paths
+    log("PARALLEL " + json.dumps(par))
+    phase_done("4j parallelism")
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts
@@ -3273,6 +3663,7 @@ def main():
         for direction in ("fwd", "bwd"):
             if not any(key.startswith(direction) and by_path.get(f"serve {precision}") for key, by_path in launched.items()):
                 raise AssertionError(f"the served {precision} program launched no {direction} kernel")
+    check_rank_launches(par["runs"])
     # the ATTN_IMPL="flash" route: no tower of the main path has a sequence
     # length that is a multiple of 128, so its launches there are 0
     for e in flash_entries:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -142,6 +143,27 @@ def refuse(waits):
     for flag, (used, item) in waits.items():
         if used:
             raise SystemExit(f"rlcf_torch: {flag} is not ported yet; it comes with {item}")
+
+
+def run_mesh(args, *, tp: int = 1, dp=None, n_devices=None, group_flag: str = "episode_group"):
+    """The process mesh of a run that asks for dp or tp > 1: join the
+    launcher's process group on ``--device`` (``torchrun``), lay the ranks
+    out as (dp, tp) (``parallel/mesh.py::make_mesh``, whose error names
+    torchrun when the processes do not factor, a single process included)
+    and round ``--<group_flag>`` up to a multiple of dp, as the JAX CLIs do.
+    Ranks other than 0 print nothing to stdout from here on."""
+    from ..parallel.mesh import init_distributed, is_main_rank, make_mesh, round_to_dp
+
+    init_distributed(args.device)
+    mesh = make_mesh(n_devices=n_devices, dp=dp, tp=tp)
+    if not is_main_rank():
+        sys.stdout = open(os.devnull, "w")
+    print(f"mesh: {mesh.shape}")
+    rounded = round_to_dp(getattr(args, group_flag), mesh)
+    if rounded != getattr(args, group_flag):
+        print(f"NOTE: rounding --{group_flag} {getattr(args, group_flag)} -> {rounded} (multiple of dp)")
+        setattr(args, group_flag, rounded)
+    return mesh
 
 
 def check_policy_digest(args):

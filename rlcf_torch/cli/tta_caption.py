@@ -11,7 +11,11 @@ the sampled-caption/reward trace ``caption_trace.txt`` and
 Example (random weights, no data):
   python -m rlcf_torch.cli.tta_caption --synthetic --tta_steps 2
 Add ``--device cpu`` to run on the CPU (e.g. ``--clip_model_type test-small
---reward_arch test-small --resolution 64 --precision fp32``).
+--reward_arch test-small --resolution 64 --precision fp32``). ``--dp D --tp
+T`` runs on D * T ranks, one process a rank (``torchrun --standalone
+--nproc_per_node 4 -m rlcf_torch.cli.tta_caption --dp 2 --tp 2 ...``): each
+dp rank adapts its slice of a group, the decode's OPT weights split over
+tp; rank 0 prints and writes the run's files.
 """
 
 from __future__ import annotations
@@ -66,9 +70,9 @@ def get_args(argv=None):
     p.add_argument("--episode_group", type=int, default=16,
                    help="images adapted together (each decode step reads all of OPT's weights, which the "
                    "group's images share)")
-    p.add_argument("--dp", type=int, default=1, help="episode data parallelism; not ported yet (refused when > 1)")
+    p.add_argument("--dp", type=int, default=1, help="episode data parallelism (ranks = dp * tp, under torchrun)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism of the OPT decode; not ported yet (refused when > 1)")
+                   help="tensor parallelism of the OPT decode (ranks = dp * tp, under torchrun)")
     return p.parse_args(argv)
 
 
@@ -76,8 +80,6 @@ def refuse_unported(args):
     """Exit with a message for options this slice of the port does not run,
     before any model loads."""
     common.refuse({
-        "--dp > 1": (args.dp > 1, "episode data parallelism (ROADMAP A14)"),
-        "--tp > 1": (args.tp > 1, "OPT decode tensor parallelism (ROADMAP A14)"),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
     })
     if args.multiple_reward_models:
@@ -86,11 +88,15 @@ def refuse_unported(args):
                          "ensemble does not have, in the JAX package too")
 
 
-def _synthetic_tokenizer(tmp_dir):
+def _synthetic_tokenizer(tmp_dir, write: bool = True):
     """The JAX CLI's byte vocabulary for data-free runs: ``<pad>`` 1,
-    ``</s>`` 2 and the 256 byte symbols at ids 4..259, no merges."""
+    ``</s>`` 2 and the 256 byte symbols at ids 4..259, no merges (written
+    to ``tmp_dir`` unless ``write`` is false: the files are there)."""
     from ..tokenizer_gpt2 import Gpt2Tokenizer, _byte_to_unicode
 
+    vocab_p, merges_p = os.path.join(tmp_dir, "vocab.json"), os.path.join(tmp_dir, "merges.txt")
+    if not write:
+        return Gpt2Tokenizer(vocab_p, merges_p)
     os.makedirs(tmp_dir, exist_ok=True)
     vocab = {"<pad>": 1, "</s>": 2}
     next_id = 4
@@ -98,7 +104,6 @@ def _synthetic_tokenizer(tmp_dir):
         if ch not in vocab:
             vocab[ch] = next_id
             next_id += 1
-    vocab_p, merges_p = os.path.join(tmp_dir, "vocab.json"), os.path.join(tmp_dir, "merges.txt")
     with open(vocab_p, "w") as fh:
         json.dump(vocab, fh)
     with open(merges_p, "w") as fh:
@@ -128,6 +133,9 @@ def main(argv=None):
         return None
     if not args.synthetic and not args.annotations:
         raise SystemExit("tta_caption: pass --annotations (and --images_root) or --synthetic")
+    mesh = None
+    if args.dp > 1 or args.tp > 1:
+        mesh = common.run_mesh(args, n_devices=args.dp * args.tp, dp=args.dp, tp=args.tp)
     common.check_decode(args)
 
     import torch
@@ -135,14 +143,17 @@ def main(argv=None):
     from ..models import clip as clip_model
     from ..models import mappers as M
     from ..models import opt as O
+    from ..parallel.mesh import barrier, is_main_rank
     from ..tasks import caption as Cap
     from ..utils.config import save_hparams
     from ..utils.logging_utils import CaptionTraceLogger, RunLogger
     from ..utils.runtime import resolve_device
 
     device = resolve_device(args.device)
-    logger = RunLogger(args.output)
-    save_hparams(args.output, vars(args), name="hparams_caption.json")
+    main_rank = is_main_rank()   # rank 0 alone writes the run's files
+    logger = RunLogger(args.output, enabled=main_rank)
+    if main_rank:
+        save_hparams(args.output, vars(args), name="hparams_caption.json")
 
     # the feature-extractor CLIP (the prefix's source) and the reward
     feat_args = argparse.Namespace(**{**vars(args), "arch": args.clip_model_type})
@@ -153,7 +164,10 @@ def main(argv=None):
         ocfg = O.OPT_CONFIGS["test-tiny-opt"]
         mcfg = M.MapperConfig(args.mapping_type, clip_dim=clip_cfg.embed_dim, llm_dim=ocfg.embed_dim,
                               prefix_length=4, clip_length=2, num_layers=1, n_heads=2)
-        tok = _synthetic_tokenizer(os.path.join(args.output, "tok"))
+        if main_rank:   # the other ranks read rank 0's files
+            _synthetic_tokenizer(os.path.join(args.output, "tok"))
+        barrier()
+        tok = _synthetic_tokenizer(os.path.join(args.output, "tok"), write=False)
         max_new = 8
     else:
         from ..tokenizer_gpt2 import load_gpt2_tokenizer
@@ -181,7 +195,7 @@ def main(argv=None):
         sample_k=args.sample_k, max_new_tokens=max_new, use_nucleus=bool(args.use_nucleus_sampling),
         momentum_update=bool(args.momentum_update), update_freq=args.update_freq, update_w=args.update_w,
         momentum=args.tta_momentum, quantize_decode=bool(args.quantize_decode),
-        decode_seg_len=args.decode_seg_len or None, seed=args.seed,
+        decode_seg_len=args.decode_seg_len or None, seed=args.seed, mesh=mesh,
     )
 
     # --dataset_mode as an int selects the eval set (0=COCO 1=Flickr30k
@@ -207,7 +221,7 @@ def main(argv=None):
                    for a, im in zip(ann, imgs)]
 
     feat_attn = clip_model.best_attn(clip_cfg, device)   # the JAX CLI encodes it dense: the same function
-    trace_log = CaptionTraceLogger(os.path.join(args.output, "caption_trace.txt"))
+    trace_log = CaptionTraceLogger(os.path.join(args.output, "caption_trace.txt")) if main_rank else None
     results, per_image, group_seconds = [], {}, []
 
     def run_group(group):
@@ -225,24 +239,27 @@ def main(argv=None):
             captions = tta.adapt_batch(imgs, embs, trace=trace)
         group_seconds.append(time.perf_counter() - t0)
         for (image_id, sub, _), caption in zip(group, captions):
-            trace_log.log_id(str(sub))
-            trace_log.log_final(caption)
             results.append({"image_id": image_id, "caption": caption})
             per_image[str(sub)] = caption
+        if trace_log is None:
+            return
+        for (_, sub, _), caption in zip(group, captions):
+            trace_log.log_id(str(sub))
+            trace_log.log_final(caption)
         for step_samples in trace:
             trace_log.log_samples([t for t, _ in step_samples], [r for _, r in step_samples])
 
     for g0 in range(0, len(samples), args.episode_group):
         run_group(samples[g0 : g0 + args.episode_group])
-    trace_log.close()
     print("GROUP_SECONDS " + json.dumps(group_seconds))
-
     out_results = args.out_results_file or os.path.join(args.output, "results_caption.json")
-    out_cs = args.out_clipscore_file or os.path.join(args.output, "results_clipscore.json")
-    with open(out_results, "w") as fh:
-        json.dump(results, fh)
-    with open(out_cs, "w") as fh:
-        json.dump(per_image, fh)
+    if main_rank:
+        trace_log.close()
+        out_cs = args.out_clipscore_file or os.path.join(args.output, "results_clipscore.json")
+        with open(out_results, "w") as fh:
+            json.dump(results, fh)
+        with open(out_cs, "w") as fh:
+            json.dump(per_image, fh)
     logger.text(f"wrote {out_results} ({len(results)} captions)")
     common.report_decode(args)
     return {"results": results, "group_seconds": group_seconds}

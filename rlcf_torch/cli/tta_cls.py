@@ -14,6 +14,10 @@ the ten fine-grained sets (``flower102``, ..., ``cars``, ``aircraft``) read
 their Zhou-split and FGVC-Aircraft trees under DIR. Each group's counts go
 to ``progress_<set>.jsonl`` in ``--output``, from which ``--resume`` goes on;
 ``--decode native`` decodes the images with the repo's C++ decoder.
+``--tp N`` shards the classes over N ranks and the episodes of a group over
+the rest (dp = ranks // N), one process a rank: ``torchrun --standalone
+--nproc_per_node 4 -m rlcf_torch.cli.tta_cls --tp 2 ...``; rank 0 prints and
+writes the run's files.
 
 Example (random weights, no data):
   python -m rlcf_torch.cli.tta_cls --test_sets synthetic --limit 8 \\
@@ -27,6 +31,7 @@ the 3-CLIP reward (``--viewgen native``); ``--cocoop --loss tpt`` for CoCoOp;
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -58,7 +63,8 @@ def get_args(argv=None):
         help="Bongard mode: 1 = learnable class token with ['X','X'] names "
         "(`custom_clip.py:350-355`), 0 = fixed ['True','False'] prompts",
     )
-    p.add_argument("--tp", type=int, default=1, help="class-axis tensor parallelism; not ported yet (refused when > 1)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="class-axis tensor parallelism over the ranks of a torchrun launch (dp = ranks // tp)")
     p.add_argument(
         "--viewgen", default="auto", choices=["auto", "fused", "device", "native"],
         help="view generator: 'fused' = the CUDA AugMix kernel builds every view on the device "
@@ -82,16 +88,15 @@ def refuse_unported(args):
     common.refuse({
         "--viewgen device": (args.viewgen == "device", "the torch AugMix pipeline (ROADMAP A16); the port "
                              "runs --viewgen fused and --viewgen native"),
-        "--tp > 1": (args.tp > 1, "class-axis tensor parallelism (ROADMAP A14)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
     })
 
 
-def build(args):
+def build(args, mesh=None):
     """(classifier, policy config, device) for parsed args: with --cocoop a
     CoCoOp classifier under the TPT loss (it takes no reward), else prompt
-    TTA with the reward of --reward_arch or the ensemble."""
+    TTA with the reward of --reward_arch or the ensemble, on ``mesh``."""
     import dataclasses
 
     from ..core.episode import EpisodeConfig
@@ -117,7 +122,7 @@ def build(args):
     reward = common.build_reward(args, device)
     ctx0 = load_coop_ctx(args.load).to(device) if args.load else None
     clf = PromptTTAClassifier(params, cfg, reward, ecfg, ctx_init=args.ctx_init or "a photo of a",
-                              n_ctx=args.n_ctx, ctx0=ctx0)
+                              n_ctx=args.n_ctx, ctx0=ctx0, mesh=mesh)
     return clf, cfg, device
 
 
@@ -133,6 +138,9 @@ def main(argv=None):
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
+    mesh = common.run_mesh(args, tp=args.tp) if args.tp > 1 else None
+    if mesh is not None and args.cocoop:
+        raise SystemExit("--tp > 1 is not supported with --cocoop (prompt-TTA only)")
     common.check_decode(args)
 
     import torch
@@ -140,11 +148,11 @@ def main(argv=None):
     from ..data import native
     from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
     from ..metrics.classification import AccuracyMeter, topk_correct
-    from ..ops.augmix import fused_views
+    from ..parallel.mesh import is_main_rank
     from ..utils.config import save_hparams
     from ..utils.logging_utils import RunLogger
 
-    clf, cfg, device = build(args)
+    clf, cfg, device = build(args, mesh)
     # token mode: prompt TTA (not CoCoOp) with a ViT policy whose patch size
     # tiles the views and a single reward, as the JAX CLI's token_ok
     token_ok = (not args.cocoop and cfg.is_vit and args.resolution % cfg.vision_patch_size == 0
@@ -156,11 +164,14 @@ def main(argv=None):
         raise SystemExit(f"--viewgen fused needs a ViT policy in token mode; {NON_TOKEN_RUNS}")
     if args.viewgen == "native" and not native.available():
         raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
-    logger = RunLogger(args.output)
-    save_hparams(args.output, vars(args))
-    # the fused kernel also patchifies for a ViT reward at the view resolution
-    rcfg = clf.reward.cfg if token_ok else None
-    p_reward = rcfg.vision_patch_size if token_ok and rcfg.is_vit and rcfg.image_resolution == args.resolution else 0
+    main_rank = is_main_rank()   # rank 0 alone writes the run's files
+    logger = RunLogger(args.output, enabled=main_rank)
+    if main_rank:
+        save_hparams(args.output, vars(args))
+    # every view built on the device, one kernel launch (which also patchifies for a ViT reward at the view
+    # resolution; on a mesh each dp rank builds its slice's views)
+    sources = (clf.adapt_sources_fn(n_views=args.batch_size, src_size=256, resolution=args.resolution,
+                                    augmix=bool(args.augmix)) if args.viewgen == "fused" else None)
 
     results = {}
     for set_id in args.test_sets.split("/"):
@@ -196,36 +207,32 @@ def main(argv=None):
             t0 = time.perf_counter()
             seed = args.seed * 100003 + counter[0]
             imgs = np.stack(group_imgs)  # canonical [N, 256, 256, 3] u8
-            if args.viewgen == "fused":  # every view built on the device, one kernel launch
-                planar = torch.from_numpy(imgs.transpose(0, 3, 1, 2)).to(device).contiguous()
-                views = fused_views(planar, torch.Generator(device=device).manual_seed(seed),
-                                    n_views=args.batch_size, resolution=args.resolution, src_size=256,
-                                    augmix=bool(args.augmix), p_policy=cfg.vision_patch_size, p_reward=p_reward)
+            counter[0] += 1
+            if sources is not None:
+                logits, _, _ = sources(torch.from_numpy(imgs.transpose(0, 3, 1, 2)), seed)
             elif token_ok:
                 views = native.generate_views_native_patch_u8(
                     imgs, n_views=args.batch_size, p_policy=cfg.vision_patch_size,
                     resolution=args.resolution, augmix=bool(args.augmix), seed=seed,
                 )
+                logits, _ = clf.adapt_tokens(*(views if isinstance(views, tuple) else (views,)))
             else:  # NHWC u8 views from the same seeded stream, normalized on the device
                 views = native.generate_views_native_u8(imgs, n_views=args.batch_size, resolution=args.resolution,
                                                         augmix=bool(args.augmix), seed=seed)
-            counter[0] += 1
-            if not token_ok:
                 logits, _ = clf.adapt(views)
-            else:
-                logits, _ = clf.adapt_tokens(*views) if isinstance(views, tuple) else clf.adapt_tokens(views)
             logits = logits.float().cpu().numpy()  # synchronizes with the device
             group_seconds.append(time.perf_counter() - t0)
             counts = topk_correct(logits, np.asarray(group_labels))
             meter.update_counts(counts, len(group_labels))
-            journal.write(json.dumps({"n": len(group_labels), "c1": counts[1], "c5": counts[5]}) + "\n")
-            journal.flush()
+            if journal is not None:
+                journal.write(json.dumps({"n": len(group_labels), "c1": counts[1], "c5": counts[5]}) + "\n")
+                journal.flush()
             group_imgs.clear()
             group_labels.clear()
 
         stream = iter_canonical(dataset, 256, seed=args.seed, limit=args.limit, workers=args.decode_workers,
                                 decode=args.decode)
-        with open(journal_path, "a") as journal:
+        with (open(journal_path, "a") if main_rank else contextlib.nullcontext()) as journal:
             for img, label in PrefetchIterator(itertools.islice(stream, skip, None)):
                 group_imgs.append(img)
                 group_labels.append(label)

@@ -12,7 +12,11 @@ Example (random weights, no data):
   python -m rlcf_torch.cli.tta_retrieval --synthetic \\
       --arch ViT-B/16 --reward_arch ViT-L/14 --tta_steps 2 --sample_k 5
 Add ``--device cpu`` to run on the CPU (e.g. ``--arch test-small
---reward_arch test-small --resolution 64 --precision fp32``).
+--reward_arch test-small --resolution 64 --precision fp32``). ``--tp N``
+shards the galleries over N ranks and the queries of a group over the rest
+(dp = ranks // N), one process a rank: ``torchrun --standalone
+--nproc_per_node 4 -m rlcf_torch.cli.tta_retrieval --tp 2 ...``; rank 0
+prints and writes the run's files.
 """
 
 from __future__ import annotations
@@ -54,14 +58,13 @@ def get_args(argv=None):
     p.add_argument("--synthetic", action="store_true", help="tiny fabricated gallery (no data needed)")
     p.add_argument("--group_size", type=int, default=8, help="queries whose episodes run together")
     p.add_argument("--tp", type=int, default=1,
-                   help="gallery-axis tensor parallelism; not ported yet (refused when > 1)")
+                   help="gallery-axis tensor parallelism over the ranks of a torchrun launch (dp = ranks // tp)")
     return p.parse_args(argv)
 
 
 def refuse_unported(args):
     """Exit with a message for options this slice of the port does not run."""
     common.refuse({
-        "--tp > 1": (args.tp > 1, "gallery-axis tensor parallelism (ROADMAP A14)"),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
     })
     if args.multiple_reward_models:
@@ -98,11 +101,13 @@ def main(argv=None):
         return None
     if not args.synthetic and not args.annotations:
         raise SystemExit("tta_retrieval: pass --annotations (a karpathy-format json) or --synthetic")
+    mesh = common.run_mesh(args, tp=args.tp, group_flag="group_size") if args.tp > 1 else None
     common.check_decode(args)
 
     from ..core.episode import EpisodeConfig
     from ..data.transforms import preprocess, preprocess_many
     from ..metrics.retrieval import retrieval_metrics
+    from ..parallel.mesh import is_main_rank
     from ..tasks.retrieval import RetrievalTTA, load_karpathy_annotations
     from ..tokenizer import tokenize
     from ..utils.config import save_hparams
@@ -110,8 +115,10 @@ def main(argv=None):
     from ..utils.runtime import resolve_device
 
     device = resolve_device(args.device)
-    logger = RunLogger(args.output)
-    save_hparams(args.output, vars(args), name="hparams_retrieval.json")
+    main_rank = is_main_rank()   # rank 0 alone writes the run's files
+    logger = RunLogger(args.output, enabled=main_rank)
+    if main_rank:
+        save_hparams(args.output, vars(args), name="hparams_retrieval.json")
     params, cfg = common.load_policy(args, device)
     reward = common.build_reward(args, device)
     # --loss selects the variant; plain "kd" honors the reference's --kd_loss {KD,DKD,ATKD} switch (`TPT/params.py`)
@@ -133,7 +140,7 @@ def main(argv=None):
 
     n_img, n_txt = len(gallery.image_paths), len(gallery.texts)
     momentum_kw = dict(momentum_update=bool(args.momentum_update), update_freq=args.update_freq,
-                       update_w=args.update_w, momentum=args.tta_momentum)
+                       update_w=args.update_w, momentum=args.tta_momentum, mesh=mesh)
     scores_i2t = scores_t2i = None
     group_seconds = {}
     if args.retrieval_task in ("image2text", "both"):
@@ -161,13 +168,15 @@ def main(argv=None):
         metrics = retrieval_metrics(scores_i2t, scores_t2i, gallery.txt2img, gallery.img2txt)
         metrics = {k: round(v, 3) for k, v in metrics.items()}
         logger.result_line(metrics)
-        with open(os.path.join(args.output, "results_retrieval.json"), "w") as fh:
-            json.dump(metrics, fh, indent=4)
+        if main_rank:
+            with open(os.path.join(args.output, "results_retrieval.json"), "w") as fh:
+                json.dump(metrics, fh, indent=4)
         print(metrics)
     else:
         print("single-direction run complete; score matrix saved")
-        np.save(os.path.join(args.output, f"scores_{args.retrieval_task}.npy"),
-                scores_i2t if scores_i2t is not None else scores_t2i)
+        if main_rank:
+            np.save(os.path.join(args.output, f"scores_{args.retrieval_task}.npy"),
+                    scores_i2t if scores_i2t is not None else scores_t2i)
     common.report_decode(args)
     return {"metrics": metrics, "group_seconds": group_seconds}
 

@@ -49,7 +49,8 @@ def get_args(argv=None):
     common.add_tta_args(p)
     p.add_argument("--loss", default="rlcf", choices=["rlcf", "tpt", "kd", "dkd", "atkd"])
     p.add_argument("--ctx_prefix", default="a_photo_of_a", help="prompt prefix for class features")
-    p.add_argument("--dp", type=int, default=1, help="episode data parallelism; not ported yet (refused when > 1)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="episode data parallelism over the ranks of a torchrun launch of exactly dp processes")
     p.add_argument(
         "--remat", default="full", choices=["full", "save_attn", "none"],
         help="visual-tower backward remat policy: full = recompute every layer (lowest memory), save_attn = keep "
@@ -67,14 +68,13 @@ def refuse_unported(args):
                          "package's EncoderTTAClassifier does; the reward ensemble serves prompt TTA "
                          "(rlcf_torch.cli.tta_cls)")
     common.refuse({
-        "--dp > 1": (args.dp > 1, "episode data parallelism (ROADMAP A14)"),
         "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
         "--download": (bool(args.download), common.DOWNLOAD_WAIT),
     })
 
 
-def build(args):
-    """(classifier, policy config, device) for parsed args."""
+def build(args, mesh=None):
+    """(classifier, policy config, device) for parsed args, on ``mesh``."""
     from ..core.episode import EpisodeConfig
     from ..tasks.classification import EncoderTTAClassifier
     from ..utils.runtime import resolve_device
@@ -94,7 +94,7 @@ def build(args):
         only_norm=bool(args.tune_norm), momentum_update=bool(args.momentum_update), update_freq=args.update_freq,
         update_w=args.update_w, momentum=args.tta_momentum,
         bn_prior=None if args.prior_strength < 0 else args.prior_strength,
-        remat={"full": True, "save_attn": "save_attn", "none": False}[args.remat],
+        remat={"full": True, "save_attn": "save_attn", "none": False}[args.remat], mesh=mesh,
     )
     return clf, cfg, device
 
@@ -104,19 +104,24 @@ def main(argv=None):
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
+    mesh = common.run_mesh(args, n_devices=args.dp, dp=args.dp) if args.dp > 1 else None
     common.check_decode(args)
 
     import torch
 
     from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
     from ..metrics.classification import AccuracyMeter, topk_correct
-    from ..ops.augmix import fused_views
+    from ..parallel.mesh import is_main_rank
     from ..utils.config import save_hparams
     from ..utils.logging_utils import RunLogger
 
-    clf, cfg, device = build(args)
-    logger = RunLogger(args.output)
-    save_hparams(args.output, vars(args))
+    clf, cfg, device = build(args, mesh)
+    # every view built on the device, one kernel launch (on a mesh each dp rank builds its slice's views)
+    sources = clf.adapt_sources_fn(n_views=args.batch_size, resolution=args.resolution, src_size=256,
+                                   augmix=bool(args.augmix))
+    logger = RunLogger(args.output, enabled=is_main_rank())   # rank 0 alone writes the run's files
+    if logger.enabled:
+        save_hparams(args.output, vars(args))
 
     results = {}
     for set_id in args.test_sets.split("/"):
@@ -135,10 +140,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             seed = args.seed * 100003 + counter[0]   # tta_cls's per-group seeds
             counter[0] += 1
-            planar = torch.from_numpy(np.stack(group_imgs).transpose(0, 3, 1, 2)).to(device).contiguous()
-            views = fused_views(planar, torch.Generator(device=device).manual_seed(seed), n_views=args.batch_size,
-                                resolution=args.resolution, src_size=256, augmix=bool(args.augmix))
-            logits, _ = clf.adapt(views.permute(0, 1, 3, 4, 2))   # [N, V, 3, R, R] -> NHWC u8
+            logits, _, _ = sources(torch.from_numpy(np.stack(group_imgs).transpose(0, 3, 1, 2)), seed)
             logits = logits.float().cpu().numpy()  # synchronizes with the device
             group_seconds.append(time.perf_counter() - t0)
             meter.update_counts(topk_correct(logits, np.asarray(group_labels)), len(group_labels))

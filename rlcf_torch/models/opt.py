@@ -14,6 +14,12 @@ across. The attention is plain torch, as the JAX package's is plain ``jnp``:
 q scaled before the product, fp32 logits plus an additive -1e9 bias, the
 softmax in fp32 and the probabilities cast to the activation dtype.
 
+A tree split over tp by ``parallel/tp_opt.py::tp_opt_params`` carries a
+``"tp"`` entry, and these functions run the Megatron collectives it needs:
+each rank holds its heads (and KV caches), its share of the MLP and of the
+vocabulary; the row-parallel products are summed over tp before their bias,
+the embedding rows summed, the head's logits gathered.
+
 Generation runs eagerly: the prefix K/V are computed once per prefix and
 shared by reference by every beam or sample of it; only the generated
 positions have a per-sequence cache, which a beam reorder gathers. The JAX
@@ -36,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.losses import top_k_indices
+from ..parallel.collectives import all_reduce_sum, gather_replicated, max_over
+from ..parallel.mesh import shard_range
 from .layers import layer_norm
 
 NEG = -1e9
@@ -123,13 +131,25 @@ def _clamp_ids(tokens, table):
     return tokens.clamp(max=table.shape[0] - 1)
 
 
-def _embed_rows(params, tokens, dt):
-    """Embedding lookup supporting int8 rows (per-row scales)."""
-    v = params["embed_tokens"]
+def _rows(v, tokens, dt):
+    """Rows ``tokens`` of a table, plain or int8 (per-row scales)."""
     if isinstance(v, dict):
-        tokens = _clamp_ids(tokens, v["q8"])
         return (v["q8"][tokens].float() * v["sc"][tokens][..., None]).to(dt)
-    return v[_clamp_ids(tokens, v)]
+    return v[tokens]
+
+
+def _embed_rows(params, tokens, dt):
+    """Embedding lookup supporting int8 rows (per-row scales). Split over tp
+    (vocabulary rows): each rank looks up the ids in its range, zeros
+    elsewhere, and the rows are summed over tp."""
+    v, s = params["embed_tokens"], params.get("tp")
+    if s is None or not s.vocab:
+        return _rows(v, _clamp_ids(tokens, v["q8"] if isinstance(v, dict) else v), dt)
+    lo, hi = s.vocab_range()
+    local = tokens.clamp(max=s.vocab_size - 1) - lo
+    inside = (local >= 0) & (local < hi - lo)
+    rows = _rows(v, local.clamp(0, hi - lo - 1), dt).masked_fill(~inside[..., None], 0)
+    return all_reduce_sum(rows, s.group)
 
 
 def quantize_opt_params(params):
@@ -165,21 +185,45 @@ def quantize_opt_params(params):
 # ---------------------------------------------------------------------------
 
 
-def _layer_params(blocks, i):
-    """Layer ``i`` of the stacked blocks (int8 entries sliced leaf by leaf)."""
-    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict) else v[i]) for k, v in blocks.items()}
+def _layer_params(params, i):
+    """Layer ``i`` of the stacked blocks (int8 entries sliced leaf by leaf),
+    with the tree's tp split under ``"tp"``."""
+    blocks = params["blocks"]
+    layer = {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict) else v[i]) for k, v in blocks.items()}
+    layer["tp"] = params.get("tp")
+    return layer
+
+
+def _local_heads(p, cfg: OPTConfig) -> int:
+    """The heads this rank holds: its share under a tp split of the attention."""
+    s = p.get("tp")
+    return cfg.n_heads // s.size if s is not None and s.attn else cfg.n_heads
+
+
+def _row_parallel(x, p, w: str, b: str, split: bool):
+    """``x @ w + b``; for a weight split along its input features (``split``)
+    the partial products are summed over tp first, and the bias added once."""
+    y = x @ _w(p, w, x.dtype)
+    if split:
+        y = all_reduce_sum(y, p["tp"].group)
+    return y + p[b]
 
 
 def _qkv(x, p, cfg: OPTConfig):
-    """q (scaled, as OPT scales it before the product), k and v of ``x [B, T, D]``, heads split: [B, H, T, hd]."""
+    """q (scaled, as OPT scales it before the product), k and v of ``x [B, T, D]``, heads split: [B, H, T, hd]
+    (H this rank's heads)."""
     B, T, D = x.shape
-    H = cfg.n_heads
-    hd = D // H
+    H, hd = _local_heads(p, cfg), D // cfg.n_heads
     q = (x @ _w(p, "q_w", x.dtype) + p["q_b"]) * (hd**-0.5)
     k = x @ _w(p, "k_w", x.dtype) + p["k_b"]
     v = x @ _w(p, "v_w", x.dtype) + p["v_b"]
     split = lambda t: t.reshape(B, T, H, hd).transpose(1, 2)
     return split(q), split(k), split(v)
+
+
+def _out_proj(out, p):
+    """The attention's output projection of the heads' outputs ``[..., H * hd]``."""
+    return _row_parallel(out, p, "out_w", "out_b", p["tp"] is not None and p["tp"].attn)
 
 
 def _attn(x, p, cfg: OPTConfig, mask_bias):
@@ -189,12 +233,13 @@ def _attn(x, p, cfg: OPTConfig, mask_bias):
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + mask_bias
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.matmul(probs.float(), v.float()).to(x.dtype)
-    out = out.transpose(1, 2).reshape(B, T, D)
-    return out @ _w(p, "out_w", x.dtype) + p["out_b"], (k, v)
+    out = out.transpose(1, 2).reshape(B, T, -1)
+    return _out_proj(out, p), (k, v)
 
 
 def _mlp(x, p):
-    return F.relu(x @ _w(p, "fc1_w", x.dtype) + p["fc1_b"]) @ _w(p, "fc2_w", x.dtype) + p["fc2_b"]
+    h = F.relu(x @ _w(p, "fc1_w", x.dtype) + p["fc1_b"])
+    return _row_parallel(h, p, "fc2_w", "fc2_b", p.get("tp") is not None and p["tp"].ffn)
 
 
 def _layer(x, p, cfg: OPTConfig, mask_bias):
@@ -208,10 +253,17 @@ def _layer(x, p, cfg: OPTConfig, mask_bias):
     return layer_norm(x + _mlp(x, p), p["ln2_w"], p["ln2_b"]), kv
 
 
+def _split_proj(params) -> bool:
+    s = params.get("tp")
+    return s is not None and s.proj
+
+
 def _embed_in(params, x):
-    """Projection-space embeddings -> hidden space (project_in)."""
+    """Projection-space embeddings -> hidden space (project_in; split over tp
+    along its outputs, which are gathered)."""
     if "project_in" in params:
-        return (x.float() @ _w(params, "project_in", torch.float32)).to(x.dtype)
+        y = (x.float() @ _w(params, "project_in", torch.float32)).to(x.dtype)
+        return gather_replicated(y, params["tp"].group, dim=-1) if _split_proj(params) else y
     return x
 
 
@@ -222,11 +274,18 @@ def _head(params, x):
     if "final_ln_w" in params:
         x = layer_norm(x, params["final_ln_w"], params["final_ln_b"])
     if "project_out" in params:
-        x = (x.float() @ _w(params, "project_out", torch.float32)).to(x.dtype)
-    emb = params["embed_tokens"]
+        s, xf = params.get("tp"), x.float()
+        if _split_proj(params):   # split along its inputs: this rank's features, the products summed over tp
+            lo, hi = shard_range(x.shape[-1], s.size, s.index)
+            x = all_reduce_sum(xf[..., lo:hi] @ _w(params, "project_out", torch.float32), s.group).to(x.dtype)
+        else:
+            x = (xf @ _w(params, "project_out", torch.float32)).to(x.dtype)
+    emb, s = params["embed_tokens"], params.get("tp")
     if isinstance(emb, dict):   # per-row scales apply per output column of x @ W.T
-        return (x.float() @ emb["q8"].to(x.dtype).float().T) * emb["sc"]
-    return x.float() @ emb.float().T
+        logits = (x.float() @ emb["q8"].to(x.dtype).float().T) * emb["sc"]
+    else:
+        logits = x.float() @ emb.float().T
+    return gather_replicated(logits, s.group, dim=-1) if s is not None and s.vocab else logits
 
 
 def _positions_from_mask(mask, offset: int):
@@ -266,7 +325,7 @@ def forward(params, cfg: OPTConfig, tokens=None, prefix_embeds=None, attention_m
     pad_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, NEG).float()
     mask_bias = _causal(T, x.device)[None, None] + pad_bias
     for i in range(cfg.n_layers):
-        x, _ = _layer(x, _layer_params(params["blocks"], i), cfg, mask_bias)
+        x, _ = _layer(x, _layer_params(params, i), cfg, mask_bias)
     return _head(params, x)
 
 
@@ -287,15 +346,16 @@ def _prefill(params, cfg: OPTConfig, prefix_embeds):
     causal = _causal(P, x.device)[None, None]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(x, _layer_params(params["blocks"], i), cfg, causal)
+        x, (k, v) = _layer(x, _layer_params(params, i), cfg, causal)
         ks.append(k)
         vs.append(v)
     return _head(params, x[:, -1:])[:, 0], (torch.stack(ks), torch.stack(vs))
 
 
-def _init_gen_cache(cfg: OPTConfig, n_seqs: int, slots: int, dtype, device):
-    """Per-sequence cache of generated positions: (k, v) each [L, N, H, slots, hd]."""
-    shape = (cfg.n_layers, n_seqs, cfg.n_heads, slots, cfg.hidden // cfg.n_heads)
+def _init_gen_cache(cfg: OPTConfig, n_seqs: int, slots: int, dtype, device, heads: Optional[int] = None):
+    """Per-sequence cache of generated positions: (k, v) each [L, N, H, slots, hd], H the heads a rank holds
+    (all of them by default)."""
+    shape = (cfg.n_layers, n_seqs, heads or cfg.n_heads, slots, cfg.hidden // cfg.n_heads)
     return torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device)
 
 
@@ -310,12 +370,12 @@ def _decode_step(params, cfg: OPTConfig, token, prefix_cache, gen_cache, t: int,
     L, B, H, P, hd = k_pre.shape
     G = k_gen.shape[3]
     N = token.shape[0]
-    E, D = expand, cfg.hidden
+    E = expand
     x = _embed_in(params, _embed_rows(params, token, k_pre.dtype)[:, None, :])  # [N, 1, D]
     x = x + _embed_positions(params, P + t + cfg.pos_offset)
     gen_bias = torch.where(torch.arange(G, device=x.device) <= t, 0.0, NEG).float()   # attend to slots [0, t]
     for i in range(cfg.n_layers):
-        p = _layer_params(params["blocks"], i)
+        p = _layer_params(params, i)
         h_ln = layer_norm(x, p["ln1_w"], p["ln1_b"]) if cfg.do_layer_norm_before else x
         q, k_new, v_new = _qkv(h_ln, p, cfg)          # [N, H, 1, hd]
         k_gen[i, :, :, t] = k_new[:, :, 0].to(k_gen.dtype)
@@ -326,8 +386,7 @@ def _decode_step(params, cfg: OPTConfig, token, prefix_cache, gen_cache, t: int,
         probs = torch.softmax(torch.cat([lg_pre, lg_gen], dim=-1), dim=-1).to(x.dtype).float()
         out_pre = torch.einsum("behp,bhpd->behd", probs[:, :, :P].reshape(B, E, H, P), v_pre[i].float())
         out_gen = torch.einsum("nhg,nhgd->nhd", probs[:, :, P:], v_gen[i].float())
-        out = (out_pre.reshape(N, H, hd) + out_gen).to(x.dtype).reshape(N, 1, D)
-        out = out @ _w(p, "out_w", x.dtype) + p["out_b"]
+        out = _out_proj((out_pre.reshape(N, H, hd) + out_gen).to(x.dtype).reshape(N, 1, H * hd), p)
         if cfg.do_layer_norm_before:
             x = x + out
             x = x + _mlp(layer_norm(x, p["ln2_w"], p["ln2_b"]), p)
@@ -377,7 +436,7 @@ def beam_generate(params, cfg: OPTConfig, prefix_embeds, num_beams: int = 5, max
     logits0, prefix_cache = _prefill(params, cfg, prefix_embeds)
     V = logits0.shape[-1]
     bounds = _segment_bounds(max_new_tokens, seg_len)
-    k_gen, v_gen = _init_gen_cache(cfg, B * K, bounds[0], prefix_cache[0].dtype, dev)
+    k_gen, v_gen = _init_gen_cache(cfg, B * K, bounds[0], prefix_cache[0].dtype, dev, prefix_cache[0].shape[2])
     seqs = torch.full((B, K, max_new_tokens), cfg.pad_token_id, dtype=torch.long, device=dev)
     beam_scores = torch.full((B, K), NEG, device=dev)
     beam_scores[:, 0] = 0.0    # only beam 0 live initially
@@ -436,31 +495,46 @@ def top_p_mask(logits, top_p: float, temperature: float = 1.0):
 @torch.no_grad()
 def nucleus_generate(params, cfg: OPTConfig, prefix_embeds, generator: torch.Generator, num_captions: int = 5,
                      max_new_tokens: int = 50, min_length: int = 1, top_p: float = 0.92, temperature: float = 1.0,
-                     eos_id: Optional[int] = None):
+                     eos_id: Optional[int] = None, rows: Optional[Tuple[int, int]] = None, group=None):
     """Nucleus sampling: ``num_captions`` independent samples per prefix ->
     [B, num_captions, max_new_tokens]. The draws come from ``generator``
     (a ``torch.Generator`` on the prefix's device): the JAX package's recipe,
-    not its draws (``jax.random.categorical`` on split keys)."""
+    not its draws (``jax.random.categorical`` on split keys). Each step draws
+    one uniform a sequence and inverts the filtered distribution's CDF.
+    ``rows`` = (first, total): these B * num_captions sequences are rows
+    first.. of a group of ``total`` (a dp rank's slice); every step draws the
+    whole group's uniforms and keeps these rows, so that the slice samples
+    what the whole group's run samples. ``group``: the process group of the
+    ranks that hold the other rows. The whole group's run steps until its
+    last row finishes, so a slice that finishes first draws the uniforms of
+    the steps left, and ``generator`` ends where the whole group's run
+    leaves it."""
     eos = cfg.eos_newline_id if eos_id is None else eos_id
     B, K, dev = prefix_embeds.shape[0], num_captions, prefix_embeds.device
     logits0, prefix_cache = _prefill(params, cfg, prefix_embeds)
     V = logits0.shape[-1]
-    gen_cache = _init_gen_cache(cfg, B * K, max_new_tokens, prefix_cache[0].dtype, dev)
+    gen_cache = _init_gen_cache(cfg, B * K, max_new_tokens, prefix_cache[0].dtype, dev, prefix_cache[0].shape[2])
     seqs = torch.full((B * K, max_new_tokens), cfg.pad_token_id, dtype=torch.long, device=dev)
     finished = torch.zeros((B * K,), dtype=torch.bool, device=dev)
     is_eos = torch.arange(V, device=dev) == eos
     logits = logits0.repeat_interleave(K, dim=0)
+    first, total = rows or (0, B * K)
     step = 0
     while step < max_new_tokens and not _all_finished(finished):
         if step < min_length:
             logits = torch.where(is_eos, NEG, logits)
-        probs = torch.softmax(top_p_mask(logits, top_p, temperature), dim=-1)
-        token = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        cdf = torch.softmax(top_p_mask(logits, top_p, temperature), dim=-1).cumsum(dim=-1)
+        u = torch.rand(total, generator=generator, device=dev)[first : first + B * K, None] * cdf[:, -1:]
+        # the first token whose cumulative mass passes u: never a filtered (zero-mass) one
+        token = torch.searchsorted(cdf, u, right=True)[:, 0].clamp(max=V - 1)
         token = torch.where(finished, cfg.pad_token_id, token)
         seqs[:, step] = token
         finished = finished | (token == eos)
         logits = _decode_step(params, cfg, token, prefix_cache, gen_cache, step, K)
         step += 1
+    if rows is not None:
+        for _ in range(step, max_over(step, group, dev)):
+            torch.rand(total, generator=generator, device=dev)
     return seqs.reshape(B, K, max_new_tokens)
 
 

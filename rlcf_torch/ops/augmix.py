@@ -504,23 +504,40 @@ def patchify_planar_u8(views, patch_size: int):
 
 def fused_views(images_planar_u8, generator, *, n_views: int, resolution: int = 224, src_size: int = 256,
                 augmix: bool = True, severity: float = 1.0, crop_min: float = 0.08, max_shift=None,
-                p_policy: int = 0, p_reward: int = 0):
+                p_policy: int = 0, p_reward: int = 0, mesh=None):
     """u8 sources ``[N, 3, S, S]`` -> all views, on the images' device, in
     one kernel launch. The sampler draws on that device from ``generator``.
     Returns planar views ``[N, V, 3, R, R]`` when ``p_policy == 0``, else
     patch-major policy tokens, or a (policy, reward) token pair when
-    ``p_reward > 0`` (``pallas_augmix.py::fused_views``)."""
+    ``p_reward > 0`` (``pallas_augmix.py::fused_views``).
+
+    With a ``mesh`` (episode DP, ``pallas_augmix.py::fused_views_sharded``)
+    the launch builds this dp rank's ``N/dp`` images' views only. Every rank
+    draws the whole group's view parameters, in the unsharded order, and
+    keeps its rows, so its views equal the unsharded run's bit for bit.
+    ``N`` must tile dp."""
+    from ..parallel.mesh import dp_slice
+
     N = images_planar_u8.shape[0]
+    if mesh is not None and N % mesh.dp:
+        raise ValueError(f"fused_views: batch {N} must tile dp={mesh.dp}")
     dev = images_planar_u8.device
     params = sample_view_params(generator, N, n_views, src_size, resolution, augmix=augmix, severity=severity,
                                 crop_min=crop_min, device=dev)
+    mine = {k: dp_slice(mesh, v) for k, v in params.items()}
     basew = bicubic_matrix(src_size, resolution, device=dev)
     shifts = (max_shift,) * 4 if max_shift is not None else op_shift_bounds(severity, resolution)
-    views = augmix_views(images_planar_u8.contiguous(), flatten_params(params), basew, resolution, src_size,
-                         n_views, shifts)
+    views = augmix_views(dp_slice(mesh, images_planar_u8).contiguous(), flatten_params(mine), basew, resolution,
+                         src_size, n_views, shifts)
     if p_policy == 0:
         return views
     ptoks = patchify_planar_u8(views, p_policy)
     if p_reward == 0:
         return ptoks
     return ptoks, patchify_planar_u8(views, p_reward)
+
+
+def fused_views_sharded(images_planar_u8, generator, mesh, **kw):
+    """``fused_views`` of this dp rank's images of the group (the name of
+    ``pallas_augmix.py::fused_views_sharded``)."""
+    return fused_views(images_planar_u8, generator, mesh=mesh, **kw)

@@ -40,6 +40,7 @@ from ..models import clip as clip_model
 from ..models import gpt2 as G
 from ..models import mappers as M
 from ..models import opt as O
+from ..parallel.mesh import dp_gather, dp_slice
 from ..tokenizer import tokenize as clip_tokenize
 
 
@@ -264,13 +265,19 @@ def load_mapper_checkpoint(path: str, template):
 
 class CaptionTTA:
     """Caption TTA with a frozen CLIP reward: the OPT and reward weights stay
-    frozen, each image adapts its own copy of the mapper."""
+    frozen, each image adapts its own copy of the mapper.
+
+    ``mesh`` (``parallel/mesh.py``): each dp rank adapts the mappers of its
+    slice of a group (its own optimizer states), and the captions, the trace
+    and, under momentum, the adapted mappers are gathered in image order;
+    the decode takes the OPT weights split over tp (``parallel/tp_opt.py``).
+    """
 
     def __init__(self, params, ccfg: CaptionModelConfig, reward, opt_tokenizer, tta_steps: int = 4,
                  lr: float = 3e-6, weight_decay: float = 5e-4, sample_k: int = 6, max_new_tokens: int = 50,
                  use_nucleus: bool = False, momentum_update: bool = False, update_freq: int = 256,
                  update_w: float = 1.0, momentum: float = 0.9999, token_pad_len: Optional[int] = None,
-                 quantize_decode: bool = False, decode_seg_len: Optional[int] = None, seed: int = 0):
+                 quantize_decode: bool = False, decode_seg_len: Optional[int] = None, seed: int = 0, mesh=None):
         if ccfg.llm != "opt":
             raise ValueError("CaptionTTA requires the OPT backend (the reference TTA path generates through "
                              "opt_generate, `capdec_tta.py:98-100`); use clipcap_predict for GPT-2 no-TTA captioning")
@@ -299,6 +306,11 @@ class CaptionTTA:
         self._sample_counter = 0
         # int8 weight-only decode: generation only; the update keeps full precision
         self.decode_params = O.quantize_opt_params(params["opt"]) if quantize_decode else params["opt"]
+        self.mesh = mesh
+        if mesh is not None and mesh.tp > 1:   # the Megatron split of the decode's weights
+            from ..parallel.tp_opt import tp_opt_params
+
+            self.decode_params = tp_opt_params(mesh, self.decode_params, ccfg.opt)
         self.reward_attn = clip_model.best_attn(reward.cfg, self.device)
 
     # -- device stages ----------------------------------------------------
@@ -308,12 +320,14 @@ class CaptionTTA:
         """Each image's prefix [N, P, D] under its own mapper."""
         return prefix_tokens(mappers, self.ccfg, clip_embs[:, None])[:, 0]
 
-    def _generate_k(self, mappers, clip_embs, generator):
-        """K sampled captions per image -> OPT ids [N, K, L]."""
+    def _generate_k(self, mappers, clip_embs, generator, rows=None):
+        """K sampled captions per image -> OPT ids [N, K, L]; ``rows``: the
+        nucleus sequences' place in the whole group (``nucleus_generate``)."""
         prefixes = self._prefixes(mappers, clip_embs)
         if self.use_nucleus:
             return O.nucleus_generate(self.decode_params, self.ccfg.opt, prefixes, generator,
-                                      num_captions=self.sample_k, max_new_tokens=self.max_new_tokens)
+                                      num_captions=self.sample_k, max_new_tokens=self.max_new_tokens, rows=rows,
+                                      group=None if rows is None else self.mesh.dp_group)
         return O.beam_generate(self.decode_params, self.ccfg.opt, prefixes, num_beams=self.sample_k,
                                max_new_tokens=self.max_new_tokens, num_return=self.sample_k,
                                seg_len=self.decode_seg_len)[0]
@@ -407,11 +421,18 @@ class CaptionTTA:
     def adapt_batch(self, images, clip_embs, trace: Optional[list] = None) -> List[str]:
         """TTA for a group of images at once: images [N, H, W, 3] (normalized),
         clip_embs [N, E] (numpy or tensors) -> N final captions. ``trace``
-        gets each step's (caption, reward) pairs, image-major."""
-        dev = self.device
+        gets each step's (caption, reward) pairs, image-major. On a mesh each
+        dp rank adapts its slice of the group; what it returns is the whole
+        group's, on every rank."""
+        dev, mesh = self.device, self.mesh
         clip_embs = torch.as_tensor(clip_embs, dtype=torch.float32).to(dev)
         images = torch.as_tensor(images).to(dev)
-        N, K, P = clip_embs.shape[0], self.sample_k, self.ccfg.prefix_length
+        n_all, K = clip_embs.shape[0], self.sample_k
+        clip_embs, images = dp_slice(mesh, clip_embs), dp_slice(mesh, images)
+        N, P = clip_embs.shape[0], self.ccfg.prefix_length
+        gather = lambda x: dp_gather(mesh, x, n_all)
+        # nucleus draws: every rank draws the whole group's, in its order, and keeps its rows
+        rows = (mesh.dp_rank * N * K, n_all * K) if N < n_all else None
         start = self.momentum_state.reset_params if self.momentum_update else self.params["mapper"]
         mappers = Po.tree_map(lambda a: a.detach()[None].expand(N, *a.shape).clone().requires_grad_(True), start)
         opt = make_optimizer(Po.tree_leaves(mappers), self.ecfg)   # fresh per group: the per-image reset
@@ -421,20 +442,20 @@ class CaptionTTA:
         self._sample_counter += 1
         img_feats = self.reward_image_feats(images)
         for _ in range(self.tta_steps):
-            seqs = self._generate_k(mappers, clip_embs, generator)
+            seqs = self._generate_k(mappers, clip_embs, generator, rows)
             texts, opt_tokens, opt_mask, clip_tokens = self._decode_and_retokenize(
                 seqs.reshape(N * K, -1).cpu().numpy())
             rewards = self._rewards(img_feats, torch.as_tensor(clip_tokens.astype(np.int64), device=dev)
                                     .reshape(N, K, -1))
             if trace is not None:
-                trace.append(list(zip(texts, rewards.reshape(-1).cpu().tolist())))
+                trace.append(list(zip(gather(texts), gather(rewards).reshape(-1).cpu().tolist())))
             attn = np.concatenate([np.ones((N * K, P), np.int64), opt_mask], axis=1)
             self._update_step(opt, mappers, clip_embs, torch.as_tensor(opt_tokens.astype(np.int64), device=dev)
                               .reshape(N, K, -1), torch.as_tensor(attn, device=dev).reshape(N, K, -1), rewards)
-        captions = self._captions(self._generate_final(mappers, clip_embs))
-        if self.momentum_update:
-            self.momentum_state = Po.momentum_update_batch(self.momentum_state, Po.tree_map(lambda v: v.detach(),
-                                                                                            mappers),
+        captions = gather(self._captions(self._generate_final(mappers, clip_embs)))
+        if self.momentum_update:   # every rank folds the whole group's mappers, in image order
+            self.momentum_state = Po.momentum_update_batch(self.momentum_state,
+                                                           Po.tree_map(lambda v: gather(v.detach()), mappers),
                                                            **self.momentum_cfg)
         return captions
 

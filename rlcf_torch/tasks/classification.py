@@ -2,8 +2,8 @@
 test-time adaptation (RLCF / TPT / KD episodes): prompt TTA on patch-major u8
 views or NHWC views, encoder TTA on NHWC views, and CoCoOp's
 instance-conditioned prompt TTA on NHWC views (the counterpart of
-``rlcf_tpu/tasks/classification.py``, with its serving hooks; the device
-mesh is not ported yet).
+``rlcf_tpu/tasks/classification.py``, with its serving hooks and the
+process mesh of ``parallel/``: episodes split over dp, classes over tp).
 
 Prompt TTA, per group of N test images: the frozen policy encodes all
 views of each image, the lowest-entropy views are selected against the
@@ -38,6 +38,8 @@ from ..data.transforms import CLIP_MEAN, CLIP_STD
 from ..metrics.classification import AccuracyMeter
 from ..models import clip as clip_model
 from ..ops.image_ops import resize_bicubic_align_corners
+from ..parallel.collectives import all_reduce_grads, gather_replicated
+from ..parallel.mesh import dp_gather, dp_slice, shard_range
 from ..tokenizer import tokenize
 
 
@@ -133,6 +135,20 @@ def prompt_text_features(clip_params, clip_cfg, pt, ctx, attn: str = "dense", cl
     return clip_model.normalize(feats.float()).reshape(N, C, -1)
 
 
+def group_views(mesh, images_planar_u8, seed: int, **fkw):
+    """(views, local): the AugMix views of a group of u8 sources
+    ``[N, 3, S, S]``, built on their device by one kernel launch
+    (``ops.augmix.fused_views``) from a ``torch.Generator`` there seeded
+    with ``seed``. On a mesh whose dp tiles the group each rank builds only
+    its slice's views (``local``), drawing the whole group's parameters;
+    otherwise the views are the whole group's."""
+    from ..ops.augmix import fused_views
+
+    gen = torch.Generator(device=images_planar_u8.device).manual_seed(int(seed))
+    local = mesh is not None and mesh.dp > 1 and mesh.tiles_dp(images_planar_u8.shape[0])
+    return fused_views(images_planar_u8, gen, mesh=mesh if local else None, **fkw), local
+
+
 def is_ensemble(reward) -> bool:
     return hasattr(reward, "members")
 
@@ -148,9 +164,16 @@ class PromptTTAClassifier:
     reward) run N episodes at once from the shared initial context. A
     reward tower at another resolution than the views gets the selected
     views resized; an ensemble's similarities are stacked ``[N, M, S, C]``.
+
+    ``mesh`` (``parallel/mesh.py``): each dp rank runs the episodes of its
+    slice of a group and the outputs are gathered in episode order; each tp
+    rank encodes its shard of the classes (and a single reward its shard of
+    the class features), gathered to the whole class axis for selection,
+    top-k and the rewards, and the context's gradient is summed over tp.
     """
 
-    def __init__(self, clip_params, clip_cfg, reward, ecfg, ctx_init="a photo of a", n_ctx=4, ctx0=None):
+    def __init__(self, clip_params, clip_cfg, reward, ecfg, ctx_init="a photo of a", n_ctx=4, ctx0=None,
+                 mesh=None):
         if is_ensemble(reward) and ecfg.loss not in ("rlcf", "tpt"):
             raise ValueError(f"loss '{ecfg.loss}' needs single-teacher logits; reward ensembles only support the "
                              "'rlcf'/'tpt' losses (the reference KD paths use one reward CLIP, "
@@ -163,16 +186,30 @@ class PromptTTAClassifier:
         self.n_ctx = n_ctx
         self.ctx0_override = ctx0
         self.prompt_state = None
+        self.mesh = mesh
+        self._tp_group = self._reward_tp_group = None    # set by setup when the classes tile tp
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
         self.text_attn = clip_model.text_attn(self.device)
         self.reward_attn = clip_model.best_attn(getattr(reward, "cfg", None), self.device)
 
     def setup(self, classnames: Sequence[str]):
-        self.prompt_state = P.build_prompt_state(
+        from ..parallel.tp_prompt import shard_prompt_state
+
+        self.prompt_state = pt = P.build_prompt_state(
             self.clip_params, classnames, ctx_init=self.ctx_init, n_ctx=self.n_ctx, ctx0=self.ctx0_override,
         )
-        self.reward.set_class_features(self.prompt_state.tokenized)
+        self._pt_shard, self._tp_group, self._reward_tp_group, tokenized = pt, None, None, pt.tokenized
+        mesh = self.mesh
+        if mesh is not None and mesh.tp > 1:
+            if pt.n_cls % mesh.tp == 0:
+                self._pt_shard, self._tp_group = shard_prompt_state(mesh, pt), mesh.tp_group
+                if not is_ensemble(self.reward):   # a single reward's class features shard too
+                    lo, hi = shard_range(pt.n_cls, mesh.tp, mesh.tp_rank)
+                    tokenized, self._reward_tp_group = tokenized[lo:hi], mesh.tp_group
+            else:
+                print(f"NOTE: {pt.n_cls} classes not divisible by tp={mesh.tp}; class axis replicated")
+        self.reward.set_class_features(tokenized)
         with torch.no_grad():
             # initial text features: a per-dataset constant that confidence
             # selection reuses (one setup-time text forward)
@@ -199,12 +236,24 @@ class PromptTTAClassifier:
         return self.clip_params, rparams, self.prompt_state.ctx0, self._pt_args(), self._tf0, r_feats
 
     def _pt_args(self):
-        pt = self.prompt_state
+        pt = self._pt_shard   # this tp rank's classes
         return {"fixed_embed": pt.fixed_embed, "ctx_map": pt.ctx_map, "eot_idx": pt.eot_idx}
 
     def text_features_fn(self, cparams, ctx, pt_args):
-        """Normalized class text features [N, C, E] for contexts [N, n_ctx, D]."""
-        return prompt_text_features(cparams, self.clip_cfg, types.SimpleNamespace(**pt_args), ctx, self.text_attn)
+        """Normalized class text features [N, C, E] for contexts [N, n_ctx, D]
+        (under tp: this rank's classes encoded, the whole class axis gathered)."""
+        feats = prompt_text_features(cparams, self.clip_cfg, types.SimpleNamespace(**pt_args), ctx, self.text_attn)
+        return self._gather_classes(feats, dim=1)
+
+    def _gather_classes(self, x, dim=-1):
+        """The whole class axis of this tp rank's shard ``x``."""
+        return x if self._tp_group is None else gather_replicated(x, self._tp_group, dim)
+
+    def _gather_reward_classes(self, sim):
+        """The whole class axis of reward similarities ``sim`` [..., C]: a
+        single reward's class features are sharded over tp, an ensemble's
+        members' are whole."""
+        return sim if self._reward_tp_group is None else gather_replicated(sim, self._reward_tp_group, -1)
 
     def text_features(self, ctx):
         """``text_features_fn`` on the classifier's own weights."""
@@ -236,7 +285,7 @@ class PromptTTAClassifier:
             rx = normalize_u8_patch_tokens(sel_r).reshape(N * n_keep, Tr, Dr)
             feats = clip_model.normalize(
                 clip_model.encode_image_tokens(rparams, rcfg, rx, attn=self.reward_attn).float())
-            r_sim = feats @ r_feats.T
+            r_sim = self._gather_reward_classes(feats @ r_feats.T)
         else:
             # depatchify ONLY the selected views back to NHWC for the reward tower
             sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
@@ -256,8 +305,8 @@ class PromptTTAClassifier:
         (normalized NHWC), each tower taking them resized to its own
         resolution: [N, S, C] for one reward, [N, M, S, C] for an ensemble
         of M."""
-        sim = lambda params, cfg, feats: image_sim(params, cfg, feats, sel_views, self.reward_attn).reshape(
-            N, n_keep, -1)
+        sim = lambda params, cfg, feats: self._gather_reward_classes(
+            image_sim(params, cfg, feats, sel_views, self.reward_attn)).reshape(N, n_keep, -1)
         if is_ensemble(self.reward):
             return torch.stack([sim(p, m.cfg, f) for p, m, f in zip(rparams, self.reward.members, r_feats)], dim=1)
         return sim(rparams, self.reward.cfg, r_feats)
@@ -290,25 +339,35 @@ class PromptTTAClassifier:
         export time, as in the JAX package)."""
         ecfg = self.ecfg
         N, _, E = img_feats.shape
-        scale = logit_scale(cparams)
-        teacher_scale = None if is_ensemble(self.reward) else logit_scale(self.reward.params)
         sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, E))  # [N, S, E]
         ctx = trainable0.detach()[None].expand(N, *trainable0.shape).clone()
         state = adamw_init([ctx])
         losses = []
         for step in range(1, ecfg.tta_steps + 1):
-            with torch.enable_grad():
-                ctx = ctx.detach().requires_grad_(True)
-                logits = scale * torch.einsum("nse,nce->nsc", sel_feats, self.text_features_fn(cparams, ctx, pt_args))
-                loss = step_loss(logits, reward_sim, ecfg, self.reward.score_samples, teacher_scale)  # [N]
-                grad, = torch.autograd.grad(loss.sum(), ctx)
+            loss, grad = self.step_grad_fn(cparams, ctx, pt_args, sel_feats, reward_sim)
             (ctx,), state = adamw_step([ctx.detach()], [grad], state, step, ecfg.lr, ecfg.weight_decay, ecfg.adam_eps)
-            losses.append(loss.detach())
+            losses.append(loss)
         with torch.no_grad():
             tf = self.text_features_fn(cparams, ctx, pt_args) if ecfg.tta_steps > 0 else tf0.expand(N, -1, -1)
-            final = scale * torch.einsum("ne,nce->nc", img_feats[:, 0], tf)
+            final = logit_scale(cparams) * torch.einsum("ne,nce->nc", img_feats[:, 0], tf)
         stacked = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
         return final, stacked
+
+    def step_grad_fn(self, cparams, ctx, pt_args, sel_feats, reward_sim):
+        """One step's losses [N] and the gradient [N, n_ctx, D] of their sum
+        in the contexts ``ctx`` [N, n_ctx, D], on the selected views'
+        features ``sel_feats`` [N, S, E]. Under tp each rank's gradient is
+        its classes' share until the psum over tp, which makes it the whole."""
+        teacher_scale = None if is_ensemble(self.reward) else logit_scale(self.reward.params)
+        with torch.enable_grad():
+            ctx = ctx.detach().requires_grad_(True)
+            logits = logit_scale(cparams) * torch.einsum("nse,nce->nsc", sel_feats,
+                                                         self.text_features_fn(cparams, ctx, pt_args))
+            loss = step_loss(logits, reward_sim, self.ecfg, self.reward.score_samples, teacher_scale)  # [N]
+            grad, = torch.autograd.grad(loss.sum(), ctx)
+        if self._tp_group is not None:
+            all_reduce_grads(grad, self._tp_group)
+        return loss.detach(), grad
 
     def episodes(self, img_feats, sel, reward_sim):
         """``episodes_fn`` on the classifier's own weights."""
@@ -322,13 +381,20 @@ class PromptTTAClassifier:
             raise ValueError(f"{what} needs token mode: a ViT policy and a single reward model (ResNet policies "
                              "and reward ensembles take the NHWC adapt() path)")
 
+    def _run_group(self, n: int, prepare, *inputs):
+        """``episodes(prepare(*inputs))`` on this dp rank's inputs, the
+        outputs of the group's ``n`` episodes gathered in episode order."""
+        img_feats, sel, r_sim = prepare(*inputs)
+        logits, losses = self.episodes(img_feats, sel, r_sim)
+        gather = lambda x: dp_gather(self.mesh, x, n)
+        return gather(logits), {"losses": gather(losses), "selected": gather(sel)}
+
     def adapt(self, views_batch):
         """TTA from NHWC views [N, B, H, W, 3] (numpy or tensor; u8 pixels or
         normalized floats) -> (final logits [N, C], {"losses", "selected"}):
         any policy (ViT or ResNet), any reward or ensemble."""
-        img_feats, sel, r_sim = self.prepare(torch.as_tensor(views_batch).to(self.device))
-        logits, losses = self.episodes(img_feats, sel, r_sim)
-        return logits, {"losses": losses, "selected": sel}
+        views = torch.as_tensor(views_batch).to(self.device)
+        return self._run_group(views.shape[0], self.prepare, dp_slice(self.mesh, views))
 
     def adapt_tokens(self, policy_tokens, reward_tokens=None):
         """TTA from pre-patchified u8 views [N, B, (res/p)^2, p*p*3] (numpy
@@ -359,9 +425,8 @@ class PromptTTAClassifier:
                 )
             rtoks = torch.as_tensor(reward_tokens).to(self.device)
         ptoks = torch.as_tensor(policy_tokens).to(self.device)
-        img_feats, sel, r_sim = self.prepare_tokens(ptoks, rtoks)
-        logits, losses = self.episodes(img_feats, sel, r_sim)
-        return logits, {"losses": losses, "selected": sel}
+        rtoks = None if rtoks is None else dp_slice(self.mesh, rtoks)
+        return self._run_group(ptoks.shape[0], self.prepare_tokens, dp_slice(self.mesh, ptoks), rtoks)
 
     def adapt_sources_fn(self, *, n_views: int, src_size: int = 256, resolution: int = 224, augmix: bool = True):
         """The flagship from u8 sources: ``adapt(images_planar_u8 [N, 3, S, S],
@@ -369,9 +434,9 @@ class PromptTTAClassifier:
         the group are built on the classifier's device by one AugMix kernel
         launch (``ops.augmix.fused_views``), from a ``torch.Generator`` there
         seeded with ``seed``; the reward takes its own tokens when it is a ViT
-        at the view resolution, else the selected views depatchified."""
-        from ..ops.augmix import fused_views
-
+        at the view resolution, else the selected views depatchified. On a
+        mesh whose dp tiles the group, each rank builds its slice's views
+        (``group_views``) and runs their episodes."""
         self._check_token_mode("adapt_sources_fn")
         pcfg, rcfg = self.clip_cfg, self.reward.cfg
         reward_same = rcfg.is_vit and rcfg.image_resolution == resolution
@@ -379,9 +444,13 @@ class PromptTTAClassifier:
                    p_policy=pcfg.vision_patch_size, p_reward=rcfg.vision_patch_size if reward_same else 0)
 
         def adapt(images_planar, seed):
-            gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            toks = fused_views(torch.as_tensor(images_planar).to(self.device), gen, **fkw)
-            logits, aux = self.adapt_tokens(*toks) if isinstance(toks, tuple) else self.adapt_tokens(toks)
+            images = torch.as_tensor(images_planar).to(self.device)
+            toks, local = group_views(self.mesh, images, seed, **fkw)
+            toks = toks if isinstance(toks, tuple) else (toks,)
+            if local:   # this rank's slice of the views: straight to its episodes
+                logits, aux = self._run_group(images.shape[0], self.prepare_tokens, *toks)
+            else:
+                logits, aux = self.adapt_tokens(*toks)
             return logits, aux["losses"], int(seed) + 1
 
         return adapt
@@ -463,11 +532,15 @@ class EncoderTTAClassifier:
     into the running ones in every forward of the episode, with the JAX
     package's step-0 strategy: the selection forward's batch is the B views,
     each step's the S selected ones (``core/episode.py``).
+
+    ``mesh``: episode-DP; each dp rank runs the episodes of its slice of a
+    group, and every rank folds the whole group's gathered adapted weights
+    into the momentum EMA in episode order, so every rank holds one state.
     """
 
     def __init__(self, clip_params, clip_cfg, reward, ecfg, prompt_prefix: str = "a photo of a",
                  only_norm: bool = False, momentum_update: bool = False, update_freq: int = 256,
-                 update_w: float = 1.0, momentum: float = 0.9999, bn_prior=None, remat=True):
+                 update_w: float = 1.0, momentum: float = 0.9999, bn_prior=None, remat=True, mesh=None):
         if not hasattr(reward, "params"):
             raise ValueError(
                 "EncoderTTAClassifier requires a single ClipReward; reward "
@@ -484,6 +557,7 @@ class EncoderTTAClassifier:
         self.momentum_update = momentum_update
         self.bn_prior = bn_prior
         self.remat = remat
+        self.mesh = mesh
         self.device = clip_params["logit_scale"].device
         self.attn = clip_model.best_attn(clip_cfg, self.device)
         self.text_attn = clip_model.text_attn(self.device)
@@ -542,15 +616,42 @@ class EncoderTTAClassifier:
         takes effect from the next group (N=1 is the sequential reference).
         ``return_adapted`` adds the N adapted visual weights (``[N, ...]``)
         under ``"adapted"``."""
-        views = maybe_normalize_u8(torch.as_tensor(views_batch).to(self.device))
+        views = torch.as_tensor(views_batch).to(self.device)
+        return self._run_group(views.shape[0], dp_slice(self.mesh, views), return_adapted)
+
+    def _run_group(self, n: int, views, return_adapted: bool = False):
+        """``adapt`` on this dp rank's views of a group of ``n``, the outputs
+        gathered in episode order."""
+        views = maybe_normalize_u8(views)
         start = self.momentum_state.reset_params if self.momentum_update else self.trainable0
         logits, aux = self._episode(start, {"views": views}, views)
+        gather = lambda x: dp_gather(self.mesh, x, n)
         adapted = aux.pop("adapted")
+        logits, aux = gather(logits), {k: gather(v) for k, v in aux.items()}
+        if self.momentum_update or return_adapted:   # the whole group's, in episode order
+            adapted = Po.tree_map(gather, adapted)
         if self.momentum_update:
             self.momentum_state = Po.momentum_update_batch(self.momentum_state, adapted, **self.momentum_cfg)
         if return_adapted:
             aux["adapted"] = adapted
         return logits[:, 0], aux
+
+    def adapt_sources_fn(self, *, n_views: int, src_size: int = 256, resolution: int = 224, augmix: bool = True):
+        """``adapt(images_planar_u8 [N, 3, S, S], seed) -> (logits [N, C],
+        losses [N, steps], next_seed)``: ``adapt`` on the group's AugMix
+        views, NHWC u8, built on the classifier's device by one kernel launch
+        (``group_views``: on a mesh whose dp tiles the group each rank builds
+        its slice's views and runs their episodes)."""
+        fkw = dict(n_views=n_views, resolution=resolution, src_size=src_size, augmix=augmix)
+
+        def adapt(images_planar, seed):
+            images = torch.as_tensor(images_planar).to(self.device)
+            views, local = group_views(self.mesh, images, seed, **fkw)
+            views = views.permute(0, 1, 3, 4, 2)   # [N, V, 3, R, R] -> NHWC u8
+            logits, aux = self._run_group(images.shape[0], views) if local else self.adapt(views)
+            return logits, aux["losses"], int(seed) + 1
+
+        return adapt
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Retrieval TTA: per-query REINFORCE over a cached gallery (the counterpart
-of ``rlcf_tpu/tasks/retrieval.py``; the device mesh is not ported yet).
+of ``rlcf_tpu/tasks/retrieval.py``).
 
 - i2t ("image2text"): the gallery's caption features (policy and reward
   text towers) are computed once (`clip_ret_policy.py:150-156`); each query
@@ -18,6 +18,13 @@ is one "view" (``selection_p = 1``), so step 0 reuses the selection
 forward's graph. The KD variants (`clip_ret_kd.py:37-93`) distill the frozen
 reward's similarity row instead; a momentum EMA re-anchors the episodes'
 start as in encoder TTA.
+
+On a process mesh (``parallel/mesh.py``) the galleries are encoded with
+their batches split over dp, then split over tp: each tp rank scores its
+share of the gallery, and the score rows are gathered over tp (so top-k and
+the rewards see the whole gallery) and over dp (the queries of a group).
+The query features' gradient is summed over tp on the way back
+(``reduce_grad``), which makes the adapted tower's gradient the whole one.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from ..core import policy as Po
 from ..core.episode import EpisodeConfig, make_tta_episode, take_rows
 from ..core.reward import reward_image_features
 from ..models import clip as clip_model
+from ..parallel.collectives import gather_replicated, reduce_grad
+from ..parallel.mesh import class_sharded, dp_gather, dp_slice, ranks_per_device
 from ..tokenizer import tokenize
 from .classification import is_ensemble
 
@@ -87,20 +96,40 @@ def load_karpathy_annotations(ann_path: str, vis_root: str = "", process_text: b
     return RetrievalGallery(image_paths, texts, img2txt, txt2img)
 
 
-def encode_text_gallery(params, cfg, texts: Sequence[str], batch_size: int = 256, attn: str = "dense"):
-    """Normalized text features [N, E] of the whole caption gallery, and its
-    token ids with the dead padded tail dropped (``truncate_tokens``)."""
-    tokens = clip_model.truncate_tokens(tokenize(list(texts), truncate=True))
-    return clip_model.encode_token_batches(params, cfg, tokens, batch_size, attn), tokens
+def dp_batch(mesh, batch, encode):
+    """``encode(batch)`` with the batch's rows split over dp and the results
+    gathered (the counterpart of ``_dp_batch``): a ragged batch is padded to a
+    multiple of dp with its last row, whose copies' results are dropped."""
+    n = batch.shape[0]
+    if mesh is None or mesh.dp == 1:
+        return encode(batch)
+    pad = -n % mesh.dp
+    if pad:
+        batch = torch.cat([batch, batch[-1:].expand(pad, *batch.shape[1:])])
+    return dp_gather(mesh, encode(dp_slice(mesh, batch)))[:n]
 
 
 @torch.no_grad()
-def encode_image_gallery(params, cfg, images_iter, attn: str = "dense"):
+def encode_text_gallery(params, cfg, texts: Sequence[str], batch_size: int = 256, attn: str = "dense", mesh=None):
+    """Normalized text features [N, E] of the whole caption gallery, and its
+    token ids with the dead padded tail dropped (``truncate_tokens``);
+    ``mesh``: each batch's rows split over dp."""
+    tokens = clip_model.truncate_tokens(tokenize(list(texts), truncate=True))
+    if mesh is None or mesh.dp == 1:
+        return clip_model.encode_token_batches(params, cfg, tokens, batch_size, attn), tokens
+    ids = torch.as_tensor(tokens.astype("int64"), device=params["logit_scale"].device)
+    encode = lambda t: clip_model.encode_text(params, cfg, t, attn=attn)
+    feats = [dp_batch(mesh, ids[s : s + batch_size], encode) for s in range(0, ids.shape[0], batch_size)]
+    return clip_model.normalize(torch.cat(feats).float()), tokens
+
+
+@torch.no_grad()
+def encode_image_gallery(params, cfg, images_iter, attn: str = "dense", mesh=None):
     """Normalized image features [M, E] from an iterator of normalized NHWC
-    batches (numpy or tensors)."""
+    batches (numpy or tensors); ``mesh``: each batch's rows split over dp."""
     device = params["logit_scale"].device
-    feats = [clip_model.encode_image(params, cfg, torch.as_tensor(batch).to(device), attn=attn)
-             for batch in images_iter]
+    encode = lambda x: clip_model.encode_image(params, cfg, x, attn=attn)
+    feats = [dp_batch(mesh, torch.as_tensor(batch).to(device), encode) for batch in images_iter]
     return clip_model.normalize(torch.cat(feats).float())
 
 
@@ -109,7 +138,7 @@ class RetrievalTTA:
 
     def __init__(self, clip_params, clip_cfg, reward, ecfg: EpisodeConfig, direction: str = "i2t",
                  momentum_update: bool = False, update_freq: int = 256, update_w: float = 1.0,
-                 momentum: float = 0.9999):
+                 momentum: float = 0.9999, mesh=None):
         assert direction in ("i2t", "t2i")
         if is_ensemble(reward):
             raise ValueError(
@@ -121,6 +150,8 @@ class RetrievalTTA:
         self.reward = reward
         self.ecfg = ecfg
         self.direction = direction
+        self.mesh = mesh
+        self._tp_group = None   # set when the galleries shard over tp
         self.momentum_update = momentum_update
         self.momentum_cfg = dict(momentum=momentum, update_freq=update_freq, update_w=update_w)
         self.device = clip_params["logit_scale"].device
@@ -155,22 +186,44 @@ class RetrievalTTA:
 
     # -- gallery setup ----------------------------------------------------
 
+    def _shard_galleries(self):
+        """Keep this tp rank's share of the galleries (the counterpart of
+        ``_maybe_shard_galleries``)."""
+        mesh = self.mesh
+        if mesh is None or mesh.tp == 1:
+            return
+        g = self.gallery_feats.shape[0]
+        if g % mesh.tp:
+            print(f"NOTE: gallery size {g} not divisible by tp={mesh.tp}; gallery replicated")
+            return
+        self._tp_group = mesh.tp_group
+        self.gallery_feats = class_sharded(mesh, self.gallery_feats).contiguous()
+        self.reward_gallery_feats = class_sharded(mesh, self.reward_gallery_feats).contiguous()
+        self.reward.class_features = self.reward_gallery_feats
+
+    def _gather_gallery(self, x):
+        """Score rows over the whole gallery from this tp rank's columns."""
+        return x if self._tp_group is None else gather_replicated(x, self._tp_group, dim=-1)
+
     def set_text_gallery(self, texts: Sequence[str]):
         """i2t: cache the policy's and the reward's features of every caption."""
-        self.gallery_feats, tokens = encode_text_gallery(self.clip_params, self.clip_cfg, texts, attn=self.text_attn)
+        self.gallery_feats, tokens = encode_text_gallery(self.clip_params, self.clip_cfg, texts, attn=self.text_attn,
+                                                         mesh=self.mesh)
         self.reward_gallery_feats = self.reward.set_class_features(tokens)   # the same truncation: exact
+        self._shard_galleries()
         return self
 
     def set_image_gallery(self, images_iter_policy, images_iter_reward):
         """t2i: cache the policy's and the reward's features of every gallery
         image (the reward's taken resized to its own resolution)."""
         self.gallery_feats = encode_image_gallery(self.clip_params, self.clip_cfg, images_iter_policy,
-                                                  attn=clip_model.best_attn(self.clip_cfg, self.device))
+                                                  attn=clip_model.best_attn(self.clip_cfg, self.device), mesh=self.mesh)
+        encode = lambda x: reward_image_features(self.reward.params, self.reward.cfg, x, self.reward_attn)
         with torch.no_grad():
-            feats = [reward_image_features(self.reward.params, self.reward.cfg, torch.as_tensor(b).to(self.device),
-                                           self.reward_attn) for b in images_iter_reward]
+            feats = [dp_batch(self.mesh, torch.as_tensor(b).to(self.device), encode) for b in images_iter_reward]
         self.reward_gallery_feats = torch.cat(feats)
         self.reward.class_features = self.reward_gallery_feats
+        self._shard_galleries()
         return self
 
     # -- episode ----------------------------------------------------------
@@ -201,7 +254,10 @@ class RetrievalTTA:
             feats = clip_model.encode_text({"text": trainable}, self.clip_cfg, take_rows(cache["views"], idx),
                                            attn=self.attn)
         scale = self.clip_params["logit_scale"].exp().float()
-        return scale * (clip_model.normalize(feats.float()) @ self.gallery_feats.T)
+        feats = clip_model.normalize(feats.float())
+        if self._tp_group is not None:   # the product's consumers are sharded: sum the features' gradient over tp
+            feats = reduce_grad(feats, self._tp_group)
+        return self._gather_gallery(scale * (feats @ self.gallery_feats.T))
 
     def reward_sim(self, views):
         """Frozen reward similarities [N, S, G] of the selected views
@@ -213,7 +269,7 @@ class RetrievalTTA:
             feats = reward_image_features(self.reward.params, self.reward.cfg, flat, self.reward_attn)
         else:
             feats = self.reward.text_features(flat)
-        return (feats @ self.reward_gallery_feats.T).reshape(N, S, -1)
+        return self._gather_gallery(feats @ self.reward_gallery_feats.T).reshape(N, S, -1)
 
     # -- memory ------------------------------------------------------------
 
@@ -243,15 +299,15 @@ class RetrievalTTA:
         return n
 
     def hbm_group_cap(self, hbm_limit_bytes: int | None = None) -> int | None:
-        """Largest episode group that fits the card's memory, or None on the
-        CPU (no limit known): the weights and the galleries, plus a group of
-        ``PER_EPISODE_FACTOR`` x the trainable bytes, against
+        """Largest episode group a rank may run in the card's memory, or None
+        on the CPU (no limit known): the weights and the galleries, plus a
+        group of ``PER_EPISODE_FACTOR`` x the trainable bytes, against
         ``HBM_USABLE_SHARE`` of ``hbm_limit_bytes`` (by default the card's
-        ``total_memory``)."""
+        ``total_memory`` over the ranks that share the card)."""
         if hbm_limit_bytes is None:
             if self.device.type != "cuda":
                 return None
-            hbm_limit_bytes = torch.cuda.get_device_properties(self.device).total_memory
+            hbm_limit_bytes = torch.cuda.get_device_properties(self.device).total_memory // ranks_per_device()
         tensors = Po.tree_leaves(self.clip_params) + Po.tree_leaves(self.reward.params) + [
             f for f in (self.gallery_feats, self.reward_gallery_feats) if f is not None]
         budget = self.HBM_USABLE_SHARE * hbm_limit_bytes - sum(v.numel() * v.element_size() for v in tensors)
@@ -287,17 +343,24 @@ class RetrievalTTA:
         queries: [N, H, W, 3] normalized images (i2t) or [N, 77] token ids
         (t2i), numpy or tensors.
         """
-        start, cache, views, per_episode = self.episode_inputs(queries)
+        queries = torch.as_tensor(queries)
+        n = queries.shape[0]
+        start, cache, views, per_episode = self.episode_inputs(dp_slice(self.mesh, queries))
         logits, aux = self._episode(start, cache, views, per_episode=per_episode)
+        adapted = aux["adapted"]
+        if self.momentum_update or return_adapted:   # the whole group's, in query order
+            adapted = Po.tree_map(lambda a: dp_gather(self.mesh, a, n), adapted)
         if self.momentum_update:
-            self.momentum_state = Po.momentum_update_batch(self.momentum_state, aux["adapted"], **self.momentum_cfg)
-        scores = logits[:, 0].float().cpu().numpy()
-        return (scores, aux["adapted"]) if return_adapted else scores
+            self.momentum_state = Po.momentum_update_batch(self.momentum_state, adapted, **self.momentum_cfg)
+        scores = dp_gather(self.mesh, logits[:, 0], n).float().cpu().numpy()
+        return (scores, adapted) if return_adapted else scores
 
     def run(self, queries_iter, total: int, gallery_size: int, group_size: int = 8) -> np.ndarray:
         """Fill the full score matrix (init -100, `clip_ret_policy.py:146-147`);
         each group's seconds go to ``group_seconds``."""
         cap = self.hbm_group_cap()
+        if cap is not None and self.mesh is not None:   # a rank runs its dp share of a group
+            cap *= self.mesh.dp
         if cap is not None and group_size > cap:
             print(f"NOTE: episode group {group_size} would exceed the card's memory; capping to {cap}")
             group_size = cap

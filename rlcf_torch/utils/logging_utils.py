@@ -9,12 +9,19 @@ import time
 
 
 class RunLogger:
-    def __init__(self, output_dir: str):
+    """``enabled=False`` (a rank other than 0 of a sharded run) writes and
+    prints nothing."""
+
+    def __init__(self, output_dir: str, enabled: bool = True):
         self.dir = output_dir
-        os.makedirs(output_dir, exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(output_dir, exist_ok=True)
         self._t0 = time.time()
 
     def text(self, *lines: str):
+        if not self.enabled:
+            return
         with open(os.path.join(self.dir, "log.txt"), "a") as fh:
             for line in lines:
                 fh.write(line.rstrip("\n") + "\n")
@@ -23,10 +30,14 @@ class RunLogger:
 
     def result_line(self, payload: dict, name: str = "evaluate.txt"):
         """Append one JSON line (`lavis/tasks/retrieval.py:103-106`)."""
+        if not self.enabled:
+            return
         with open(os.path.join(self.dir, name), "a") as fh:
             fh.write(json.dumps(payload) + "\n")
 
     def results_json(self, results: dict, name: str = "results.json"):
+        if not self.enabled:
+            return
         with open(os.path.join(self.dir, name), "a+") as fh:
             json.dump(results, fh, indent=4)
 

@@ -118,10 +118,15 @@ def test_cli_synthetic(tmp_path):
     (["--multiple_reward_models", "1"], "one reward CLIP"),
 ])
 def test_cli_refusals(flags, item, monkeypatch):
-    """Each refusal comes before any model loads."""
+    """Each refusal comes before any model loads. --dp and --tp (ROADMAP A14)
+    are ported: in a single process the mesh's error names the launcher."""
     from rlcf_torch.cli import common
 
     monkeypatch.setattr(common, "load_policy", lambda *a, **k: pytest.fail("a model loaded before the refusal"))
+    if item == "A14":
+        with pytest.raises(ValueError, match="torchrun"):
+            tta_caption.main(["--synthetic", "--device", "cpu", *flags])
+        return
     with pytest.raises(SystemExit, match=item):
         tta_caption.main(["--synthetic", "--device", "cpu", *flags])
 

@@ -303,8 +303,13 @@ def test_tune_cls_cpu_drive_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (("--dp", "2"), "A14"), (("--hard_aug", "1"), "A16"), (("--download", "1"), "A15")])
 def test_tune_cls_refusals_name_their_roadmap_item(tmp_path, extra, item):
+    """--dp (ROADMAP A14) is ported: in a single process the mesh's error names the launcher."""
     from rlcf_torch.cli import tune_cls
 
+    if item == "A14":
+        with pytest.raises(ValueError, match="torchrun"):
+            tune_cls.main(_cli_argv(tmp_path, *extra))
+        return
     with pytest.raises(SystemExit, match=f"not ported yet.*ROADMAP {item}"):
         tune_cls.main(_cli_argv(tmp_path, *extra))
 

@@ -113,11 +113,14 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 def test_cli_refuses_unported_options():
+    """--viewgen device waits for ROADMAP A16; --tp 2 is ported (A14), and in a
+    single process the mesh's error names the launcher."""
     from rlcf_torch.cli import tta_cls
 
-    for extra in (["--viewgen", "device"], ["--tp", "2"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            tta_cls.main(["--device", "cpu"] + extra)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        tta_cls.main(["--device", "cpu", "--viewgen", "device"])
+    with pytest.raises(ValueError, match="torchrun"):
+        tta_cls.main(["--device", "cpu", "--tp", "2"])
 
 
 def test_cuda_without_card_raises(monkeypatch):

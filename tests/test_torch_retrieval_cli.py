@@ -108,8 +108,13 @@ def test_single_direction_saves_its_scores(tmp_path, checkpoints):
 @pytest.mark.parametrize("flags,item", [(["--tp", "2"], "A14"), (["--download", "1"], "A15"),
                                         (["--multiple_reward_models", "1"], "single reward CLIP")])
 def test_unported_options_are_refused(flags, item):
+    """--tp (ROADMAP A14) is ported: in a single process the mesh's error names the launcher."""
     from rlcf_torch.cli import tta_retrieval as tcli
 
+    if item == "A14":
+        with pytest.raises(ValueError, match="torchrun"):
+            tcli.main(["--synthetic", "--device", "cpu", *flags])
+        return
     with pytest.raises(SystemExit, match=item):
         tcli.main(["--synthetic", "--device", "cpu", *flags])
 
