@@ -165,6 +165,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -217,6 +218,11 @@ ENCODER_IMAGES, ENCODER_FP32_IMAGES = 8, 2   # encoder TTA runs one image a grou
 POLICY336, RES336, ENCODER336_IMAGES, ENCODER336_FP32_IMAGES = "ViT-L/14@336px", 336, 3, 1
 RESNET_POLICY, RESNET_IMAGES, BN_PRIOR = "RN50", 4, 0.5
 ENSEMBLE_IMAGES, REWARD336_IMAGES, ZERO_SHOT_IMAGES = 8, 4, 16
+# phase 4k (A16): the flagship on the device view generator (2 groups), --hard_aug 1 and --viewgen auto --hard_aug 1
+# (1 group each); the generator on the card against the CPU on the same draws within the CPU tests' tolerance:
+# at most this share of values beyond 1e-4 (normalised units) and none beyond 3 gray levels
+VIEWGEN_DEVICE_IMAGES, VIEWGEN_HARD_IMAGES = 8, 4
+VIEWGEN_VALUE_TOL, VIEWGEN_MAX_SHARE, VIEWGEN_MAX_GRAY = 1e-4, 1e-3, 3.0
 REWARD336 = "ViT-L/14@336px"
 ZERO_SHOT_ARCHS = ("ViT-B/16", "RN50x64", "ViT-L/14@336px")
 # fp32 operations per pixel of one plane, read off csrc/augmix.cu: each op's
@@ -771,7 +777,8 @@ def run_flagship(out_dir, viewgen, limit, precision="bf16", reward=REWARD, extra
     from rlcf_torch.ops import augmix as X
     from rlcf_torch.tasks.classification import PromptTTAClassifier
 
-    entry = "adapt" if ENSEMBLE_ARGS[0] in extra else "adapt_tokens"
+    device_views = viewgen == "device" or (viewgen == "auto" and "--hard_aug" in extra)   # the generator's floats
+    entry = "adapt" if ENSEMBLE_ARGS[0] in extra or device_views else "adapt_tokens"
     seen = []
     adapt = getattr(PromptTTAClassifier, entry)
 
@@ -802,12 +809,13 @@ def run_flagship(out_dir, viewgen, limit, precision="bf16", reward=REWARD, extra
     groups = limit // GROUP
     kernels = ("fwd", "bwd", "augmix") if viewgen == "fused" else ("fwd", "bwd")
     if len(seen) != groups or any(launches[k] == 0 for k in kernels) or \
-            (viewgen == "fused" and launches["augmix"] != groups):
+            (viewgen == "fused" and launches["augmix"] != groups) or (device_views and launches["augmix"]):
         raise AssertionError(f"{path} (--viewgen {viewgen} --precision {precision}) did not go through the "
                              f"kernels: groups={len(seen)} launches={launches}")
     secs = results["synthetic"]["group_seconds"]
     timed = secs[1:]  # the first group warms up
-    return {"path": path, "viewgen": viewgen, "precision": precision, "reward": "ensemble" if extra else reward,
+    return {"path": path, "viewgen": viewgen, "precision": precision,
+            "reward": "ensemble" if ENSEMBLE_ARGS[0] in extra else reward,
             "groups": len(secs), "group_seconds": secs,
             "img_per_s": GROUP * len(timed) / sum(timed) if timed else None, "wall_s": wall,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
@@ -1015,7 +1023,8 @@ def run_encoder(out_dir, limit, precision="bf16", arch=POLICY, res=RES, path=Non
     numbers (the kernels' launches by shape over the whole run, setup's
     class features included). A ViT policy must launch the attention
     backward its T takes; a ResNet policy has none (its attention pool is
-    dense), and its reward's forward goes through the kernel."""
+    dense), and its reward's forward goes through the kernel. Its views come
+    from the device generator (``data/augment.py``): no AugMix launch."""
     from rlcf_torch.cli import tune_cls
     from rlcf_torch.models.clip import get_config
     from rlcf_torch.ops import attention as A
@@ -1052,7 +1061,7 @@ def run_encoder(out_dir, limit, precision="bf16", arch=POLICY, res=RES, path=Non
     cfg = get_config(arch)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     bwd = "bwd_" + A.backward_variant(cfg.grid_size ** 2 + 1, dtype) if cfg.is_vit else None
-    if len(seen) != limit or launches["augmix"] != limit or not launches["fwd"] or (bwd and not variants.get(bwd)):
+    if len(seen) != limit or launches["augmix"] or not launches["fwd"] or (bwd and not variants.get(bwd)):
         raise AssertionError(f"encoder {arch} --precision {precision} did not go through the kernels: "
                              f"images={len(seen)} launches={launches} variants={variants}")
     secs = results["synthetic"]["group_seconds"]
@@ -1176,14 +1185,12 @@ def encoder_timing_and_reference(out_dir, arch=POLICY, res=RES, label="encoder",
 
 def encoder_views(res):
     """One synthetic image's VIEWS views at ``res``, built beforehand by the
-    AugMix kernel: NHWC u8 ``[1, VIEWS, res, res, 3]``."""
+    device generator as ``tune_cls`` builds them: float ``[1, VIEWS, res, res, 3]``."""
+    from rlcf_torch.data.augment import make_view_generator
     from rlcf_torch.data.datasets import SyntheticDataset
-    from rlcf_torch.ops.augmix import fused_views
 
-    img = SyntheticDataset(n=1, n_classes=200)[0][0]
-    planar = torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).cuda()
-    return fused_views(planar, torch.Generator(device="cuda").manual_seed(0), n_views=VIEWS, resolution=res,
-                       src_size=SRC_SIZE).permute(0, 1, 3, 4, 2)
+    img = torch.from_numpy(SyntheticDataset(n=1, n_classes=200)[0][0][None].copy()).cuda()
+    return make_view_generator(VIEWS, res)(img, torch.Generator(device="cuda").manual_seed(0))
 
 
 def time_encoder_episode(clf, views, what):
@@ -2983,7 +2990,7 @@ PAR_BEAM_TIE = 1e-5   # ROADMAP's beam-tie rule
 # differentiates OPT and the mapper, not a CLIP tower)
 PAR_NEEDS = {"tp cls bf16": ("fwd", "bwd", "augmix"), "tp cls fp32": ("fwd", "bwd", "augmix"),
              "tp retrieval fp32": ("fwd", "bwd"), "dp tp caption fp32": ("fwd",),
-             "dp encoder bf16": ("fwd", "bwd", "augmix"), "dp encoder fp32": ("fwd", "bwd", "augmix")}
+             "dp encoder bf16": ("fwd", "bwd"), "dp encoder fp32": ("fwd", "bwd")}
 # each rank: the runs of a JSON list in turn, the engine entry point of each recorded (rank 0 saves what it
 # returned), the launch counters set to 0 just before the CLI's main and read just after, one JSON a rank
 RANK_CODE = r"""
@@ -3099,6 +3106,34 @@ def recorded_calls(owner, attr):
         setattr(owner, attr, original)
 
 
+def one_process(cli, args, owner, attr, forced=None):
+    """``cli`` on ``args`` in this process: what ``owner.attr`` returned and
+    the entropies each selection saw. With ``forced`` (one selection a
+    group, in group order) each selection returns the group's instead."""
+    from rlcf_torch.core import losses as Lo
+
+    entropies = []
+    select = Lo.select_confident_entropy
+
+    def recording_select(ent, n):
+        entropies.append(ent.detach().cpu())
+        sel = select(ent, n)
+        if forced is None:
+            return sel
+        want = forced[len(entropies) - 1]
+        if tuple(want.shape) != tuple(sel.shape):
+            raise AssertionError(f"forced selection {tuple(want.shape)}, selected {tuple(sel.shape)}")
+        return want.to(sel.device, sel.dtype)
+
+    Lo.select_confident_entropy = recording_select
+    try:
+        with recorded_calls(owner, attr) as seen:
+            cli.main(args)
+    finally:
+        Lo.select_confident_entropy = select
+    return seen, entropies
+
+
 def swaps_at_boundary(entropies, n_keep, got, want, tol=PAR_FP32_TOL):
     """How many views one row's two selections swap (``got`` and ``want``,
     the kept views' indices), or None if a swapped view's entropy (of
@@ -3115,19 +3150,19 @@ def swaps_at_boundary(entropies, n_keep, got, want, tol=PAR_FP32_TOL):
     return None
 
 
-def compare_group_logits(label, got, want, n_keep, want_entropies):
-    """Sharded against one process, group by group: logits within the fp32
-    tolerance; selections equal, or differing only by views swapped across
-    a near-tie of the one-process entropies at the selection boundary
-    (reported with the count of swapped views, not re-seeded)."""
-    worst, ties, swaps = 0.0, [], 0
+def compare_group_logits(label, got, want, n_keep, want_entropies, rerun=None):
+    """Sharded against one process, group by group and row by row:
+    selections equal, or differing only by views swapped across a near-tie of
+    the one-process entropies at the selection boundary (reported with the
+    count of swapped views, not re-seeded); then every row's logits within
+    the fp32 tolerance. Where a selection swapped and ``rerun`` is given, the
+    logits are held against ``rerun(selections)``: the one-process run made
+    again with each group's selection forced to the sharded run's, so a
+    swapped row is held to an episode on the views it adapted on."""
+    ties, swaps = [], 0
     if len(got) != len(want):
         raise AssertionError(f"{label}: {len(got)} groups sharded, {len(want)} in one process")
-    for g, ((gl, gaux), (wl, waux), ent) in enumerate(zip(got, want, want_entropies)):
-        gl, wl = gl.float().cpu(), wl.float().cpu()
-        worst = max(worst, float((gl - wl).abs().max()))
-        if not bool(((gl - wl).abs() <= PAR_FP32_TOL + PAR_FP32_TOL * wl.abs()).all()):
-            raise AssertionError(f"{label} group {g}: logits differ by {float((gl - wl).abs().max()):.3e}")
+    for g, ((_, gaux), (_, waux), ent) in enumerate(zip(got, want, want_entropies)):
         gsel, wsel, ent = gaux["selected"].cpu(), waux["selected"].cpu(), ent.cpu()
         for row in range(gsel.shape[0]):
             n = swaps_at_boundary(ent[row], n_keep, gsel[row], wsel[row])
@@ -3137,9 +3172,23 @@ def compare_group_logits(label, got, want, n_keep, want_entropies):
             if n:
                 swaps += n
                 ties.append(g)
+    held = want
+    if ties and rerun is not None:
+        held = rerun([gaux["selected"].cpu() for _, gaux in got])
+        if len(held) != len(got) or not all(torch.equal(haux["selected"].cpu(), gaux["selected"].cpu())
+                                            for (_, haux), (_, gaux) in zip(held, got)):
+            raise AssertionError(f"{label}: the rerun on the sharded selections did not select them")
+    worst = 0.0
+    for g, ((gl, _), (hl, _)) in enumerate(zip(got, held)):
+        gl, hl = gl.float().cpu(), hl.float().cpu()
+        d = float((gl - hl).abs().max())
+        worst = max(worst, d)
+        if not bool(((gl - hl).abs() <= PAR_FP32_TOL + PAR_FP32_TOL * hl.abs()).all()):
+            raise AssertionError(f"{label} group {g}: logits differ by {d:.3e}")
     ties = sorted(set(ties))
     return {"max_abs_logit_diff": worst, "selections_equal": not ties, "near_tie_groups": ties,
-            "views_swapped": swaps}
+            "views_swapped": swaps, "logits_held_on": "the sharded selections" if held is not want
+            else "one process's selections"}
 
 
 def parallelism(out_dir, entries):
@@ -3154,7 +3203,6 @@ def parallelism(out_dir, entries):
     checked against the plain version here (appended to ``entries``).
     Returns (paths, the PARALLEL line's numbers)."""
     from rlcf_torch.cli import tta_caption, tta_cls, tta_retrieval, tune_cls
-    from rlcf_torch.core import losses as Lo
     from rlcf_torch.models import opt as O
     from rlcf_torch.tasks.caption import CaptionTTA
     from rlcf_torch.tasks.classification import EncoderTTAClassifier, PromptTTAClassifier
@@ -3216,31 +3264,19 @@ def parallelism(out_dir, entries):
             raise AssertionError("dp encoder bf16: logits not finite")
 
     # the fp32 runs against one process
-    def one_process(cli, args, owner, attr):
-        """``cli`` on ``args`` in this process: what ``owner.attr`` returned and
-        the entropies each selection saw."""
-        entropies = []
-        select = Lo.select_confident_entropy
-
-        def recording_select(ent, n):
-            entropies.append(ent.detach().cpu())
-            return select(ent, n)
-
-        Lo.select_confident_entropy = recording_select
-        try:
-            with recorded_calls(owner, attr) as seen:
-                cli.main(args)
-        finally:
-            Lo.select_confident_entropy = select
-        return seen, entropies
-
     n_keep = int(VIEWS * 0.1)
-    want, ent = one_process(tta_cls, flagship_argv(o("cls_fp32_one"), "fp32", limit=PAR_CLS_FP32_IMAGES),
-                            PromptTTAClassifier, "_run_group")
-    line["cls_fp32"] = compare_group_logits("tp cls fp32", runs["tp cls fp32"][1], want, n_keep, ent)
-    want, ent = one_process(tune_cls, encoder_argv(o("enc_fp32_one"), "fp32", limit=PAR_ENC_IMAGES,
-                                                   extra=("--episode_group", "2")), EncoderTTAClassifier, "_run_group")
-    line["encoder_fp32"] = compare_group_logits("dp encoder fp32", runs["dp encoder fp32"][1], want, n_keep, ent)
+    cls_args = lambda name: flagship_argv(o(name), "fp32", limit=PAR_CLS_FP32_IMAGES)
+    want, ent = one_process(tta_cls, cls_args("cls_fp32_one"), PromptTTAClassifier, "_run_group")
+    line["cls_fp32"] = compare_group_logits(
+        "tp cls fp32", runs["tp cls fp32"][1], want, n_keep, ent,
+        rerun=lambda sel: one_process(tta_cls, cls_args("cls_fp32_forced"), PromptTTAClassifier, "_run_group",
+                                      sel)[0])
+    enc_args = lambda name: encoder_argv(o(name), "fp32", limit=PAR_ENC_IMAGES, extra=("--episode_group", "2"))
+    want, ent = one_process(tune_cls, enc_args("enc_fp32_one"), EncoderTTAClassifier, "_run_group")
+    line["encoder_fp32"] = compare_group_logits(
+        "dp encoder fp32", runs["dp encoder fp32"][1], want, n_keep, ent,
+        rerun=lambda sel: one_process(tune_cls, enc_args("enc_fp32_forced"), EncoderTTAClassifier, "_run_group",
+                                      sel)[0])
     want, _ = one_process(tta_retrieval, retrieval_argv(o("ret_fp32_one"), "both", "fp32", tree=ret_tree),
                           RetrievalTTA, "adapt_queries")
     got = runs["tp retrieval fp32"][1]
@@ -3327,6 +3363,115 @@ def nccl_world_one(out_dir):
         raise AssertionError(f"the world-1 NCCL group failed: {rec}")
     log("NCCL world-1 group on the card: dp_gather and all_reduce_grads ran through the port's helpers")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 4k: the device view generator (A16)
+# ---------------------------------------------------------------------------
+
+
+def viewgen_sources(n, seed):
+    """``n`` canonical u8 sources ``[n, SRC_SIZE, SRC_SIZE, 3]`` (the
+    synthetic set's images, as the CLI paths take them), on the CPU."""
+    from rlcf_torch.data.datasets import SyntheticDataset
+
+    data = SyntheticDataset(n=n + seed, n_classes=200)
+    return torch.from_numpy(np.stack([data[seed + i][0] for i in range(n)]))
+
+
+def viewgen_check(label, n, R, augmix, hard_aug, seed):
+    """The VIEWS check: the generator on the card against the CPU from the
+    same draws (made on the CPU) on ``n`` images of VIEWS views at ``R`` px:
+    the largest difference in gray levels and the share of values beyond
+    VIEWGEN_VALUE_TOL in normalised units, held to the CPU tests' tolerance."""
+    from rlcf_torch.data import augment as TA
+    from rlcf_torch.data.transforms import CLIP_STD
+
+    imgs = viewgen_sources(n, seed)
+    draws = TA.draw_generator_randoms(torch.Generator().manual_seed(seed), n, VIEWS, hard_aug=hard_aug)
+    kw = dict(resolution=R, augmix=augmix, hard_aug=hard_aug)
+    t0 = time.perf_counter()
+    cpu = TA.views_from_draws(imgs, draws, **kw)
+    cpu_s = time.perf_counter() - t0
+    card = TA.views_from_draws(imgs.cuda(), {k: v.cuda() for k, v in draws.items()}, **kw).cpu()
+    diff = (card - cpu).abs()
+    gray = float((diff * torch.as_tensor(CLIP_STD) * 255.0).max())
+    share = float((diff > VIEWGEN_VALUE_TOL).double().mean())
+    out = {"label": label, "images": n, "views": VIEWS, "resolution": R, "augmix": augmix, "hard_aug": hard_aug,
+           "max_gray_diff": gray, "share_beyond_tol": share, "values": diff.numel(), "cpu_s": cpu_s}
+    log(f"VIEWS_CHECK {label}: card vs CPU on the same draws, max {gray:.4g} gray, {share:.3g} of {diff.numel()} "
+        f"values beyond {VIEWGEN_VALUE_TOL} (limits {VIEWGEN_MAX_SHARE}, {VIEWGEN_MAX_GRAY} gray); CPU {cpu_s:.1f} s")
+    if tuple(card.shape) != (n, VIEWS, R, R, 3) or not bool(torch.isfinite(card).all()) \
+            or share > VIEWGEN_MAX_SHARE or gray > VIEWGEN_MAX_GRAY:
+        raise AssertionError(f"the device view generator on the card disagrees with the CPU: {out}")
+    return out
+
+
+def viewgen_timing(n, R):
+    """The generator's ms per group of ``n`` images (CUDA events, each call
+    with its host syncs), its peak memory above what was allocated, its
+    kernels a group, against the AugMix kernel's ms on the same group
+    (``fused_views``: sampling and the kernel)."""
+    from rlcf_torch.data.augment import make_view_generator
+    from rlcf_torch.ops.augmix import fused_views
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs = viewgen_sources(n, 0).cuda()
+    gen = make_view_generator(VIEWS, R)
+    run = lambda: gen(imgs, torch.Generator(device="cuda").manual_seed(0))
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ms = time_ms(run, reps=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = len(device_events(prof))
+    planar = imgs.permute(0, 3, 1, 2).contiguous()
+    b2_ms = time_ms(lambda: fused_views(planar, torch.Generator(device="cuda").manual_seed(0), n_views=VIEWS,
+                                        resolution=R, src_size=SRC_SIZE), reps=10)
+    out = {"images": n, "views": VIEWS, "resolution": R, "ms_per_group": ms, "peak_mem_gib": peak,
+           "kernels_per_group": kernels, "augmix_kernel_ms_per_group": b2_ms}
+    log(f"VIEWGEN_TIME group {n}x{VIEWS} at {R} px: generator {ms:.2f} ms ({kernels} kernels, peak {peak:.3f} GiB) "
+        f"against the AugMix kernel's {b2_ms:.3f} ms")
+    return out
+
+
+def viewgen_a16(out_dir):
+    """Phase 4k: the device view generator (A16). The flagship through the
+    CLI with --viewgen device (2 groups), with --hard_aug 1 (1 group), and
+    with --viewgen auto --hard_aug 1 (which must pick device), counters set
+    to 0 just before each and read just after: each launches both attention
+    kernels and no AugMix kernel (``run_flagship``). Then the VIEWS check at
+    a flagship group (augmix on, off, hard_aug) and at one image at 336 px,
+    and the generator timed against the AugMix kernel. Returns (paths, the
+    VIEWGEN line's numbers)."""
+    paths = [run_flagship(out_dir, "device", VIEWGEN_DEVICE_IMAGES, path="device"),
+             run_flagship(out_dir, "device", VIEWGEN_HARD_IMAGES, extra=("--hard_aug", "1"), path="device hard_aug")]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        paths.append(run_flagship(out_dir, "auto", VIEWGEN_HARD_IMAGES, extra=("--hard_aug", "1"),
+                                  path="auto hard_aug"))
+    sys.stdout.write(printed.getvalue())
+    if "viewgen: auto -> device" not in printed.getvalue():
+        raise AssertionError("--viewgen auto --hard_aug 1 did not pick the device generator")
+    for flag in paths:
+        log("VIEWGEN_PATH " + json.dumps(flag))
+    phase_done("4k views paths")
+    checks = [viewgen_check("flagship augmix on", GROUP, RES, True, False, 1),
+              viewgen_check("flagship augmix off", GROUP, RES, False, False, 2),
+              viewgen_check("flagship hard_aug", GROUP, RES, True, True, 3),
+              viewgen_check("336 px", 1, RES336, True, False, 4)]
+    timing = [viewgen_timing(GROUP, RES), viewgen_timing(1, RES336)]
+    line = {"img_per_s": {f["path"]: f["img_per_s"] for f in paths},
+            "group_seconds": {f["path"]: f["group_seconds"] for f in paths},
+            "peak_mem_gib": {f["path"]: f["peak_mem_gib"] for f in paths},
+            "launches": {f["path"]: f["launches"] for f in paths}, "checks": checks, "timing": timing}
+    return paths, line
 
 
 def main():
@@ -3601,6 +3746,10 @@ def main():
     paths += par_paths
     log("PARALLEL " + json.dumps(par))
     phase_done("4j parallelism")
+    views_paths, views = viewgen_a16(out_dir)
+    paths += views_paths
+    log("VIEWGEN " + json.dumps(views))
+    phase_done("4k views (A16)")
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts

@@ -1,31 +1,33 @@
 """RLCF / TPT / KD prompt test-time adaptation for classification, on the card.
 
 The port of ``rlcf_tpu/cli/tta_cls.py``: per group of ``--episode_group``
-test images, ``--batch_size`` views each are built either on the device by
-the CUDA AugMix kernel (``--viewgen fused``, the default on the card in token
-mode) or on the host by the C++ pipeline (``--viewgen native``), and the
-classifier runs one batched episode group on the device. Token mode (a ViT
-policy whose patch size tiles ``--resolution`` and a single reward) ships
-patch-major u8 tokens; otherwise (``--cocoop``, a ResNet policy, or the
-reward ensemble of ``--multiple_reward_models``) the host builds NHWC u8
-views for the classifier's ``adapt``, as the JAX package does. ``bongard``
-in ``--test_sets`` runs Bongard-HOI's few-shot tasks (``tasks/bongard.py``);
-the ten fine-grained sets (``flower102``, ..., ``cars``, ``aircraft``) read
-their Zhou-split and FGVC-Aircraft trees under DIR. Each group's counts go
-to ``progress_<set>.jsonl`` in ``--output``, from which ``--resume`` goes on;
-``--decode native`` decodes the images with the repo's C++ decoder.
-``--tp N`` shards the classes over N ranks and the episodes of a group over
-the rest (dp = ranks // N), one process a rank: ``torchrun --standalone
---nproc_per_node 4 -m rlcf_torch.cli.tta_cls --tp 2 ...``; rank 0 prints and
-writes the run's files.
+test images, ``--batch_size`` views each are built on the device by the CUDA
+AugMix kernel (``--viewgen fused``, the default on the card in token mode),
+on the device by the PyTorch view generator (``--viewgen device``:
+``data/augment.py``, float views, the default otherwise and under
+``--hard_aug``) or on the host by the C++ pipeline (``--viewgen native``), and
+the classifier runs one batched episode group on the device. Token mode (a
+ViT policy whose patch size tiles ``--resolution`` and a single reward) ships
+patch-major u8 tokens from the kernel or the host; ``device`` views and the
+native NHWC views go through the classifier's ``adapt``, as in the JAX
+package. ``bongard`` in ``--test_sets`` runs Bongard-HOI's few-shot tasks
+(``tasks/bongard.py``); the ten fine-grained sets (``flower102``, ...,
+``cars``, ``aircraft``) read their Zhou-split and FGVC-Aircraft trees under
+DIR. Each group's counts go to ``progress_<set>.jsonl`` in ``--output``, from
+which ``--resume`` goes on; ``--decode native`` decodes the images with the
+repo's C++ decoder. ``--tp N`` shards the classes over N ranks and the
+episodes of a group over the rest (dp = ranks // N), one process a rank:
+``torchrun --standalone --nproc_per_node 4 -m rlcf_torch.cli.tta_cls --tp 2
+...``; rank 0 prints and writes the run's files.
 
 Example (random weights, no data):
   python -m rlcf_torch.cli.tta_cls --test_sets synthetic --limit 8 \\
       --arch ViT-B/16 --reward_arch ViT-L/14 --tta_steps 3 --lr 7e-3 \\
       --sample_k 3 --ctx_init a_photo_of_a --loss rlcf --viewgen fused
-Add ``--device cpu`` to run on the CPU; ``--multiple_reward_models 1`` for
-the 3-CLIP reward (``--viewgen native``); ``--cocoop --loss tpt`` for CoCoOp;
-``DIR --test_sets bongard --learned_cls 1`` for Bongard-HOI.
+Add ``--device cpu`` to run on the CPU; ``--viewgen device --hard_aug 1`` for
+the BYOL views; ``--multiple_reward_models 1`` for the 3-CLIP reward;
+``--cocoop --loss tpt`` for CoCoOp; ``DIR --test_sets bongard --learned_cls 1``
+for Bongard-HOI.
 """
 
 from __future__ import annotations
@@ -67,30 +69,25 @@ def get_args(argv=None):
                    help="class-axis tensor parallelism over the ranks of a torchrun launch (dp = ranks // tp)")
     p.add_argument(
         "--viewgen", default="auto", choices=["auto", "fused", "device", "native"],
-        help="view generator: 'fused' = the CUDA AugMix kernel builds every view on the device "
-        "(its plain version on the CPU; token mode only); 'native' = the repo's C++ host pipeline, emitting "
-        "patch-major u8 tokens in token mode and NHWC u8 views otherwise; 'auto' = fused on cuda in token mode "
-        "(a ViT policy whose patch size tiles --resolution, a single reward), else native. 'device' is not "
-        "ported yet",
+        help="view generator: 'fused' = the CUDA AugMix kernel builds every view on the device (its plain version "
+        "on the CPU; token mode only); 'device' = the PyTorch view generator on the device (data/augment.py; any "
+        "policy, --hard_aug); 'native' = the repo's C++ host pipeline, emitting patch-major u8 tokens in token mode "
+        "and NHWC u8 views otherwise; 'auto' = fused on cuda in token mode (a ViT policy whose patch size tiles "
+        "--resolution, a single reward) without --hard_aug, else device",
     )
     return p.parse_args(argv)
 
 
-# what the port runs outside token mode, and what it does not run yet
-NON_TOKEN_RUNS = ("outside token mode (CoCoOp, a ResNet policy, a patch size that does not tile --resolution, or the "
-                  "reward ensemble of --multiple_reward_models) the port runs --viewgen native, NHWC views through "
-                  "the classifier's adapt, as the JAX package does; --viewgen device comes with the torch AugMix "
-                  "pipeline (ROADMAP A16)")
-
-
 def refuse_unported(args):
-    """Exit with a message for options this slice of the port does not run."""
-    common.refuse({
-        "--viewgen device": (args.viewgen == "device", "the torch AugMix pipeline (ROADMAP A16); the port "
-                             "runs --viewgen fused and --viewgen native"),
-        "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
-        "--download": (bool(args.download), common.DOWNLOAD_WAIT),
-    })
+    """Exit with a message for options the port does not run."""
+    common.refuse({"--download": (bool(args.download), common.DOWNLOAD_WAIT)})
+
+
+def auto_viewgen(on_cuda: bool, token_ok: bool, hard_aug: bool) -> str:
+    """``--viewgen auto``, the JAX CLI's rule with "the fused kernel is
+    available" meaning "on cuda": fused in token mode without --hard_aug,
+    else device."""
+    return "fused" if on_cuda and token_ok and not hard_aug else "device"
 
 
 def build(args, mesh=None):
@@ -130,11 +127,10 @@ def main(argv=None):
     args = get_args(argv)
     if args.tpt and args.loss == "rlcf":
         args.loss = "tpt"
-    if args.viewgen == "fused" and args.hard_aug:
-        raise SystemExit("--viewgen fused does not implement --hard_aug (BYOL); the port runs --viewgen fused "
-                         "or --viewgen native without it, and --hard_aug comes with ROADMAP A16")
-    if args.viewgen == "fused" and (args.multiple_reward_models or args.cocoop):   # before the towers are built
-        raise SystemExit(f"--viewgen fused needs a ViT policy in token mode; {NON_TOKEN_RUNS}")
+    if args.viewgen in ("fused", "native") and args.hard_aug:   # before the towers are built
+        raise SystemExit(f"--viewgen {args.viewgen} does not implement --hard_aug (BYOL); use --viewgen device")
+    if args.viewgen == "fused" and (args.multiple_reward_models or args.cocoop):
+        raise SystemExit("--viewgen fused needs a ViT policy in token mode; use --viewgen device")
     refuse_unported(args)
     if common.finish_dry_run(args):
         return None
@@ -146,6 +142,7 @@ def main(argv=None):
     import torch
 
     from ..data import native
+    from ..data.augment import make_view_generator
     from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
     from ..metrics.classification import AccuracyMeter, topk_correct
     from ..parallel.mesh import is_main_rank
@@ -158,12 +155,14 @@ def main(argv=None):
     token_ok = (not args.cocoop and cfg.is_vit and args.resolution % cfg.vision_patch_size == 0
                 and not args.multiple_reward_models)
     if args.viewgen == "auto":
-        args.viewgen = "fused" if device.type == "cuda" and token_ok else "native"
+        args.viewgen = auto_viewgen(device.type == "cuda", token_ok, bool(args.hard_aug))
         print(f"viewgen: auto -> {args.viewgen}")
     if args.viewgen == "fused" and not token_ok:
-        raise SystemExit(f"--viewgen fused needs a ViT policy in token mode; {NON_TOKEN_RUNS}")
+        raise SystemExit("--viewgen fused needs a ViT policy in token mode; use --viewgen device")
     if args.viewgen == "native" and not native.available():
         raise SystemExit("--viewgen native: no C++ toolchain available to build the host pipeline")
+    gen = (make_view_generator(n_views=args.batch_size, resolution=args.resolution, augmix=bool(args.augmix),
+                               hard_aug=bool(args.hard_aug)) if args.viewgen == "device" else None)
     main_rank = is_main_rank()   # rank 0 alone writes the run's files
     logger = RunLogger(args.output, enabled=main_rank)
     if main_rank:
@@ -210,6 +209,9 @@ def main(argv=None):
             counter[0] += 1
             if sources is not None:
                 logits, _, _ = sources(torch.from_numpy(imgs.transpose(0, 3, 1, 2)), seed)
+            elif gen is not None:   # float views on the classifier's device, from a generator seeded there
+                views = gen(torch.from_numpy(imgs).to(device), torch.Generator(device=device).manual_seed(seed))
+                logits, _ = clf.adapt(views)
             elif token_ok:
                 views = native.generate_views_native_patch_u8(
                     imgs, n_views=args.batch_size, p_policy=cfg.vision_patch_size,

@@ -7,14 +7,12 @@ starting point. A ViT or ResNet policy (``--prior_strength p >= 0``: a
 ResNet's BN-prior statistics) and a single reward (ViT or ResNet; the views
 resized where it takes another resolution).
 
-Views: the JAX entry point draws them with its XLA view generator
-(``rlcf_tpu/data/augment.py::make_view_generator``), whose port is ROADMAP
-A16. Until then every view is built by the port's AugMix kernel
-(``ops/augmix.py::fused_views``, planar u8, then NHWC u8): the same recipe
-(base resize, RandomResizedCrop + flip, AugMix chains) that the JAX package's
-fused kernel serves to ``tta_cls --viewgen fused``, drawn from the port's
-own sampler, so the views are not the JAX generator's. On the CPU the
-kernel's plain version builds them.
+Views: the PyTorch view generator (``data/augment.py::make_view_generator``,
+the port of the JAX entry point's), float views on the classifier's device,
+each group's drawn from a generator seeded ``--seed * 7 + group``, as the JAX
+entry point seeds them; ``--hard_aug 1`` adds the BYOL recipe. Under
+``--dp`` every rank builds the whole group's views from that seed and runs
+its slice of the episodes.
 
 Example (random weights, no data; the reference's ``scripts/rlcf-tune.sh``):
   python -m rlcf_torch.cli.tune_cls --test_sets synthetic --limit 8 \\
@@ -36,13 +34,10 @@ import numpy as np
 
 from . import common
 
-VIEWS_NOTE = ("views are built by the port's AugMix kernel (ops/augmix.py::fused_views, the recipe of the JAX "
-              "package's tta_cls --viewgen fused), not by the JAX entry point's XLA view generator, whose port is "
-              "ROADMAP A16")
-
-
 def get_args(argv=None):
-    p = argparse.ArgumentParser(description="RLCF encoder TTA (PyTorch, CUDA); " + VIEWS_NOTE)
+    p = argparse.ArgumentParser(
+        description="RLCF encoder TTA (PyTorch, CUDA); views from the device generator "
+        "(data/augment.py::make_view_generator), each group's seeded --seed * 7 + group as in the JAX entry point")
     common.add_run_args(p)
     common.add_model_args(p)
     common.add_reward_args(p)
@@ -60,17 +55,14 @@ def get_args(argv=None):
 
 
 def refuse_unported(args):
-    """Exit with a message for options this slice of the port does not run,
-    and for the reward ensemble, which encoder TTA does not take in the JAX
-    package either."""
+    """Exit with a message for options the port does not run, and for the
+    reward ensemble, which encoder TTA does not take in the JAX package
+    either."""
     if args.multiple_reward_models:
         raise SystemExit("rlcf_torch: --multiple_reward_models: encoder TTA takes a single reward, as the JAX "
                          "package's EncoderTTAClassifier does; the reward ensemble serves prompt TTA "
                          "(rlcf_torch.cli.tta_cls)")
-    common.refuse({
-        "--hard_aug": (bool(args.hard_aug), "the BYOL hard augmentation (ROADMAP A16)"),
-        "--download": (bool(args.download), common.DOWNLOAD_WAIT),
-    })
+    common.refuse({"--download": (bool(args.download), common.DOWNLOAD_WAIT)})
 
 
 def build(args, mesh=None):
@@ -109,6 +101,7 @@ def main(argv=None):
 
     import torch
 
+    from ..data.augment import make_view_generator
     from ..data.datasets import PrefetchIterator, build_dataset, iter_canonical
     from ..metrics.classification import AccuracyMeter, topk_correct
     from ..parallel.mesh import is_main_rank
@@ -116,9 +109,8 @@ def main(argv=None):
     from ..utils.logging_utils import RunLogger
 
     clf, cfg, device = build(args, mesh)
-    # every view built on the device, one kernel launch (on a mesh each dp rank builds its slice's views)
-    sources = clf.adapt_sources_fn(n_views=args.batch_size, resolution=args.resolution, src_size=256,
-                                   augmix=bool(args.augmix))
+    gen = make_view_generator(n_views=args.batch_size, resolution=args.resolution, augmix=bool(args.augmix),
+                              hard_aug=bool(args.hard_aug))
     logger = RunLogger(args.output, enabled=is_main_rank())   # rank 0 alone writes the run's files
     if logger.enabled:
         save_hparams(args.output, vars(args))
@@ -138,9 +130,11 @@ def main(argv=None):
             if not group_imgs:
                 return
             t0 = time.perf_counter()
-            seed = args.seed * 100003 + counter[0]   # tta_cls's per-group seeds
+            seed = args.seed * 7 + counter[0]   # the JAX entry point's per-group seeds
             counter[0] += 1
-            logits, _, _ = sources(torch.from_numpy(np.stack(group_imgs).transpose(0, 3, 1, 2)), seed)
+            images = torch.from_numpy(np.stack(group_imgs)).to(device)
+            views = gen(images, torch.Generator(device=device).manual_seed(seed))
+            logits, _ = clf.adapt(views)   # on a mesh, this rank's slice of the group's episodes
             logits = logits.float().cpu().numpy()  # synchronizes with the device
             group_seconds.append(time.perf_counter() - t0)
             meter.update_counts(topk_correct(logits, np.asarray(group_labels)), len(group_labels))

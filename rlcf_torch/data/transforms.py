@@ -1,6 +1,7 @@
-"""Host image helpers and the CLIP normalization constants (the host part
-of ``rlcf_tpu/data/transforms.py``): PIL decoding, and the native decoder of
-``data/native.py`` behind ``decode="native"``.
+"""Image helpers and the CLIP normalization constants (the port of
+``rlcf_tpu/data/transforms.py``): PIL decoding, the native decoder of
+``data/native.py`` behind ``decode="native"``, and ``preprocess_device``, the
+eval transform on the tensor's device.
 
 With ``decode="native"`` a JPEG or PNG path is decoded, resized and cropped
 in one C++ call; the files that call does not take (other containers, CMYK
@@ -140,3 +141,30 @@ def preprocess_many(items, resolution: int = 224, decode: str = "pil", workers: 
 
     with ThreadPoolExecutor(max_workers=min(workers, len(items))) as ex:
         return list(ex.map(lambda i: preprocess(i, resolution, decode), items))
+
+
+def preprocess_device(img, resolution: int = 224):
+    """The eval transform on the tensor's device for a uint8 or float HWC
+    image: bicubic short-side resize (``jax.image.resize``'s antialiased
+    Keys a = -0.5 weights, ``ops/augmix.py::bicubic_matrix``, per axis),
+    center crop, CLIP normalization -> float32 ``[resolution, resolution, 3]``.
+    A uint8 image is scaled to [0, 1]; a float image is taken as it is."""
+    import torch
+
+    from ..ops.augmix import bicubic_matrix
+
+    img = torch.as_tensor(img)
+    img = img.float() / 255.0 if img.dtype == torch.uint8 else img.float()
+    h, w = img.shape[0], img.shape[1]
+    if h < w:
+        new_h, new_w = resolution, int(round(w * resolution / h))
+    else:
+        new_h, new_w = int(round(h * resolution / w)), resolution
+    wy = bicubic_matrix(h, new_h, device=img.device).double()
+    wx = bicubic_matrix(w, new_w, device=img.device).double()
+    img = torch.einsum("oh,hwc,pw->opc", wy, img.double(), wx).float()
+    top, left = (new_h - resolution) // 2, (new_w - resolution) // 2
+    img = img[top:top + resolution, left:left + resolution]
+    mean = torch.as_tensor(CLIP_MEAN, device=img.device)
+    std = torch.as_tensor(CLIP_STD, device=img.device)
+    return (img - mean) / std

@@ -33,6 +33,7 @@ import torch
 
 from ..data.augment import MAX_CHAIN_DEPTH, N_AUGMIX_OPS, N_CHAINS, draw_rrc, rrc_boxes
 from . import cuda_build
+from .image_ops import fma as _fma
 
 # kernel launches by the wrapper, and per (name, N, V, S, R)
 LAUNCHES = {"augmix": 0}
@@ -230,13 +231,6 @@ def resize_weights(start, length, flip, R: int, S: int):
 # ---------------------------------------------------------------------------
 # Plain PyTorch version (the CPU path; the kernel is held to it on the card)
 # ---------------------------------------------------------------------------
-
-
-def _fma(a, b, c):
-    """float32 fused multiply-add, a·b + c rounded once: the product of two
-    float32 values is exact in float64, so one float64 sum and one cast
-    give it for the products of this module (a weight times a gray)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _warp(x, shift, axis: int, max_shift: int):

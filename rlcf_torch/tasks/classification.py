@@ -636,23 +636,6 @@ class EncoderTTAClassifier:
             aux["adapted"] = adapted
         return logits[:, 0], aux
 
-    def adapt_sources_fn(self, *, n_views: int, src_size: int = 256, resolution: int = 224, augmix: bool = True):
-        """``adapt(images_planar_u8 [N, 3, S, S], seed) -> (logits [N, C],
-        losses [N, steps], next_seed)``: ``adapt`` on the group's AugMix
-        views, NHWC u8, built on the classifier's device by one kernel launch
-        (``group_views``: on a mesh whose dp tiles the group each rank builds
-        its slice's views and runs their episodes)."""
-        fkw = dict(n_views=n_views, resolution=resolution, src_size=src_size, augmix=augmix)
-
-        def adapt(images_planar, seed):
-            images = torch.as_tensor(images_planar).to(self.device)
-            views, local = group_views(self.mesh, images, seed, **fkw)
-            views = views.permute(0, 1, 3, 4, 2)   # [N, V, 3, R, R] -> NHWC u8
-            logits, aux = self._run_group(images.shape[0], views) if local else self.adapt(views)
-            return logits, aux["losses"], int(seed) + 1
-
-        return adapt
-
 
 # ---------------------------------------------------------------------------
 # CoCoOp: image-conditioned prompt TTA (`TPT/clip/cocoop.py`, `tpt_cls.py`)

@@ -64,14 +64,19 @@ def test_op_shift_bounds_match_jax(severity, R):
     assert T.op_shift_bounds(severity, R) == J._op_shift_bounds(severity, R)
 
 
-def _jax_draws(rng, n_views, crop_min):
-    """The draws of ``sample_view_params`` under its own split tree."""
+def _jax_draws(rng, n_views, crop_min, hard_aug=False):
+    """The draws of ``sample_view_params`` under its own split tree (that of
+    ``rlcf_tpu/data/augment.py::generate_views``); with ``hard_aug`` also
+    ``_hard_aug_batched``'s from ``k_hard`` (its ninth key is never used)
+    and crop_min raised to 0.2, as ``generate_views`` does."""
     V = n_views - 1
-    k_crop, k_flip, k_chain, k_m, k_w, _ = jax.random.split(rng, 6)
+    if hard_aug:
+        crop_min = max(crop_min, 0.2)
+    k_crop, k_flip, k_chain, k_m, k_w, k_hard = jax.random.split(rng, 6)
     k_area, k_ratio, k_top, k_left = jax.random.split(k_crop, 4)
     ratio = (3.0 / 4.0, 4.0 / 3.0)
     k_depth, k_ops, k_lv, k_sg = jax.random.split(k_chain, 4)
-    return {
+    draws = {
         "ta": jax.random.uniform(k_area, (V, 10), minval=crop_min, maxval=1.0),
         "lr": jax.random.uniform(k_ratio, (V, 10), minval=np.log(ratio[0]), maxval=np.log(ratio[1])),
         "u_top": jax.random.uniform(k_top, (V,)),
@@ -84,6 +89,12 @@ def _jax_draws(rng, n_views, crop_min):
         "e_w": jax.random.exponential(k_w, (V, 3)),
         "m": jax.random.uniform(k_m, (V,)),
     }
+    if hard_aug:
+        ks = jax.random.split(k_hard, 9)
+        u = lambda k, lo=0.0, hi=1.0: jax.random.uniform(k, (V,), minval=lo, maxval=hi)
+        draws.update(u_jitter=u(ks[0]), b=u(ks[1], 0.6, 1.4), c=u(ks[2], 0.6, 1.4), s=u(ks[3], 0.8, 1.2),
+                     h=u(ks[4], -0.1, 0.1), u_gray=u(ks[5]), u_blur=u(ks[6]), sigma=u(ks[7], 0.1, 2.0))
+    return draws
 
 
 @pytest.mark.parametrize("augmix,severity,crop_min,src,res", [(True, 1.0, 0.08, 256, 224), (True, 2.0, 0.08, 48, 32),

@@ -253,3 +253,20 @@ def test_smoke_runs_the_serving_phase_and_the_a15_refusals_are_gone():
     assert 'f"serve {precision}"' in main and "--serving-only" in main
     assert not hasattr(common, "DECODE_WAIT") and "DECODE_WAIT" not in src
     tta_cls.refuse_unported(tta_cls.get_args(["--resume", "--decode", "native"]))   # raises nothing
+
+
+def test_smoke_runs_the_views_phase_and_no_refusal_names_a16():
+    """``main`` runs phase 4k (the device generator's paths, the VIEWS check,
+    its timing) and adds its paths to phase 5's; the encoder paths expect no
+    AugMix launch; no CLI refusal names A16 any more."""
+    import importlib
+
+    src = _PATH.read_text()
+    main = src[src.index("\ndef main():"):]
+    assert "viewgen_a16(out_dir)" in main and 'log("VIEWGEN "' in main and "paths += views_paths" in main
+    run_encoder = src[src.index("\ndef run_encoder("):src.index("\ndef encoder_gradient_check(")]
+    assert 'launches["augmix"] or' in run_encoder
+    for cli in ("tta_cls", "tune_cls"):
+        assert "A16" not in (pathlib.Path(_PATH).parent / "rlcf_torch" / "cli" / f"{cli}.py").read_text()
+        importlib.import_module(f"rlcf_torch.cli.{cli}").refuse_unported(
+            importlib.import_module(f"rlcf_torch.cli.{cli}").get_args(["--hard_aug", "1"]))   # raises nothing

@@ -1134,3 +1134,24 @@ def test_exported_program_serves_on_the_card(dev, tmp_path):
     served = load_exported(path, device="cuda")(*clf.weights(), toks)
     assert A.LAUNCHES["fwd"] and A.LAUNCHES["bwd"]
     torch.testing.assert_close(served, clf.adapt_tokens(toks)[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("augmix,hard_aug,R", [(True, False, 224), (False, False, 224), (True, True, 224),
+                                                (True, False, 336)])
+def test_device_generator_matches_the_cpu(dev, augmix, hard_aug, R):
+    """The device view generator (``data/augment.py``) on the card against
+    the CPU from the same draws: 2 images of 16 views, within the CPU tests'
+    tolerance against JAX (at most 0.1% of values beyond 1e-4 in normalised
+    units, none beyond 3 gray levels), and no AugMix kernel launched."""
+    from rlcf_torch.data import augment as TA
+    from rlcf_torch.data.transforms import CLIP_STD
+
+    imgs = torch.randint(0, 256, (2, 256, 256, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(R))
+    draws = TA.draw_generator_randoms(torch.Generator().manual_seed(7), 2, 16, hard_aug=hard_aug)
+    kw = dict(resolution=R, augmix=augmix, hard_aug=hard_aug)
+    X.reset_launch_counts()
+    card = TA.views_from_draws(imgs.to(dev), {k: v.to(dev) for k, v in draws.items()}, **kw).cpu()
+    assert X.LAUNCHES["augmix"] == 0
+    diff = (card - TA.views_from_draws(imgs, draws, **kw)).abs()
+    assert (diff > 1e-4).double().mean() <= 1e-3
+    assert float((diff * torch.as_tensor(CLIP_STD) * 255.0).max()) <= 3.0

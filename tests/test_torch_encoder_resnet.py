@@ -227,7 +227,7 @@ def test_tune_cls_resnet_cpu_drive_matches_jax(tmp_path, prior):
                     prompt_prefix="a photo of a", bn_prior=float(prior) if prior else None
                     ).setup(["class_%d" % i for i in range(10)])
     for views, logits, aux in seen:
-        assert views.dtype == torch.uint8 and tuple(views.shape) == (2, 8, RES, RES, 3)
+        assert views.dtype == torch.float32 and tuple(views.shape) == (2, 8, RES, RES, 3)   # the device generator
         jl, jaux = jclf.adapt(views.numpy())
         np.testing.assert_array_equal(aux["selected"].numpy(), np.asarray(jaux["selected"]))
         _close(aux["losses"], jaux["losses"])

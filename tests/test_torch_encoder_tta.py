@@ -293,7 +293,7 @@ def test_tune_cls_cpu_drive_matches_jax(tmp_path):
     jclf = JEncoder(jp, jcfg, JClipReward(jrp, jrcfg, JRewardConfig(sample_k=2)), JEp.EpisodeConfig(**ek),
                     prompt_prefix="a photo of a").setup(["class_%d" % i for i in range(10)])
     for views, logits, aux in seen:
-        assert views.dtype == torch.uint8 and tuple(views.shape) == (2, 8, 64, 64, 3)
+        assert views.dtype == torch.float32 and tuple(views.shape) == (2, 8, 64, 64, 3)
         jl, jaux = jclf.adapt(views.numpy())
         np.testing.assert_array_equal(aux["selected"].numpy(), np.asarray(jaux["selected"]))
         _close(aux["losses"], jaux["losses"])
@@ -303,12 +303,37 @@ def test_tune_cls_cpu_drive_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (("--dp", "2"), "A14"), (("--hard_aug", "1"), "A16"), (("--download", "1"), "A15")])
 def test_tune_cls_refusals_name_their_roadmap_item(tmp_path, extra, item):
-    """--dp (ROADMAP A14) is ported: in a single process the mesh's error names the launcher."""
+    """--dp (ROADMAP A14) is ported: in a single process the mesh's error names
+    the launcher. --hard_aug (A16) runs, its groups' views drawn with the
+    BYOL recipe from the JAX entry point's seeds. --download stays refused."""
     from rlcf_torch.cli import tune_cls
+    from rlcf_torch.data.augment import make_view_generator
 
     if item == "A14":
         with pytest.raises(ValueError, match="torchrun"):
             tune_cls.main(_cli_argv(tmp_path, *extra))
+        return
+    if item == "A16":
+        seen = []
+        adapt = EncoderTTAClassifier.adapt
+
+        def recording(self, views, **kw):
+            seen.append(views.clone())
+            return adapt(self, views, **kw)
+
+        EncoderTTAClassifier.adapt = recording
+        try:
+            r = tune_cls.main(_cli_argv(tmp_path, *extra))
+        finally:
+            EncoderTTAClassifier.adapt = adapt
+        assert r["synthetic"]["n"] == 4 and len(seen) == 2
+        from rlcf_torch.data.datasets import build_dataset, iter_canonical
+
+        imgs = [img for img, _ in iter_canonical(build_dataset("synthetic", ".", n_classes=10), 256, seed=0, limit=4)]
+        gen = make_view_generator(8, 64, hard_aug=True)
+        for g, views in enumerate(seen):   # the group's views: the generator seeded seed * 7 + group
+            want = gen(torch.from_numpy(np.stack(imgs[2 * g:2 * g + 2])), torch.Generator().manual_seed(0 * 7 + g))
+            assert torch.equal(views, want)
         return
     with pytest.raises(SystemExit, match=f"not ported yet.*ROADMAP {item}"):
         tune_cls.main(_cli_argv(tmp_path, *extra))
@@ -320,4 +345,4 @@ def test_tune_cls_help_names_the_view_generator(capsys):
     with pytest.raises(SystemExit):
         tune_cls.get_args(["--help"])
     out = " ".join(capsys.readouterr().out.split())
-    assert "fused_views" in out and "A16" in out
+    assert "make_view_generator" in out and "--seed * 7 + group" in out and "A16" not in out

@@ -272,8 +272,8 @@ def _tta_argv(tmp_path, *extra):
 
 def test_tta_cls_cli_runs_the_ensemble(tmp_path, monkeypatch):
     """``--multiple_reward_models 1`` with tiny members (a ViT at the views'
-    64 px, test-tiny-rn, a ViT at 32 px): NHWC host views (``auto`` ->
-    ``native``) through ``adapt``, member i from seed --seed + i + 1."""
+    64 px, test-tiny-rn, a ViT at 32 px): NHWC host views (``--viewgen
+    native``) through ``adapt``, member i from seed --seed + i + 1."""
     from rlcf_torch.cli import common, tta_cls
     from rlcf_torch.data import native
 
@@ -289,7 +289,7 @@ def test_tta_cls_cli_runs_the_ensemble(tmp_path, monkeypatch):
         return out
 
     monkeypatch.setattr(TT.PromptTTAClassifier, "adapt", recording)
-    r = tta_cls.main(_tta_argv(tmp_path, "--multiple_reward_models", "1"))
+    r = tta_cls.main(_tta_argv(tmp_path, "--multiple_reward_models", "1", "--viewgen", "native"))
     assert r["synthetic"]["n"] == 3 and len(r["synthetic"]["group_seconds"]) == 2
     assert seen[0] == ((2, 8, 64, 64, 3), ["test-small", "test-tiny-rn", "test-tiny-vit"], [0.33, 0.33, 0.33])
 
@@ -320,12 +320,13 @@ def test_ensemble_members_load_from_reward_checkpoints(tmp_path, monkeypatch):
 
 
 def test_tta_cls_refuses_fused_views_with_an_ensemble(tmp_path):
-    """As the JAX CLI: token mode (``--viewgen fused``) excludes ensembles."""
+    """As the JAX CLI: token mode (``--viewgen fused``) excludes ensembles,
+    with the JAX CLI's message, which names the device generator."""
     from rlcf_torch.cli import tta_cls
 
     with pytest.raises(SystemExit, match="--viewgen fused needs a ViT policy in token mode") as exc:
         tta_cls.main(_tta_argv(tmp_path, "--viewgen", "fused", "--multiple_reward_models", "1"))
-    assert "--viewgen native" in str(exc.value)
+    assert str(exc.value).endswith("; use --viewgen device")
 
 
 def test_tta_cls_cli_resizes_for_a_single_reward(tmp_path):

@@ -10,8 +10,8 @@ import pathlib
 import pytest
 import torch
 
-from rlcf_torch.cli import tta_cls
-from rlcf_torch.tasks.classification import PromptTTAClassifier
+from rlcf_torch.cli import tta_cls, tune_cls
+from rlcf_torch.tasks.classification import EncoderTTAClassifier, PromptTTAClassifier
 
 _PATH = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
 _SPEC = importlib.util.spec_from_file_location("chip_smoke", _PATH)
@@ -21,6 +21,9 @@ _SPEC.loader.exec_module(chip_smoke)
 CLS = ["--device", "cpu", "--test_sets", "synthetic", "--limit", "2", "--arch", "test-small", "--reward_arch",
        "test-small", "--precision", "fp32", "--resolution", "64", "--batch_size", "8", "--tta_steps", "2",
        "--sample_k", "2", "--episode_group", "2", "--viewgen", "fused"]
+ENCODER = ["--device", "cpu", "--test_sets", "synthetic", "--limit", "2", "--arch", "test-small", "--reward_arch",
+           "test-small", "--precision", "fp32", "--resolution", "64", "--batch_size", "8", "--tta_steps", "2",
+           "--sample_k", "2", "--episode_group", "2", "--lr", "1e-3"]
 RETRIEVAL = ["--device", "cpu", "--synthetic", "--arch", "test-small", "--reward_arch", "test-small", "--precision",
              "fp32", "--resolution", "64", "--tta_steps", "1", "--sample_k", "3", "--group_size", "4",
              "--retrieval_task", "image2text", "--tp", "2"]
@@ -65,3 +68,35 @@ def test_compare_group_logits_reports_a_near_tie_and_refuses_the_rest():
     assert chip_smoke.compare_group_logits("x", reordered, one, 2, apart)["selections_equal"]
     with pytest.raises(AssertionError, match="logits differ"):
         chip_smoke.compare_group_logits("x", [(logits + 1e-3, one[0][1])], one, 2, apart)
+    # a row swapped at the near-tie adapted on another view: its logits are held against the one-process
+    # run made again on the sharded selection, and without such a run against the one process's
+    moved = [(logits + 0.5, {"selected": torch.tensor([[0, 2]])})]
+    with pytest.raises(AssertionError, match="logits differ"):
+        chip_smoke.compare_group_logits("x", moved, one, 2, tie)
+    on_swapped = lambda out: (lambda sel: [(out, {"selected": s}) for s in sel])
+    summary = chip_smoke.compare_group_logits("x", moved, one, 2, tie, rerun=on_swapped(logits + 0.5))
+    assert summary["views_swapped"] == 1 and summary["logits_held_on"] == "the sharded selections"
+    with pytest.raises(AssertionError, match="logits differ"):   # an unbounded move fails
+        chip_smoke.compare_group_logits("x", moved, one, 2, tie, rerun=on_swapped(logits))
+    with pytest.raises(AssertionError, match="did not select them"):
+        chip_smoke.compare_group_logits("x", moved, one, 2, tie, rerun=lambda sel: one)
+
+
+@pytest.mark.parametrize("cli,argv,owner", [(tta_cls, CLS, PromptTTAClassifier),
+                                            (tune_cls, ENCODER, EncoderTTAClassifier)], ids=["prompt", "encoder"])
+def test_one_process_runs_again_on_forced_selections(tmp_path, cli, argv, owner):
+    """The rerun that holds a swapped row: each group's selection is the one
+    forced, the row whose selection moved adapts on its new view, the other
+    rows' logits stay as they were."""
+    want, ent = chip_smoke.one_process(cli, argv + ["--output", str(tmp_path / "one")], owner, "_run_group")
+    assert len(ent) == len(want) == 1 and ent[0].shape == (2, 8)
+    forced = [aux["selected"].clone() for _, aux in want]
+    forced[0][0, -1] = min(set(range(8)) - set(forced[0][0].tolist()))
+    got, _ = chip_smoke.one_process(cli, argv + ["--output", str(tmp_path / "forced")], owner, "_run_group",
+                                    forced)
+    assert all(torch.equal(aux["selected"], sel) for (_, aux), sel in zip(got, forced))
+    assert not torch.equal(got[0][0][0], want[0][0][0])
+    torch.testing.assert_close(got[0][0][1], want[0][0][1])
+    with pytest.raises(AssertionError, match="forced selection"):
+        chip_smoke.one_process(cli, argv + ["--output", str(tmp_path / "short")], owner, "_run_group",
+                               [forced[0][:, :0]])

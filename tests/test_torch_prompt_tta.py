@@ -113,12 +113,15 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 def test_cli_refuses_unported_options():
-    """--viewgen device waits for ROADMAP A16; --tp 2 is ported (A14), and in a
+    """Only --download is refused as not ported; --hard_aug outside --viewgen
+    device gets the JAX CLI's message; --tp 2 is ported (A14), and in a
     single process the mesh's error names the launcher."""
     from rlcf_torch.cli import tta_cls
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tta_cls.main(["--device", "cpu", "--viewgen", "device"])
+    with pytest.raises(SystemExit, match="--download is not ported yet"):
+        tta_cls.main(["--device", "cpu", "--download", "1"])
+    with pytest.raises(SystemExit, match=r"^--viewgen native does not implement --hard_aug \(BYOL\); use --viewgen device$"):
+        tta_cls.main(["--device", "cpu", "--viewgen", "native", "--hard_aug", "1"])
     with pytest.raises(ValueError, match="torchrun"):
         tta_cls.main(["--device", "cpu", "--tp", "2"])
 

@@ -136,6 +136,33 @@ def job_fused_views(p):
     return {"views": M.dp_gather(mesh, toks[0]), "reward": M.dp_gather(mesh, toks[1])}
 
 
+def job_tune_cls_views(p):
+    """``tune_cls`` on dp ranks (the CLI joins this process group): each
+    rank's views and the group logits its ``EncoderTTAClassifier.adapt``
+    saw and returned, every rank's views gathered to rank 0."""
+    import torch.distributed as dist
+
+    from rlcf_torch.cli import tune_cls
+    from rlcf_torch.tasks.classification import EncoderTTAClassifier
+
+    seen = []
+    adapt = EncoderTTAClassifier.adapt
+
+    def recording(self, views, **kw):
+        logits, aux = adapt(self, views, **kw)
+        seen.append((views.clone(), logits.detach().clone()))
+        return logits, aux
+
+    EncoderTTAClassifier.adapt = recording
+    try:
+        tune_cls.main(p["argv"])
+    finally:
+        EncoderTTAClassifier.adapt = adapt
+    views = [None] * dist.get_world_size()
+    dist.all_gather_object(views, [v for v, _ in seen])
+    return {"views": views, "logits": [lg for _, lg in seen]}
+
+
 def _prompt_classifier(p, mesh, ensemble: bool = False):
     from rlcf_torch.core.episode import EpisodeConfig
     from rlcf_torch.core.reward import ClipReward, ClipRewardEnsemble, RewardConfig
