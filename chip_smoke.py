@@ -137,7 +137,22 @@ Phases, each fatal:
      near-tie of the one-process entropies, reported; captions equal or a
      beam tie); a world-1 NCCL group running dp_gather and all_reduce_grads;
      the attention shapes the ranks launched that phase 3 did not check,
-     checked and timed here; the PARALLEL line;
+     checked and timed here; the PARALLEL line; then the device view generator
+     (A16, phase 4k; the VIEWGEN line); then the recipes (phase 4l): eight
+     twins of scripts/torch/ run by bash as a user starts them (rlcf-prompt.sh,
+     tpt-prompt.sh, kd-tune.sh with ATKD and tpt-tune.sh on an ImageFolder
+     ImageNet-A tree of 200 class folders and 8 images through --test_sets A;
+     tta_flickr_ret.sh and zero_shot.sh on a karpathy tree of 16 images x 5
+     captions; eval_coco.sh on a COCO-caption tree of 8 images with its
+     references; tta_capdec_c2n.sh on three NoCaps splits of 4 images, then
+     its report), at full width with random weights (the checkpoint variables
+     unset, the synthetic OPT vocabulary under OPT_VOCAB / OPT_MERGES, a random
+     CapDec mapper in the trainer's format), a python shim first on PATH that
+     counts each process's launches (rlcf-prompt.sh alone, then the others in
+     three lanes side by side): every command exits with 0 and writes
+     its files, every twin launches the attention forward, the classification
+     and retrieval twins the backward, the tta_cls twins the AugMix kernel;
+     the shapes no check covered, checked and timed here; the RECIPES line;
   5. print each phase's wall seconds (the PHASES line), the run's total
      seconds, the kernels line (phase 5 also holds
      that Stanford Cars' text ran mma_long at T = 24 both ways on its path,
@@ -157,6 +172,7 @@ It imports nothing of JAX and nothing of the JAX package.
     python3 chip_smoke.py --kernels-only   # phases 1-3, then exit 3 (no device line)
     python3 chip_smoke.py --serving-only   # phases 1-2 and 4i, then exit 3 (no device line)
     python3 chip_smoke.py --parallel-only  # phases 1-2, the AugMix checks and 4j, then exit 3 (no device line)
+    python3 chip_smoke.py --recipes-only   # phases 1-2 and 4l, then exit 3 (no device line)
 """
 
 from __future__ import annotations
@@ -211,6 +227,9 @@ SWEEP_T = (1, 7, 8, 15, 16, 17, 24, 32, 33, 50, 64, 65, 77, 80, 81, 128, 196, 19
 SWEEP_T_FWD = SWEEP_T + (258, 271, 272, 288, 320, 321, 384, 449, 512, 513, 576, 577)
 SWEEP_T_BWD = SWEEP_T + (258, 321, 385, 448, 513, 576, 577)
 SWEEP_H = (8, 12, 16)
+# the vision towers' lengths (ViT-B/32, B/16, L/14, L/14@336px): a new shape checked at another T is a text
+# tower's, masked
+VISION_T = (50, 197, 257, 577)
 FLASH_SHAPE = (24, 256, 16)   # B, T, H at which the ATTN_IMPL="flash" route is timed
 SRC_SIZE, RES = 256, 224
 FLAGSHIP_IMAGES, NATIVE_IMAGES, FP32_IMAGES = 16, 8, 8
@@ -1380,6 +1399,62 @@ def write_cars_tree(root, n_images):
     return write_fine_grained_tree(root, FINE_SET, {"train": [], "val": [],
                                                     "test": [(37 * i) % len(names) for i in range(n_images)]},
                                    names=names, size=(240, 360))
+
+
+def write_imagefolder_tree(root, set_id, n_images, size=(40, 56), seed=0):
+    """A synthetic ImageFolder tree of the ImageNet variant ``set_id`` under
+    the data root ``root`` (``<root>/imagenet-a/<wnid>/...`` for ``A``): one
+    folder a class of the variant, named ``n<ImageNet index, 8 digits>`` so
+    that the folders sort in the class names' order, and ``n_images`` random
+    JPEGs of ``size`` spread over the classes (label 37 * i mod C). Returns
+    (``root``, the labels in the loader's order)."""
+    from PIL import Image
+
+    from rlcf_torch.data.class_names import variant_class_indices
+    from rlcf_torch.data.datasets import ID_TO_DIRNAME
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(str(root), ID_TO_DIRNAME[set_id])
+    folders = [f"n{c:08d}" for c in variant_class_indices(set_id)]
+    for folder in folders:
+        os.makedirs(os.path.join(base, folder), exist_ok=True)
+    labels = sorted((37 * i) % len(folders) for i in range(n_images))
+    for i, label in enumerate(labels):
+        Image.fromarray(rng.integers(0, 256, size=tuple(size) + (3,), dtype=np.uint8)).save(
+            os.path.join(base, folders[label], f"img_{i:04d}.jpg"))
+    return str(root), labels
+
+
+NOCAPS_SPLITS = ("val_417_in-domain", "val_2670_near-domain", "val_1413_out-domain")   # the c2n scripts' names
+
+
+def write_nocaps_splits(root, n_images, size=(48, 64), seed=0):
+    """The three NoCaps split file pairs the c2n scripts read, in the layout
+    of ``tools/convert_caption_gt.py nocaps-splits``, under ``root``:
+    ``nocaps_<split>.json`` ([{"image": file name, "caption": [...],
+    "image_id": id}]) and ``nocaps_<split>_clipscore.json`` ({file name:
+    captions}), ``n_images`` random JPEGs of ``size`` a split in
+    ``root/images`` with 5 templated captions each. Returns (annotation
+    root, image root)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    images = os.path.join(str(root), "images")
+    os.makedirs(images, exist_ok=True)
+    caps = retrieval_captions(len(NOCAPS_SPLITS) * n_images * 5, seed)
+    for s, split in enumerate(NOCAPS_SPLITS):
+        items, refs = [], {}
+        for i in range(n_images):
+            k = s * n_images + i
+            name = f"{split.split('_')[-1]}_{k:04x}.jpg"
+            Image.fromarray(rng.integers(0, 256, size=tuple(size) + (3,), dtype=np.uint8)).save(
+                os.path.join(images, name))
+            items.append({"image": name, "caption": caps[5 * k : 5 * k + 5], "image_id": 4500 + 3 * k})
+            refs[name] = items[-1]["caption"]
+        for path, payload in ((f"nocaps_{split}.json", items), (f"nocaps_{split}_clipscore.json", refs)):
+            with open(os.path.join(str(root), path), "w") as fh:
+                json.dump(payload, fh)
+    return str(root), images
 
 
 def write_bongard_tree(root, n_tasks, size=(48, 56), swap_split=False, seed=0):
@@ -3302,19 +3377,27 @@ def parallelism(out_dir, entries):
     # a world-1 NCCL group on the card through the port's helpers
     line["nccl_world_1"] = nccl_world_one(out_dir)
 
-    # the shapes the ranks launched that phase 3 did not check
+    line["shapes_checked_here"] = check_new_shapes(paths, entries, lambda key: "sharded rank")
+    return paths, line
+
+
+def check_new_shapes(paths, entries, what):
+    """The attention shapes ``paths`` launched that no entry of ``entries``
+    checks yet, each checked against the plain version (masked unless T is a
+    vision tower's) and appended to ``entries``, its label from
+    ``what(key)``; a kernel other than the attention's raises. Returns the
+    keys checked."""
     checked = {" ".join(map(str, e["shape"])) for e in entries}
     new = sorted({k for p in paths for k in p["launches_by_shape"]} - checked)
     for key in new:
         kind, *dims = key.split(" ")
         if kind not in ("fwd", "bwd"):
-            raise AssertionError(f"a sharded path launched {key}, which phase 3 did not check")
+            raise AssertionError(f"{what(key)} launched {key}, which no check covers")
         B, T, H = (int(d) for d in dims[:3])
         dtype = torch.bfloat16 if dims[3] == str(torch.bfloat16) else torch.float32
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        entries.append(check_kernel(kind, B, T, H, dtype, T <= 77, f"sharded rank B={B} T={T} H={H} {tag}"))
-    line["shapes_checked_here"] = new
-    return paths, line
+        entries.append(check_kernel(kind, B, T, H, dtype, T not in VISION_T, f"{what(key)} B={B} T={T} H={H} {tag}"))
+    return new
 
 
 def check_rank_launches(runs):
@@ -3474,12 +3557,255 @@ def viewgen_a16(out_dir):
     return paths, line
 
 
+# ---------------------------------------------------------------------------
+# Phase 4l: the recipes (scripts/torch/), run by bash as a user starts them
+# ---------------------------------------------------------------------------
+
+# the trees: an ImageFolder ImageNet-A tree (200 class folders, 8 images), a karpathy-format retrieval tree
+# (16 images x 5 captions, Flickr30k's and COCO's in zero_shot.sh), a COCO-caption tree (8 images, 5 references
+# each) and three NoCaps splits of 4 images with their references
+RECIPE_IMAGES, RECIPE_RET_TREE, RECIPE_COCO_IMAGES, RECIPE_NOCAPS_IMAGES = 8, (16, 5), 8, 4
+RECIPE_TREE_SIZE = (240, 320)
+# the groups the recipes run (the CLIs' defaults where a recipe sets none): tta_cls 4 images, tune_cls 1
+# (--episode_group 1), tta_retrieval 8 queries, tta_caption 16 images
+RECIPE_GROUP = {"tta_cls": 4, "tune_cls": 1, "tta_retrieval": 8, "tta_caption": 16}
+# the order of the twins: stage after stage, a stage's lanes side by side (on the card and the host's cores),
+# a lane's twins in turn. The main path first, alone; then the rest in three lanes, which keeps the phase
+# within its time (each command is a process whose start-up dominates at these depths)
+RECIPE_STAGES = ((("rlcf-prompt.sh",),),
+                 (("tpt-prompt.sh", "kd-tune.sh", "tpt-tune.sh"), ("tta_flickr_ret.sh", "zero_shot.sh", "eval_coco.sh"),
+                  ("tta_capdec_c2n.sh",)))
+# the recipes' ``python``: runs ``-m <module> ...`` or a script under this interpreter as python would, and at
+# the end writes the port's kernel counters of that process (0 just before the module runs) to a JSON file of
+# its own in $RECIPE_COUNTS, with its exit code and wall seconds
+RECIPE_SHIM = r'''#!PYTHON
+import json, os, runpy, sys, time, traceback
+
+argv, t0 = sys.argv[1:], time.perf_counter()
+port = argv[:1] == ["-m"] and argv[1].startswith("rlcf_torch")
+if argv[:1] == ["-m"]:
+    sys.path.insert(0, os.getcwd())
+if port:
+    import torch
+    from rlcf_torch.ops import attention as A
+    from rlcf_torch.ops import augmix as X
+    A.reset_launch_counts()
+    X.reset_launch_counts()
+rc = 0
+try:
+    if argv[:1] == ["-m"]:
+        sys.argv = argv[1:]
+        runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    else:
+        sys.argv = argv
+        sys.path.insert(0, os.path.dirname(os.path.abspath(argv[0])))
+        runpy.run_path(argv[0], run_name="__main__")
+except SystemExit as exc:
+    if exc.code is not None and not isinstance(exc.code, int):
+        print(exc.code, file=sys.stderr)
+    rc = exc.code if isinstance(exc.code, int) else int(exc.code is not None)
+except BaseException:
+    traceback.print_exc()
+    rc = 1
+rec = {"argv": argv, "rc": rc, "wall_s": time.perf_counter() - t0}
+if port:
+    cuda = torch.cuda.is_available()   # the CPU tests run the shim too
+    if cuda:
+        torch.cuda.synchronize()
+    rec.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+               launches={**A.LAUNCHES, **X.LAUNCHES},
+               variants=dict(A.LAUNCH_VARIANTS),
+               launches_by_shape={" ".join(map(str, k)): v for k, v in {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}.items()})
+with open(os.path.join(os.environ["RECIPE_COUNTS"], f"{time.time_ns()}_{os.getpid()}.json"), "w") as fh:
+    json.dump(rec, fh)
+sys.exit(rc)
+'''
+
+
+def recipe_trees(root):
+    """Phase 4l's inputs under ``root``: the trees, a synthetic 50,265-entry
+    OPT vocabulary and a random CapDec mapper (transformer, prefix 40, clip
+    length 40, ViT-B/16 -> OPT-125m) in the trainer's checkpoint format."""
+    from rlcf_torch.models import mappers as M
+    from rlcf_torch.tasks import caption as Cap
+
+    data, _ = write_imagefolder_tree(os.path.join(root, "data"), "A", RECIPE_IMAGES, size=RECIPE_TREE_SIZE)
+    ret = write_retrieval_tree(os.path.join(root, "retrieval"), *RECIPE_RET_TREE, size=RECIPE_TREE_SIZE)
+    coco = write_caption_tree(os.path.join(root, "coco"), RECIPE_COCO_IMAGES, size=RECIPE_TREE_SIZE)
+    nocaps = write_nocaps_splits(os.path.join(root, "nocaps"), RECIPE_NOCAPS_IMAGES, size=RECIPE_TREE_SIZE)
+    vocab = write_opt_vocab(os.path.join(root, "vocab"))
+    mapper = os.path.join(root, "capdec_mapper.npz")
+    mcfg = M.MapperConfig("transformer", clip_dim=512, llm_dim=768, prefix_length=40, clip_length=40)
+    Cap.save_mapper_checkpoint(mapper, M.init_mapper_params(mcfg, seed=0), 0)
+    return {"data": data, "retrieval": ret, "coco": coco, "nocaps": nocaps, "vocab": vocab, "mapper": mapper}
+
+
+def recipe_list(t):
+    """The eight twins phase 4l runs: (script, arguments, its commands, the
+    kernels each run must launch, the kernels it must not, its output files
+    under exp/torch/). Only the prompt-TTA recipes build views with the AugMix
+    kernel (tune_cls uses the device generator); the caption TTA
+    differentiates OPT and the mapper, not a CLIP tower, so only retrieval
+    and classification run the attention backward."""
+    splits = [f"capdec_c2n_{s}/metrics.json" for s in NOCAPS_SPLITS]
+    return [
+        ("rlcf-prompt.sh", [t["data"], "A"], 1, ("fwd", "bwd", "augmix"), (), ["rlcf_prompt_A/results.json"]),
+        ("tpt-prompt.sh", [t["data"], "A"], 1, ("fwd", "bwd", "augmix"), (), ["tpt_prompt_A/results.json"]),
+        ("kd-tune.sh", [t["data"], "A", "ATKD"], 1, ("fwd", "bwd", "augmix"), (), ["kd_ATKD_A/results.json"]),
+        ("tpt-tune.sh", [t["data"], "A"], 1, ("fwd", "bwd"), ("augmix",), ["tpt_tune_A/results.json"]),
+        ("tta_flickr_ret.sh", list(t["retrieval"]), 1, ("fwd", "bwd"), (), ["ret_flickr/results_retrieval.json"]),
+        ("zero_shot.sh", [*t["retrieval"], *t["retrieval"]], 2, ("fwd",), ("bwd",),
+         ["zeroshot_flickr_ret/results_retrieval.json", "zeroshot_coco_ret/results_retrieval.json"]),
+        ("eval_coco.sh", [*t["coco"], t["mapper"], os.path.join(t["coco"][1], "references.json")], 2, ("fwd",),
+         ("bwd",), ["eval_coco/results_caption.json", "eval_coco/results_clipscore.json"]),
+        ("tta_capdec_c2n.sh", [*t["nocaps"], t["mapper"]], 7, ("fwd",), (), ["capdec_c2n_results_nocaps.json", *splits]),
+    ]
+
+
+def rate(secs, sizes):
+    """Items a second over the groups after the first (None with one group)."""
+    return sum(sizes[1:]) / sum(secs[1:]) if len(secs) > 1 else None
+
+
+def group_sizes(n, group):
+    return [min(group, n - i) for i in range(0, n, group)]
+
+
+def run_recipe(root, name, args, n_commands, needs, forbids, outputs, env):
+    """``bash scripts/torch/<name> <args>`` from the run directory, the shim
+    first on PATH; every command it runs must exit with 0, the run must write
+    ``outputs``, and its commands together must launch each kernel of
+    ``needs`` and none of ``forbids``. Returns its numbers."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    counts = os.path.join(root, "counts", name)
+    shutil.rmtree(counts, ignore_errors=True)
+    os.makedirs(counts)
+    t0 = time.perf_counter()
+    res = subprocess.run(["bash", os.path.join(repo, "scripts", "torch", name), *args], cwd=os.path.join(root, "run"),
+                         env=dict(env, RECIPE_COUNTS=counts), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, f"{name}.log"), "w") as fh:
+        fh.write(res.stdout + "\n--- stderr ---\n" + res.stderr)
+    procs = []
+    for f in sorted(os.listdir(counts)):
+        with open(os.path.join(counts, f)) as fh:
+            procs.append(json.load(fh))
+    failed = [p["argv"][:2] for p in procs if p["rc"] != 0]
+    missing = [rel for rel in outputs if not os.path.exists(os.path.join(root, "run", "exp", "torch", rel))]
+    if res.returncode != 0 or failed or len(procs) != n_commands or missing:
+        raise AssertionError(f"recipe {name} {args}: rc {res.returncode}, {len(procs)} of {n_commands} commands, "
+                             f"failed {failed}, outputs missing {missing}:\n{res.stderr[-4000:]}")
+    launches, variants, by_shape = {}, {}, {}
+    for p in procs:
+        for total, part in ((launches, p.get("launches", {})), (variants, p.get("variants", {})),
+                            (by_shape, p.get("launches_by_shape", {}))):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+    wrong = [k for k in needs if not launches.get(k)] + [k for k in forbids if launches.get(k)]
+    if wrong:
+        raise AssertionError(f"recipe {name}: launches {launches}; needs {needs}, none of {forbids}")
+    return {"path": f"recipe {name}", "wall_s": wall, "processes": [(p["argv"][1] if p["argv"][0] == "-m" else
+                                                                     p["argv"][0], p["wall_s"]) for p in procs],
+            "peak_mem_gib": max(p.get("peak_mem_gib") or 0.0 for p in procs), "launches": launches,
+            "variants": variants, "launches_by_shape": by_shape, "stdout": res.stdout}
+
+
+def recipes(out_dir, entries):
+    """Phase 4l: the eight recipes of ``recipe_list`` run by bash (in the
+    order of ``RECIPE_STAGES``) at full width (ViT-B/16 policy, ViT-L/14 reward, ViT-B/32 CLIPScore, OPT-125m),
+    random weights (the checkpoint variables unset), the synthetic OPT
+    vocabulary under OPT_VOCAB / OPT_MERGES; the shim counts each process's
+    launches. Attention shapes no check covers yet are checked against the
+    plain version here (appended to ``entries``). Returns (paths, the RECIPES
+    line's numbers)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(out_dir), "chip_smoke_recipes")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "run"))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.symlink(os.path.join(repo, "tools"), os.path.join(root, "run", "tools"))   # the NoCaps report's path
+    trees = recipe_trees(root)
+    shim_dir = os.path.join(root, "bin")
+    os.makedirs(shim_dir)
+    with open(os.path.join(shim_dir, "python"), "w") as fh:
+        fh.write(RECIPE_SHIM.replace("PYTHON", sys.executable, 1))
+    os.chmod(os.path.join(shim_dir, "python"), 0o755)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CLIP_VIT_B16", "CLIP_VIT_L14", "CLIP_VIT_B32", "OPT_125M")}
+    # a torch install without bytecode (read-only site-packages) makes every process compile its modules
+    # again: the first process of the phase writes them here, the others read them
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    env.update(PATH=shim_dir + os.pathsep + os.environ.get("PATH", ""), PYTHONPATH=repo,
+               PYTHONPYCACHEPREFIX=os.path.join(root, "pycache"), OPT_VOCAB=trees["vocab"][0],
+               OPT_MERGES=trees["vocab"][1])
+    phase_done("4l recipe trees")
+    plan = recipe_list(trees)
+    rest = {name: r for name, *r in plan}
+    runs = {}
+    for lanes in RECIPE_STAGES:
+        with concurrent.futures.ThreadPoolExecutor(len(lanes)) as pool:
+            for lane in pool.map(lambda lane: [(n, run_recipe(root, n, *rest[n], env)) for n in lane], lanes):
+                runs.update(lane)
+    exp = os.path.join(root, "run", "exp", "torch")
+    paths, line = [], {}
+    for name, args, n_cmds, needs, forbids, outputs in plan:
+        run = runs[name]
+        if name.endswith(("prompt.sh", "tune.sh")):
+            with open(os.path.join(exp, outputs[0])) as fh:
+                (res,) = json.load(fh).values()
+            group = RECIPE_GROUP["tune_cls" if name == "tpt-tune.sh" else "tta_cls"]
+            if res["n"] != RECIPE_IMAGES or not np.isfinite(res["top1"]):
+                raise AssertionError(f"recipe {name}: {res}")
+            secs = {"images": res["group_seconds"]}
+            sizes = {"images": group_sizes(RECIPE_IMAGES, group)}
+            n_items = RECIPE_IMAGES
+        else:
+            secs = {}
+            for ln in run["stdout"].splitlines():   # "GROUP_SECONDS [i2t|t2i] [...]": a line a process and direction
+                if ln.startswith("GROUP_SECONDS "):
+                    rest = ln[len("GROUP_SECONDS "):]
+                    label, vals = ("images", rest) if rest.startswith("[") else rest.split(" ", 1)
+                    secs[f"{label} {len(secs)}"] = json.loads(vals)
+            if name.endswith("ret.sh") or name == "zero_shot.sh":
+                n_img, n_txt = RECIPE_RET_TREE[0], RECIPE_RET_TREE[0] * RECIPE_RET_TREE[1]
+                sizes = {k: group_sizes(n_img if k.startswith("i2t") else n_txt, RECIPE_GROUP["tta_retrieval"])
+                         for k in secs}
+                n_items = n_img + n_txt
+            else:
+                n = RECIPE_NOCAPS_IMAGES if "c2n" in name else RECIPE_COCO_IMAGES
+                sizes = {k: group_sizes(n, RECIPE_GROUP["tta_caption"]) for k in secs}
+                n_items = n * (len(NOCAPS_SPLITS) if "c2n" in name else 1)
+        if "c2n" in name:
+            with open(os.path.join(exp, outputs[0])) as fh:
+                report = json.load(fh)
+            if [r["n_images"] for r in report["domains"].values()] != [RECIPE_NOCAPS_IMAGES] * len(NOCAPS_SPLITS) \
+                    or not np.isfinite(report["overall"]["clipscore"]):
+                raise AssertionError(f"recipe {name}: the NoCaps report {report}")
+        run.pop("stdout")
+        run.update(items=n_items, group_seconds=secs,
+                   items_per_s={k: rate(secs[k], sizes[k]) for k in secs},
+                   launches_per_item_by_shape={k: v / n_items for k, v in run["launches_by_shape"].items()})
+        log("RECIPE_PATH " + json.dumps(run))
+        paths.append(run)
+        line[name] = {k: run[k] for k in ("wall_s", "items_per_s", "group_seconds", "launches", "variants",
+                                           "peak_mem_gib", "processes")}
+    line["stages"] = RECIPE_STAGES
+    phase_done("4l recipe runs")
+    line["shapes_checked_here"] = check_new_shapes(
+        paths, entries, lambda key: "recipe " + ", ".join(p["path"][len("recipe "):] for p in paths
+                                                           if key in p["launches_by_shape"]))
+    return paths, line
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3 (kernel checks) with exit code 3 and no device line")
     parser.add_argument("--serving-only", action="store_true",
                         help="run phases 1-2, then only the serving phase (4i), and exit with code 3 and no device line")
+    parser.add_argument("--recipes-only", action="store_true",
+                        help="run phases 1-2, then only the recipes phase (4l), and exit with code 3 and no device line")
     parser.add_argument("--parallel-only", action="store_true",
                         help="run phases 1-2, the AugMix checks, then only the parallelism phase (4j), and exit with "
                         "code 3 and no device line")
@@ -3529,6 +3855,11 @@ def main():
     if args.serving_only:
         out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
         log("SERVING " + json.dumps(serving_and_infrastructure(out)[1]))
+        return 3
+    if args.recipes_only:
+        out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
+        log("RECIPES " + json.dumps(recipes(out, check_augmix())[1]))
+        log("PHASES " + json.dumps(PHASE_SECONDS))
         return 3
     if args.parallel_only:
         out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_flagship")
@@ -3750,6 +4081,10 @@ def main():
     paths += views_paths
     log("VIEWGEN " + json.dumps(views))
     phase_done("4k views (A16)")
+    recipe_paths, recipe_line = recipes(out_dir, entries)
+    paths += recipe_paths
+    log("RECIPES " + json.dumps(recipe_line))
+    phase_done("4l recipes")
 
     # phase 5: every shape a path launched was checked in phase 3; the
     # kernels line lists those checks with the paths' launch counts

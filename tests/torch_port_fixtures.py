@@ -1,9 +1,14 @@
 """Shared inputs for the PyTorch port's parity tests: tiny CLIP configs of
-both packages, a random OpenAI-format ViT CLIP state dict, and synthetic
-dataset trees written by the smoke script's writers."""
+both packages, a random OpenAI-format ViT CLIP state dict, synthetic
+dataset trees written by the smoke script's writers, and the commands of the
+experiment recipes (``scripts/*.sh`` and their ``scripts/torch/`` twins)."""
 
+import importlib
 import importlib.util
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -12,7 +17,8 @@ import torch
 from rlcf_tpu.models import clip as JC
 from rlcf_torch.models import clip as TC
 
-_SMOKE = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+REPO = pathlib.Path(__file__).resolve().parents[1]
+_SMOKE = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_SMOKE)
 _SMOKE.loader.exec_module(chip_smoke)
 
@@ -192,3 +198,61 @@ def hf_mapper_state_dict(cfg, seed=0):
                    b + "mlp.fc1.weight": t(H, D), b + "mlp.fc1.bias": t(H), b + "mlp.fc2.weight": t(D, H),
                    b + "mlp.fc2.bias": t(D)})
     return sd
+
+
+# the environment variables the recipes read: checkpoints, and OPT's vocabulary
+RECIPE_ENV = ("CLIP_VIT_B16", "CLIP_VIT_L14", "CLIP_VIT_B32", "OPT_125M", "OPT_VOCAB", "OPT_MERGES")
+
+
+def recipe_commands(script, args, env, workdir):
+    """The commands ``bash <script> <args>`` runs under the recipe variables
+    ``env`` (the others unset), each as the argument list it hands ``python``,
+    in order: bash expands the script (its loops, defaults and variables) with
+    a stub ``python`` first on PATH that records its arguments and runs
+    nothing."""
+    stub_dir = pathlib.Path(workdir) / "python_stub"
+    stub_dir.mkdir(parents=True, exist_ok=True)
+    stub, log = stub_dir / "python", stub_dir / "commands"
+    # each argument ends in NUL, each command in ASCII's record separator
+    stub.write_text("#!/bin/sh\nfor arg in \"$@\"; do printf '%s\\0' \"$arg\"; done >> \"$RECIPE_LOG\"\n"
+                    "printf '\\036' >> \"$RECIPE_LOG\"\n")
+    stub.chmod(0o755)
+    log.write_bytes(b"")
+    run_env = {k: v for k, v in os.environ.items() if k not in RECIPE_ENV}
+    run_env.update(env, PATH=f"{stub_dir}{os.pathsep}{os.environ['PATH']}", RECIPE_LOG=str(log))
+    subprocess.run(["bash", str(REPO / script), *map(str, args)], check=True, env=run_env, cwd=str(workdir))
+    return [record.split("\0")[:-1] for record in log.read_text().split("\x1e")[:-1]]
+
+
+def with_flags(argv, **flags):
+    """``argv`` with each ``--flag value`` of ``flags`` set: a flag the
+    command has takes the new value, one it lacks is appended."""
+    argv = list(argv)
+    for name, value in flags.items():
+        flag = "--" + name
+        if flag in argv:
+            argv[argv.index(flag) + 1] = str(value)
+        else:
+            argv += [flag, str(value)]
+    return argv
+
+
+def run_command(argv):
+    """One recipe command in this process: ``-m <module> ...`` calls the
+    module's ``main`` and returns what it returns; a repo tool (``tools/...``)
+    runs as a process of its own, as the recipe runs it."""
+    if argv[0] == "-m":
+        return importlib.import_module(argv[1]).main(list(argv[2:]))
+    return subprocess.run([sys.executable, str(REPO / argv[0]), *argv[1:]], check=True, capture_output=True,
+                          text=True)
+
+
+def recipe_pair(name, args, env, workdir):
+    """The commands of the twin ``scripts/torch/<name>``, each beside the JAX
+    package's same command: ``rlcf_tpu.cli`` for the module and ``exp/`` for
+    the ``exp/torch/`` of the outputs (``tests/test_torch_scripts.py`` holds
+    the twin to ``scripts/<name>``). -> [(JAX command, port command)]"""
+    cmds = recipe_commands(f"scripts/torch/{name}", args, env, workdir)
+    assert cmds
+    return [([a.replace("rlcf_torch.cli.", "rlcf_tpu.cli.").replace("exp/torch/", "exp/") for a in c], c)
+            for c in cmds]
