@@ -2740,7 +2740,7 @@ def done(name):
 import json, sys, torch
 from rlcf_torch.ops import attention as A
 from rlcf_torch.utils.export import deserialize_program
-from rlcf_torch.utils.profiling import EpisodeTimer, device_memory_stats
+from rlcf_torch.utils.profiling import device_memory_stats
 done("import_s")
 artifact, inputs, out, device, timed = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5])
 with open(artifact, "rb") as fh:
@@ -2767,15 +2767,17 @@ class Recorder(torch.fx.Interpreter):
 
 Recorder(call).run(*torch.utils._pytree.tree_leaves(args))
 done("record_s")
-timer = EpisodeTimer()
+sync()
+t0 = time.perf_counter()
 for _ in range(timed):
-    timer.start()
-    timer.stop(1, call(*args))
+    call(*args)
+sync()
+group_s = time.perf_counter() - t0
 targets = sorted({str(n.target) for n in program.graph.nodes if str(n.target).startswith("rlcf.")})
 torch.save({"logits": logits.cpu(), "sorted": first_sort["indices"].cpu()}, out + ".pt")
 port = sorted(m for m in sys.modules if m.startswith("rlcf_torch"))
 with open(out + ".json", "w") as fh:
-    json.dump({**launches, "group_ms": 1e3 * timer.seconds / max(timed, 1), "memory": device_memory_stats(),
+    json.dump({**launches, "group_ms": 1e3 * group_s / max(timed, 1), "memory": device_memory_stats(),
                "rlcf_nodes": targets, "port_modules": port, "stage_s": stage}, fh)
 """
 SERVE_MODULES = {"rlcf_torch", "rlcf_torch.ops", "rlcf_torch.ops.attention", "rlcf_torch.ops.cuda_build",
@@ -2816,12 +2818,14 @@ def serving_export(out_dir, names, device="cuda"):
     the eager ``adapt_tokens`` on the same tokens and weights; the served
     program's graph holds both ``rlcf::`` ops and its launches count both
     kernels. fp32: logits within SERVE_TOL and equal selections; bf16: the
-    served and eager group ms (EpisodeTimer), no claim. Returns (paths, line)."""
+    served and eager group ms (host clock to a synchronization), no claim.
+    Returns (paths, line)."""
     from rlcf_torch.cli import export_serving
     from rlcf_torch.data.datasets import SyntheticDataset
     from rlcf_torch.ops.augmix import fused_views
-    from rlcf_torch.utils.profiling import EpisodeTimer, device_memory_stats
+    from rlcf_torch.utils.profiling import device_memory_stats
 
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     imgs = np.stack([SyntheticDataset(n=GROUP, n_classes=200)[i][0] for i in range(GROUP)])
     planar = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()).to(device)
     toks = fused_views(planar, torch.Generator(device=device).manual_seed(0), n_views=VIEWS, resolution=RES,
@@ -2833,10 +2837,12 @@ def serving_export(out_dir, names, device="cuda"):
         phase_done(f"4i export {precision}")
         clf = exported.pop("classifier")   # the traced classifier, set up for the flagship's classes
         eager_logits, aux = clf.adapt_tokens(toks)
-        timer = EpisodeTimer()
+        sync()
+        t0 = time.perf_counter()
         for _ in range(SERVE_TIMED):
-            timer.start()
-            timer.stop(1, clf.adapt_tokens(toks)[0])
+            clf.adapt_tokens(toks)
+        sync()
+        eager_s = time.perf_counter() - t0
         path = f"serve {precision}"
         phase_done(f"4i eager {precision}")
         served = serve_in_fresh_process(artifact, clf, toks, path, device)
@@ -2846,7 +2852,7 @@ def serving_export(out_dir, names, device="cuda"):
         d_logits = float((served["logits"].float() - eager_logits.float().cpu()).abs().max())
         ops = ["rlcf.fused_attention.default", "rlcf.fused_attention_bwd.default"]
         rec = {"artifact_mb": exported["bytes"] / 1e6, "trace_seconds": exported["trace_seconds"],
-               "served_ms_per_group": served["group_ms"], "eager_ms_per_group": 1e3 * timer.seconds / SERVE_TIMED,
+               "served_ms_per_group": served["group_ms"], "eager_ms_per_group": 1e3 * eager_s / SERVE_TIMED,
                "served_memory": served["memory"], "eager_memory": device_memory_stats(), "selected_equal": same_sel,
                "max_abs_logit_diff": d_logits, "max_abs_logit": float(eager_logits.float().abs().max()),
                "served_launches": served["launches"], "served_variants": served["variants"],

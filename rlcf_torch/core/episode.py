@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import group, span
 from . import losses as Lo
 from .policy import tree_leaves, tree_map
 
@@ -153,16 +154,21 @@ def make_tta_episode(
     """
 
     def episode(trainable0, cache, views, per_episode=False):
+        with group():
+            return run(trainable0, cache, views, per_episode)
+
+    def run(trainable0, cache, views, per_episode):
         N, B = views.shape[:2]
         n_keep = max(1, int(B * ecfg.selection_p))
         all_idx = torch.arange(B, device=views.device).expand(N, B)
         reuse = n_keep >= B if step0_reuse is None else step0_reuse
         start = (lambda v: v.detach()) if per_episode else (lambda v: v.detach()[None].expand(N, *v.shape))
         t = tree_map(lambda v: start(v).clone().requires_grad_(True), trainable0)
-        with torch.set_grad_enabled(reuse):
-            logits_all = policy_logits(t, cache, all_idx)
-        sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits_all.detach()), n_keep)  # [N, S]
-        with torch.no_grad():
+        with span("select"):
+            with torch.set_grad_enabled(reuse):
+                logits_all = policy_logits(t, cache, all_idx)
+            sel = Lo.select_confident_entropy(Lo.entropy_per_sample(logits_all.detach()), n_keep)  # [N, S]
+        with torch.no_grad(), span("reward_fwd"):
             reward_sim = reward_image_sim(take_rows(views, sel))  # [N, S, C], frozen
         pred_idx = all_idx if predict_batched else all_idx[:, :1]
         aux = {"selected": sel}
@@ -170,14 +176,18 @@ def make_tta_episode(
         if ecfg.tta_steps > 0:
             opt = make_optimizer(tree_leaves(t), ecfg)
             for step in range(ecfg.tta_steps):
-                opt.zero_grad(set_to_none=True)
-                logits = take_rows(logits_all, sel) if reuse and step == 0 else policy_logits(t, cache, sel)
-                loss = step_loss(logits, reward_sim, ecfg, score_samples, teacher_scale)  # [N]
-                loss.sum().backward()
-                opt.step()
+                with span("step", step + 1):
+                    opt.zero_grad(set_to_none=True)
+                    with span("policy_fwd"):
+                        logits = take_rows(logits_all, sel) if reuse and step == 0 else policy_logits(t, cache, sel)
+                        loss = step_loss(logits, reward_sim, ecfg, score_samples, teacher_scale)  # [N]
+                    with span("bwd"):
+                        loss.sum().backward()
+                    with span("adamw"):
+                        opt.step()
                 losses.append(loss.detach())
         del logits_all
-        with torch.no_grad():
+        with torch.no_grad(), span("final"):
             final = policy_logits(t, cache, pred_idx)
         aux["losses"] = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
         if return_adapted:

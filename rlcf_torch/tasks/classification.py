@@ -41,6 +41,7 @@ from ..ops.image_ops import resize_bicubic_align_corners
 from ..parallel.collectives import all_reduce_grads, gather_replicated
 from ..parallel.mesh import dp_gather, dp_slice, shard_range
 from ..tokenizer import tokenize
+from ..utils.profiling import group, span
 
 
 def maybe_normalize_u8(views):
@@ -262,10 +263,11 @@ class PromptTTAClassifier:
     def _select(self, cparams, tf0, img, N: int, B: int):
         """(img_feats [N, B, E], sel [N, S]): the lowest-entropy views of each
         episode against the initial text features."""
-        n_keep = max(1, int(B * self.ecfg.selection_p))
-        img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
-        logits0 = logit_scale(cparams) * torch.einsum("nbe,ce->nbc", img_feats, tf0)
-        return img_feats, Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
+        with span("select"):
+            n_keep = max(1, int(B * self.ecfg.selection_p))
+            img_feats = clip_model.normalize(img.float()).reshape(N, B, -1)
+            logits0 = logit_scale(cparams) * torch.einsum("nbe,ce->nbc", img_feats, tf0)
+            return img_feats, Lo.select_confident_entropy(Lo.entropy_per_sample(logits0), n_keep)  # [N, S]
 
     def prepare_tokens_fn(self, cparams, rparams, tf0, r_feats, ptoks, rtoks=None):
         """u8 policy tokens [N, B, Tp, p*p*3] (and optionally the same views
@@ -273,26 +275,29 @@ class PromptTTAClassifier:
         sel [N, S], reward_sim [N, S, C])."""
         cfg, rcfg = self.clip_cfg, self.reward.cfg
         N, B, Tp, Dp = ptoks.shape
-        x = normalize_u8_patch_tokens(ptoks).reshape(N * B, Tp, Dp)
-        img = clip_model.encode_image_tokens(cparams, cfg, x, attn=self.attn)
-        img_feats, sel = self._select(cparams, tf0, img, N, B)
-        n_keep = sel.shape[1]
-        if rtoks is not None:
-            # the reward's own tokens of the selected views (ViT reward at the
-            # view resolution)
-            Tr, Dr = rtoks.shape[2], rtoks.shape[3]
-            sel_r = torch.gather(rtoks, 1, sel[:, :, None, None].expand(N, n_keep, Tr, Dr))
-            rx = normalize_u8_patch_tokens(sel_r).reshape(N * n_keep, Tr, Dr)
-            feats = clip_model.normalize(
-                clip_model.encode_image_tokens(rparams, rcfg, rx, attn=self.reward_attn).float())
-            r_sim = self._gather_reward_classes(feats @ r_feats.T)
-        else:
-            # depatchify ONLY the selected views back to NHWC for the reward tower
-            sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
-            sel_views = clip_model.images_from_patch_tokens(
-                normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
-            r_sim = self._reward_sim_fn(rparams, r_feats, sel_views, N, n_keep)
-        return img_feats, sel, r_sim.reshape(N, n_keep, -1)
+        with span("prepare"):
+            with span("policy_fwd"):
+                x = normalize_u8_patch_tokens(ptoks).reshape(N * B, Tp, Dp)
+                img = clip_model.encode_image_tokens(cparams, cfg, x, attn=self.attn)
+            img_feats, sel = self._select(cparams, tf0, img, N, B)
+            n_keep = sel.shape[1]
+            with span("reward_fwd"):
+                if rtoks is not None:
+                    # the reward's own tokens of the selected views (ViT reward at the
+                    # view resolution)
+                    Tr, Dr = rtoks.shape[2], rtoks.shape[3]
+                    sel_r = torch.gather(rtoks, 1, sel[:, :, None, None].expand(N, n_keep, Tr, Dr))
+                    rx = normalize_u8_patch_tokens(sel_r).reshape(N * n_keep, Tr, Dr)
+                    feats = clip_model.normalize(
+                        clip_model.encode_image_tokens(rparams, rcfg, rx, attn=self.reward_attn).float())
+                    r_sim = self._gather_reward_classes(feats @ r_feats.T)
+                else:
+                    # depatchify ONLY the selected views back to NHWC for the reward tower
+                    sel_p = torch.gather(ptoks, 1, sel[:, :, None, None].expand(N, n_keep, Tp, Dp))
+                    sel_views = clip_model.images_from_patch_tokens(
+                        normalize_u8_patch_tokens(sel_p).reshape(N * n_keep, Tp, Dp), cfg.vision_patch_size)
+                    r_sim = self._reward_sim_fn(rparams, r_feats, sel_views, N, n_keep)
+            return img_feats, sel, r_sim.reshape(N, n_keep, -1)
 
     @torch.no_grad()
     def prepare_tokens(self, ptoks, rtoks=None):
@@ -314,15 +319,18 @@ class PromptTTAClassifier:
     def prepare_fn(self, cparams, rparams, tf0, r_feats, views):
         """NHWC views [N, B, H, W, 3], u8 (CLIP-normalized here) or float
         (normalized) -> (img_feats [N, B, E], sel [N, S], reward_sim [N, S, C])."""
-        views = maybe_normalize_u8(views)
-        N, B = views.shape[:2]
-        img = clip_model.encode_image(cparams, self.clip_cfg, views.reshape((N * B,) + views.shape[2:]),
-                                      attn=self.attn)
-        img_feats, sel = self._select(cparams, tf0, img, N, B)
-        n_keep = sel.shape[1]
-        r_sim = self._reward_sim_fn(rparams, r_feats, take_rows(views, sel).reshape((N * n_keep,) + views.shape[2:]),
-                                    N, n_keep)
-        return img_feats, sel, r_sim
+        with span("prepare"):
+            with span("policy_fwd"):
+                views = maybe_normalize_u8(views)
+                N, B = views.shape[:2]
+                img = clip_model.encode_image(cparams, self.clip_cfg, views.reshape((N * B,) + views.shape[2:]),
+                                              attn=self.attn)
+            img_feats, sel = self._select(cparams, tf0, img, N, B)
+            n_keep = sel.shape[1]
+            with span("reward_fwd"):
+                r_sim = self._reward_sim_fn(rparams, r_feats,
+                                            take_rows(views, sel).reshape((N * n_keep,) + views.shape[2:]), N, n_keep)
+            return img_feats, sel, r_sim
 
     @torch.no_grad()
     def prepare(self, views):
@@ -339,19 +347,23 @@ class PromptTTAClassifier:
         export time, as in the JAX package)."""
         ecfg = self.ecfg
         N, _, E = img_feats.shape
-        sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, E))  # [N, S, E]
-        ctx = trainable0.detach()[None].expand(N, *trainable0.shape).clone()
-        state = adamw_init([ctx])
-        losses = []
-        for step in range(1, ecfg.tta_steps + 1):
-            loss, grad = self.step_grad_fn(cparams, ctx, pt_args, sel_feats, reward_sim)
-            (ctx,), state = adamw_step([ctx.detach()], [grad], state, step, ecfg.lr, ecfg.weight_decay, ecfg.adam_eps)
-            losses.append(loss)
-        with torch.no_grad():
-            tf = self.text_features_fn(cparams, ctx, pt_args) if ecfg.tta_steps > 0 else tf0.expand(N, -1, -1)
-            final = logit_scale(cparams) * torch.einsum("ne,nce->nc", img_feats[:, 0], tf)
-        stacked = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
-        return final, stacked
+        with span("episodes"):
+            sel_feats = torch.gather(img_feats, 1, sel[:, :, None].expand(-1, -1, E))  # [N, S, E]
+            ctx = trainable0.detach()[None].expand(N, *trainable0.shape).clone()
+            state = adamw_init([ctx])
+            losses = []
+            for step in range(1, ecfg.tta_steps + 1):
+                with span("step", step):
+                    loss, grad = self.step_grad_fn(cparams, ctx, pt_args, sel_feats, reward_sim)
+                    with span("adamw"):
+                        (ctx,), state = adamw_step([ctx.detach()], [grad], state, step, ecfg.lr, ecfg.weight_decay,
+                                                   ecfg.adam_eps)
+                losses.append(loss)
+            with torch.no_grad(), span("final"):
+                tf = self.text_features_fn(cparams, ctx, pt_args) if ecfg.tta_steps > 0 else tf0.expand(N, -1, -1)
+                final = logit_scale(cparams) * torch.einsum("ne,nce->nc", img_feats[:, 0], tf)
+            stacked = torch.stack(losses, dim=1) if losses else torch.zeros((N, 0), device=final.device)
+            return final, stacked
 
     def step_grad_fn(self, cparams, ctx, pt_args, sel_feats, reward_sim):
         """One step's losses [N] and the gradient [N, n_ctx, D] of their sum
@@ -361,12 +373,15 @@ class PromptTTAClassifier:
         teacher_scale = None if is_ensemble(self.reward) else logit_scale(self.reward.params)
         with torch.enable_grad():
             ctx = ctx.detach().requires_grad_(True)
-            logits = logit_scale(cparams) * torch.einsum("nse,nce->nsc", sel_feats,
-                                                         self.text_features_fn(cparams, ctx, pt_args))
-            loss = step_loss(logits, reward_sim, self.ecfg, self.reward.score_samples, teacher_scale)  # [N]
-            grad, = torch.autograd.grad(loss.sum(), ctx)
-        if self._tp_group is not None:
-            all_reduce_grads(grad, self._tp_group)
+            with span("text_fwd"):
+                logits = logit_scale(cparams) * torch.einsum("nse,nce->nsc", sel_feats,
+                                                             self.text_features_fn(cparams, ctx, pt_args))
+            with span("loss"):
+                loss = step_loss(logits, reward_sim, self.ecfg, self.reward.score_samples, teacher_scale)  # [N]
+            with span("text_bwd"):
+                grad, = torch.autograd.grad(loss.sum(), ctx)
+                if self._tp_group is not None:
+                    all_reduce_grads(grad, self._tp_group)
         return loss.detach(), grad
 
     def episodes(self, img_feats, sel, reward_sim):
@@ -393,8 +408,9 @@ class PromptTTAClassifier:
         """TTA from NHWC views [N, B, H, W, 3] (numpy or tensor; u8 pixels or
         normalized floats) -> (final logits [N, C], {"losses", "selected"}):
         any policy (ViT or ResNet), any reward or ensemble."""
-        views = torch.as_tensor(views_batch).to(self.device)
-        return self._run_group(views.shape[0], self.prepare, dp_slice(self.mesh, views))
+        with group():
+            views = torch.as_tensor(views_batch).to(self.device)
+            return self._run_group(views.shape[0], self.prepare, dp_slice(self.mesh, views))
 
     def adapt_tokens(self, policy_tokens, reward_tokens=None):
         """TTA from pre-patchified u8 views [N, B, (res/p)^2, p*p*3] (numpy
@@ -408,7 +424,6 @@ class PromptTTAClassifier:
         pd = self.clip_cfg.vision_patch_size ** 2 * 3
         if policy_tokens.shape[-1] != pd:
             raise ValueError(f"policy patch dim {policy_tokens.shape[-1]} doesn't match the tower (expect {pd})")
-        rtoks = None
         if reward_tokens is not None:
             rcfg = self.reward.cfg
             if not rcfg.is_vit:
@@ -423,10 +438,10 @@ class PromptTTAClassifier:
                     f"expects {n_tok_r}: views must be generated at the reward resolution "
                     f"({rcfg.image_resolution}px)"
                 )
-            rtoks = torch.as_tensor(reward_tokens).to(self.device)
-        ptoks = torch.as_tensor(policy_tokens).to(self.device)
-        rtoks = None if rtoks is None else dp_slice(self.mesh, rtoks)
-        return self._run_group(ptoks.shape[0], self.prepare_tokens, dp_slice(self.mesh, ptoks), rtoks)
+        with group():
+            rtoks = None if reward_tokens is None else dp_slice(self.mesh, torch.as_tensor(reward_tokens).to(self.device))
+            ptoks = torch.as_tensor(policy_tokens).to(self.device)
+            return self._run_group(ptoks.shape[0], self.prepare_tokens, dp_slice(self.mesh, ptoks), rtoks)
 
     def adapt_sources_fn(self, *, n_views: int, src_size: int = 256, resolution: int = 224, augmix: bool = True):
         """The flagship from u8 sources: ``adapt(images_planar_u8 [N, 3, S, S],
@@ -444,14 +459,16 @@ class PromptTTAClassifier:
                    p_policy=pcfg.vision_patch_size, p_reward=rcfg.vision_patch_size if reward_same else 0)
 
         def adapt(images_planar, seed):
-            images = torch.as_tensor(images_planar).to(self.device)
-            toks, local = group_views(self.mesh, images, seed, **fkw)
-            toks = toks if isinstance(toks, tuple) else (toks,)
-            if local:   # this rank's slice of the views: straight to its episodes
-                logits, aux = self._run_group(images.shape[0], self.prepare_tokens, *toks)
-            else:
-                logits, aux = self.adapt_tokens(*toks)
-            return logits, aux["losses"], int(seed) + 1
+            with group():
+                with span("views"):
+                    images = torch.as_tensor(images_planar).to(self.device)
+                    toks, local = group_views(self.mesh, images, seed, **fkw)
+                toks = toks if isinstance(toks, tuple) else (toks,)
+                if local:   # this rank's slice of the views: straight to its episodes
+                    logits, aux = self._run_group(images.shape[0], self.prepare_tokens, *toks)
+                else:
+                    logits, aux = self.adapt_tokens(*toks)
+                return logits, aux["losses"], int(seed) + 1
 
         return adapt
 

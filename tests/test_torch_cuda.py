@@ -1155,3 +1155,62 @@ def test_device_generator_matches_the_cpu(dev, augmix, hard_aug, R):
     diff = (card - TA.views_from_draws(imgs, draws, **kw)).abs()
     assert (diff > 1e-4).double().mean() <= 1e-3
     assert float((diff * torch.as_tensor(CLIP_STD) * 255.0).max()) <= 3.0
+
+
+def test_program_spans_and_device_operations_share_one_clock(dev, capsys):
+    """Under the benchmark's CUDA-only ``torch.profiler`` session the recorder
+    is on, and a program span around a long kernel and a synchronization
+    holds the kernel's device interval and the ``cudaDeviceSynchronize``
+    runtime record, with no offset fitted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rlcf_torch.utils import profiling as P
+
+    x = torch.randn(8192, 8192, device=dev)
+    torch.cuda.synchronize()
+    P.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with P.span("long"):
+            x @ x
+            torch.cuda.synchronize()
+    span, = P.recorded()
+    P.clear()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    ops = [e for e in events if e.device_type() == cuda and not e.is_user_annotation()]
+    longest = max(ops, key=lambda e: e.end_ns() - e.start_ns())
+    syncs = [e for e in events if e.name() == "cudaDeviceSynchronize"]
+    with capsys.disabled():
+        print(f"\nCLOCK kernel {longest.name()[:40]} {longest.end_ns() - longest.start_ns()} ns; span opens "
+              f"{longest.start_ns() - span.start} ns before it, closes {span.end - longest.end_ns()} ns after; "
+              f"sync records {[(e.start_ns() - span.start, span.end - e.end_ns()) for e in syncs]}")
+    assert longest.end_ns() - longest.start_ns() > 1e6
+    assert span.start <= longest.start_ns() <= longest.end_ns() <= span.end
+    assert any(span.start <= e.start_ns() <= e.end_ns() <= span.end for e in syncs)
+
+
+def test_host_syncs_are_counted_where_they_happen(dev):
+    """A pageable copy to the card inside a span counts one host sync there,
+    a matmul none; off, a span counts nothing and leaves the sync debug mode
+    at its default."""
+    from rlcf_torch.utils import profiling as P
+
+    x = torch.randn(64, 64, device=dev)
+    x @ x
+    torch.cuda.synchronize()
+    P.clear()
+    P.enable()
+    try:
+        with P.span("copy"):
+            torch.as_tensor(np.ones(3), device="cuda")
+        with P.span("matmul"):
+            x @ x
+        assert torch.cuda.get_sync_debug_mode() == 0
+    finally:
+        P.disable()
+    assert {s.name: s.counts.get("host_syncs", 0) for s in P.recorded()} == {"copy": 1, "matmul": 0}
+    P.clear()
+    with P.span("off"):
+        assert torch.cuda.get_sync_debug_mode() == 0
+        torch.as_tensor(np.ones(3), device="cuda")
+    assert P.recorded() == [] and torch.cuda.get_sync_debug_mode() == 0

@@ -1,7 +1,7 @@
 """``rlcf_torch/utils/flops.py`` against ``rlcf_tpu/utils/flops.py`` (the same
 FLOP counts for the towers the port runs, and ``bench.py``'s prompt-TTA
 accounting) and ``rlcf_torch/utils/profiling.py`` on the CPU (a Chrome trace
-written, no device memory without a card, the episode timer)."""
+written, no device memory without a card; the recorder: tests/test_torch_tracing.py)."""
 
 import json
 
@@ -47,8 +47,3 @@ def test_profiling_on_the_cpu(tmp_path):
         torch.ones(64, 64) @ torch.ones(64, 64)
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
-    timer = TP.EpisodeTimer()
-    for _ in range(2):
-        timer.start()
-        timer.stop(4, {"logits": torch.zeros(4, 3)})
-    assert timer.episodes == 8 and timer.seconds > 0 and timer.eps_per_sec > 0
