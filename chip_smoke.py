@@ -633,6 +633,84 @@ def check_flash_switch():
                                    kind="flash") for t in (384, 512)]
 
 
+BLOCK_SHAPES = (("text", (GROUP * 200, 16), 512, 2048), ("policy", (GROUP * VIEWS, 197), 768, 3072),
+                ("reward", (GROUP * 6, 257), 1024, 4096),   # the prompt-TTA cell's towers: rows, D, hidden
+                ("opt-2.7b", (16, 64), 2560, None), ("opt-6.7b", (16, 64), 4096, None))   # OPT's LayerNorms alone
+# the block kernels' variants (ops/block_ops.py's LAUNCHES): a transformer's forward, its backward, and the
+# column sums and reductions of the weight gradients
+BLOCK_FWD = ("ln_fwd", "add_ln_fwd", "bias_gelu_fwd", "bias_residual_fwd")
+BLOCK_BWD = ("ln_bwd", "bias_gelu_bwd")
+BLOCK_WGRAD = ("col_sums", "reduce")
+
+
+def block_launches(Bk):
+    """The block kernels' launches: each variant's under ``block_<variant>``,
+    all of them together under ``block_ops``."""
+    return {"block_ops": sum(Bk.LAUNCHES.values()), **{f"block_{k}": v for k, v in Bk.LAUNCHES.items()}}
+
+
+def check_block_ops():
+    """Phase 3: the block kernels (``ops/block_ops.py``, ``csrc/block_ops.cu``)
+    at the prompt-TTA cell's shapes in bf16 (and the LayerNorms at OPT-2.7b's
+    and OPT-6.7b's widths, one CTA a row), each against its plain version
+    (the largest difference within 2**-5 of the plain output's largest value:
+    a few bf16 roundings; ``tests/test_torch_block_ops.py`` holds them
+    elementwise) and timed beside its bound (each input read once and each
+    output written once at 3.35 TB/s), its plain version and, for the
+    LayerNorms, ``F.layer_norm`` (forward, and one autograd call through it
+    for the backward): the library yardstick, which the port never calls."""
+    from rlcf_torch.ops import block_ops as B
+
+    F = torch.nn.functional
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    entries = []
+    for what, lead, d, hidden in BLOCK_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(d)
+        r = lambda *s: torch.randn(*s, device=dev, generator=gen).to(bf16)
+        x, a, g, gy = r(*lead, d), r(*lead, d), r(*lead, d), r(*lead, d)
+        w, b, ab = r(d) * 0.5 + 1, r(d) * 0.5, r(d) * 0.5
+        u, gu, fb = r(*lead, hidden or 1), r(*lead, hidden or 1), r(hidden or 1) * 0.1
+        y, _, stats = B.launch_layer_norm(x, w, b, 1e-5, a, ab)
+        xr = x.detach().requires_grad_(True)
+        lib_out = F.layer_norm(xr, (d,), w, b)
+        act, hid, rows = x.numel() * 2, u.numel() * 2, x.numel() // d
+        cases = [   # kernel, its call, the plain version, the library's call, bytes
+            ("ln_fwd", lambda: B.launch_layer_norm(x, w, b, 1e-5)[1], lambda: B.layer_norm_plain(x, w, b),
+             lambda: F.layer_norm(x, (d,), w, b), 2 * act + 8 * rows),
+            ("add_ln_fwd", lambda: B.launch_layer_norm(x, w, b, 1e-5, a, ab)[1],
+             lambda: B.add_layer_norm_plain(x, a, ab, w, b)[1], None, 4 * act + 8 * rows),
+            ("ln_bwd", lambda: B.launch_layer_norm_bwd(y, g, gy, stats, w)[0],
+             lambda: B.layer_norm_bwd_plain(y, g, gy, stats, w)[0],
+             lambda: torch.autograd.grad(lib_out, xr, g, retain_graph=True), 4 * act + 8 * rows),
+            ("bias_gelu_fwd", lambda: B.launch_bias_quick_gelu(u, fb), lambda: B.bias_quick_gelu_plain(u, fb), None,
+             2 * hid),
+            ("bias_gelu_bwd", lambda: B.launch_bias_quick_gelu_bwd(u, fb, gu)[0],
+             lambda: B.bias_quick_gelu_bwd_plain(u, fb, gu)[0], None, 3 * hid),
+            ("bias_residual_fwd", lambda: B.launch_bias_residual(x, a, ab), lambda: B.bias_residual_plain(x, a, ab),
+             None, 3 * act)]
+        for kernel, fn, plain, library, nbytes in cases if hidden else cases[:3]:
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            top = float(want.float().abs().max())
+            if not bool(torch.isfinite(got).all()) or err > 2**-5 * top:
+                raise AssertionError(f"block {kernel} [{what}]: kernel disagrees with its plain version "
+                                     f"(max abs {err:.3e}, largest plain value {top:.3e})")
+            ms, plain_ms = time_ms(fn, 20, rounds=3), time_ms(plain, 20)
+            library_ms = time_ms(library, 20, rounds=3) if library else None
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            shape = f"{what} {'x'.join(map(str, lead))}x{hidden if 'gelu' in kernel else d} bf16"
+            log(f"KERNEL block_{kernel}[{shape}]: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={'null' if library_ms is None else f'{library_ms:.4f}'} bound_ms={bound:.4f} "
+                f"(bytes {nbytes / 1e6:.1f} MB) roofline={100 * bound / ms:.1f}%")
+            entries.append({"name": f"block_{kernel}[{shape}]", "route": "cuda", "source": "csrc/block_ops.cu",
+                            "variant": kernel, "on_paths": hidden is not None,
+                            "replaces": "none (XLA fused this work on the TPU)", "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": "bytes", "library_ms": library_ms})
+    return entries
+
+
 def augmix_ops(params, R, S):
     """fp32 operations this run's views need in the AugMix kernel: the crop's
     taps over the rows and columns each view's weights cover, then, where
@@ -794,6 +872,7 @@ def run_flagship(out_dir, viewgen, limit, precision="bf16", reward=REWARD, extra
     from rlcf_torch.cli import tta_cls
     from rlcf_torch.ops import attention as A
     from rlcf_torch.ops import augmix as X
+    from rlcf_torch.ops import block_ops as Bk
     from rlcf_torch.tasks.classification import PromptTTAClassifier
 
     device_views = viewgen == "device" or (viewgen == "auto" and "--hard_aug" in extra)   # the generator's floats
@@ -810,6 +889,7 @@ def run_flagship(out_dir, viewgen, limit, precision="bf16", reward=REWARD, extra
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()                 # counts start at 0 just before the path
     X.reset_launch_counts()
+    Bk.reset_launch_counts()
     try:
         t0 = time.perf_counter()
         results = tta_cls.main(flagship_argv(out_dir, precision=precision, limit=limit, viewgen=viewgen,
@@ -817,7 +897,7 @@ def run_flagship(out_dir, viewgen, limit, precision="bf16", reward=REWARD, extra
         wall = time.perf_counter() - t0
     finally:
         setattr(PromptTTAClassifier, entry, adapt)
-    launches = {**A.LAUNCHES, **X.LAUNCHES}     # read just after
+    launches = {**A.LAUNCHES, **X.LAUNCHES, **block_launches(Bk)}     # read just after
     by_shape = {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}
     path = path or (viewgen if precision == "bf16" else f"{viewgen} {precision}")
     for logits, losses in seen:
@@ -826,7 +906,8 @@ def run_flagship(out_dir, viewgen, limit, precision="bf16", reward=REWARD, extra
         if tuple(losses.shape) != (GROUP, STEPS) or not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"{path} losses {tuple(losses.shape)} not finite [{GROUP}, {STEPS}]")
     groups = limit // GROUP
-    kernels = ("fwd", "bwd", "augmix") if viewgen == "fused" else ("fwd", "bwd")
+    kernels = ("fwd", "bwd", *(f"block_{k}" for k in BLOCK_FWD + BLOCK_BWD))
+    kernels += ("augmix",) if viewgen == "fused" else ()
     if len(seen) != groups or any(launches[k] == 0 for k in kernels) or \
             (viewgen == "fused" and launches["augmix"] != groups) or (device_views and launches["augmix"]):
         raise AssertionError(f"{path} (--viewgen {viewgen} --precision {precision}) did not go through the "
@@ -1048,6 +1129,7 @@ def run_encoder(out_dir, limit, precision="bf16", arch=POLICY, res=RES, path=Non
     from rlcf_torch.models.clip import get_config
     from rlcf_torch.ops import attention as A
     from rlcf_torch.ops import augmix as X
+    from rlcf_torch.ops import block_ops as Bk
     from rlcf_torch.tasks.classification import EncoderTTAClassifier
 
     seen = []
@@ -1062,6 +1144,7 @@ def run_encoder(out_dir, limit, precision="bf16", arch=POLICY, res=RES, path=Non
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()                 # counts start at 0 just before the path
     X.reset_launch_counts()
+    Bk.reset_launch_counts()
     try:
         t0 = time.perf_counter()
         results = tune_cls.main(encoder_argv(out_dir, precision=precision, limit=limit, arch=arch, res=res,
@@ -1069,7 +1152,7 @@ def run_encoder(out_dir, limit, precision="bf16", arch=POLICY, res=RES, path=Non
         wall = time.perf_counter() - t0
     finally:
         EncoderTTAClassifier.adapt = adapt
-    launches = {**A.LAUNCHES, **X.LAUNCHES}     # read just after
+    launches = {**A.LAUNCHES, **X.LAUNCHES, **block_launches(Bk)}     # read just after
     by_shape = {**A.LAUNCH_SHAPES, **X.LAUNCH_SHAPES}
     variants = dict(A.LAUNCH_VARIANTS)
     for shape, logits, losses in seen:
@@ -1080,7 +1163,10 @@ def run_encoder(out_dir, limit, precision="bf16", arch=POLICY, res=RES, path=Non
     cfg = get_config(arch)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     bwd = "bwd_" + A.backward_variant(cfg.grid_size ** 2 + 1, dtype) if cfg.is_vit else None
-    if len(seen) != limit or launches["augmix"] or not launches["fwd"] or (bwd and not variants.get(bwd)):
+    # a ViT policy's backward runs the block's backward kernels and its norms' weight gradients; a ResNet's none
+    block = BLOCK_FWD + (BLOCK_BWD + BLOCK_WGRAD if cfg.is_vit else ())
+    if len(seen) != limit or launches["augmix"] or not launches["fwd"] or \
+            any(not launches[f"block_{k}"] for k in block) or (bwd and not variants.get(bwd)):
         raise AssertionError(f"encoder {arch} --precision {precision} did not go through the kernels: "
                              f"images={len(seen)} launches={launches} variants={variants}")
     secs = results["synthetic"]["group_seconds"]
@@ -2739,6 +2825,7 @@ def done(name):
     stage[name], mark[0] = time.perf_counter() - mark[0], time.perf_counter()
 import json, sys, torch
 from rlcf_torch.ops import attention as A
+from rlcf_torch.ops import block_ops as Bk
 from rlcf_torch.utils.export import deserialize_program
 from rlcf_torch.utils.profiling import device_memory_stats
 done("import_s")
@@ -2751,10 +2838,12 @@ args = (*saved["weights"], saved["tokens"])
 sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 done("load_s")
 A.reset_launch_counts()
+Bk.reset_launch_counts()
 logits = call(*args)
 sync()
 done("first_call_s")
-launches = {"launches": dict(A.LAUNCHES), "variants": dict(A.LAUNCH_VARIANTS),
+launches = {"launches": {**A.LAUNCHES, "block_ops": sum(Bk.LAUNCHES.values()),
+                         **{f"block_{k}": v for k, v in Bk.LAUNCHES.items()}}, "variants": dict(A.LAUNCH_VARIANTS),
             "launches_by_shape": {" ".join(map(str, k)): v for k, v in A.LAUNCH_SHAPES.items()}}
 first_sort = {}
 
@@ -2780,8 +2869,9 @@ with open(out + ".json", "w") as fh:
     json.dump({**launches, "group_ms": 1e3 * group_s / max(timed, 1), "memory": device_memory_stats(),
                "rlcf_nodes": targets, "port_modules": port, "stage_s": stage}, fh)
 """
-SERVE_MODULES = {"rlcf_torch", "rlcf_torch.ops", "rlcf_torch.ops.attention", "rlcf_torch.ops.cuda_build",
-                 "rlcf_torch.utils", "rlcf_torch.utils.export", "rlcf_torch.utils.profiling"}
+SERVE_MODULES = {"rlcf_torch", "rlcf_torch.ops", "rlcf_torch.ops.attention", "rlcf_torch.ops.block_ops",
+                 "rlcf_torch.ops.cuda_build", "rlcf_torch.utils", "rlcf_torch.utils.export",
+                 "rlcf_torch.utils.profiling"}
 
 
 def export_argv(out, precision, input_="tokens"):
@@ -2816,8 +2906,9 @@ def serving_export(out_dir, names, device="cuda"):
     """Phase 4i (a): ``export_serving --input tokens`` at the flagship's full
     width in bf16 and fp32, each artifact served in a fresh process against
     the eager ``adapt_tokens`` on the same tokens and weights; the served
-    program's graph holds both ``rlcf::`` ops and its launches count both
-    kernels. fp32: logits within SERVE_TOL and equal selections; bf16: the
+    program's graph holds both ``rlcf::`` attention ops and the block ops and
+    its launches count both attention kernels and the block kernels. fp32:
+    logits within SERVE_TOL and equal selections; bf16: the
     served and eager group ms (host clock to a synchronization), no claim.
     Returns (paths, line)."""
     from rlcf_torch.cli import export_serving
@@ -2851,6 +2942,9 @@ def serving_export(out_dir, names, device="cuda"):
         same_sel = bool(torch.equal(served["sorted"][:, :S], aux["selected"].cpu()))
         d_logits = float((served["logits"].float() - eager_logits.float().cpu()).abs().max())
         ops = ["rlcf.fused_attention.default", "rlcf.fused_attention_bwd.default"]
+        if device == "cuda":   # a capture on the card records the block ops too (on the CPU they are plain)
+            ops += [f"rlcf.{op}.default" for op in ("layer_norm", "add_layer_norm", "layer_norm_bwd", "bias_quick_gelu",
+                                                     "bias_quick_gelu_bwd", "bias_residual")]
         rec = {"artifact_mb": exported["bytes"] / 1e6, "trace_seconds": exported["trace_seconds"],
                "served_ms_per_group": served["group_ms"], "eager_ms_per_group": 1e3 * eager_s / SERVE_TIMED,
                "served_memory": served["memory"], "eager_memory": device_memory_stats(), "selected_equal": same_sel,
@@ -2859,7 +2953,7 @@ def serving_export(out_dir, names, device="cuda"):
                "rlcf_nodes": served["rlcf_nodes"], "serving_process_port_modules": served["port_modules"],
                "serving_process_stage_s": served["stage_s"]}
         log(f"SERVE {precision} " + json.dumps(rec))
-        launched = served["launches"]["fwd"] and served["launches"]["bwd"]
+        launched = all(served["launches"][k] for k in ("fwd", "bwd", *(f"block_{k}" for k in BLOCK_FWD + BLOCK_BWD)))
         if not all(op in served["rlcf_nodes"] for op in ops) or (device == "cuda" and not launched):
             raise AssertionError(f"{path}: the served program did not go through both kernels: {rec}")
         if tuple(served["logits"].shape) != (GROUP, len(names)) or not bool(torch.isfinite(served["logits"]).all()):
@@ -3826,6 +3920,7 @@ def main():
     from rlcf_torch.data.class_names import get_classnames
     from rlcf_torch.ops import attention as A
     from rlcf_torch.ops import augmix as X
+    from rlcf_torch.ops import block_ops as Bk
     from rlcf_torch.ops import cuda_build
     from rlcf_torch.tokenizer import tokenize
 
@@ -3839,10 +3934,11 @@ def main():
 
     # phase 2: one nvcc per source, all started together, beside the host pipeline's g++
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         builds = [pool.submit(A.build_mma, force=True), pool.submit(A.build_bwd_mma, force=True),
                   pool.submit(A.build_tf32, force=True), pool.submit(A.build_bwd_tf32, force=True),
-                  pool.submit(X.build, force=True), pool.submit(host_pipeline_error)]
+                  pool.submit(X.build, force=True), pool.submit(Bk.build, force=True),
+                  pool.submit(host_pipeline_error)]
         results = [b.result() for b in builds]
     for name in ("rlcf_attention_mma", "rlcf_attention_bwd_mma", "rlcf_attention_tf32", "rlcf_attention_bwd_tf32",
                  "rlcf_augmix"):
@@ -3851,11 +3947,16 @@ def main():
                 log(f"PTXAS {name}: " + line.strip()[:200])
             elif "Performance" in line:   # the whole line: it names the function at its end
                 log(f"PTXAS {name}: " + line.strip())
+    block_report = cuda_build.PTXAS["rlcf_block_ops"].splitlines()   # ~110 small kernels: their extremes
+    block_regs = [int(line.split("Used ")[1].split()[0]) for line in block_report if "registers" in line]
+    block_spills = [line.strip() for line in block_report if "spill" in line and " 0 bytes spill stores" not in line]
+    log(f"PTXAS rlcf_block_ops: {len(block_regs)} kernels, registers {min(block_regs)}-{max(block_regs)}, "
+        f"{len(block_spills)} with spills {block_spills[:2]}")
     if results[-1]:
         raise RuntimeError(f"the host view pipeline (native/rlcf_host.cpp) did not build: {results[-1]}")
     log(f"BUILD host pipeline with the JPEG/PNG decoder: {native.decode_available()} "
         f"({native._load()[1] or 'the codec build'})")
-    log(f"BUILD nvcc x5 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
+    log(f"BUILD nvcc x6 and g++ in parallel: {time.perf_counter() - t0:.1f} s")
     phase_done("1-2 device, build")
 
     if args.serving_only:
@@ -3965,6 +4066,7 @@ def main():
         check_sweep("bwd", dtype)
     flash_entries = check_flash_switch()
     entries += check_augmix()
+    block_entries = check_block_ops()
     phase_done("3 kernel checks")
     if args.kernels_only:
         return 3
@@ -4159,6 +4261,13 @@ def main():
     for e in flash_entries:
         key = " ".join(map(str, e.pop("shape")))
         line.append(dict(e, launches=sum(launched.get(key, {}).values()), launches_by_path=launched.get(key, {})))
+    # the block kernels: each row its variant's launches on each path that counts them (counted by variant,
+    # over every shape: the text, policy and reward rows of a variant share their counts; no path runs OPT's widths)
+    for e in block_entries:
+        key, on_paths = "block_" + e["variant"], e.pop("on_paths")
+        by_path = {flag["path"]: flag["launches"][key] for flag in paths
+                   if on_paths and key in flag.get("launches", {})}
+        line.append(dict(e, launches=sum(by_path.values()), launches_by_path=by_path))
     phase_done("5 kernels line")
     log("PHASES " + json.dumps(PHASE_SECONDS))
     log(f"TOTAL chip_smoke.py ran {time.perf_counter() - start:.1f} s")

@@ -2,9 +2,11 @@
 counterpart of ``rlcf_tpu/models/layers.py``).
 
 OpenAI CLIP blocks: fp32 LayerNorm whatever the activation dtype, QuickGELU,
-pre-LN residual attention blocks. Weights keep the JAX layout: linear
-weights ``[in, out]``, a transformer's blocks stacked on a leading layer axis
-(a Python loop over that axis takes the place of ``lax.scan``).
+pre-LN residual attention blocks (their LayerNorms, biases, QuickGELU and
+residuals through ``ops/block_ops.py``: fused kernels on the card). Weights
+keep the JAX layout: linear weights ``[in, out]``, a transformer's blocks
+stacked on a leading layer axis (a Python loop over that axis takes the place
+of ``lax.scan``).
 
 Per-episode weights: where the JAX package vmaps one episode's tower over N
 episodes, the port stacks the N episodes' weights on a leading axis (a
@@ -23,27 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-
-def _per_episode(v, x):
-    """A per-episode parameter ``[N, *s]`` viewed to broadcast against ``x [N, ..., *s]``."""
-    return v.reshape(v.shape[:1] + (1,) * (x.dim() - v.dim()) + v.shape[1:])
-
-
-def layer_norm(x, weight, bias, eps: float = 1e-5):
-    """LayerNorm computed in fp32 (population variance), cast back to x's
-    dtype; ``weight``/``bias`` ``[D]``, or ``[N, D]`` per episode."""
-    if weight.dim() == 2:
-        weight, bias = _per_episode(weight, x), _per_episode(bias, x)
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, keepdim=True, correction=0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
-    return y.to(x.dtype)
-
-
-def quick_gelu(x):
-    return x * torch.sigmoid(1.702 * x)
+from ..ops.block_ops import add_layer_norm, bias_quick_gelu, bias_residual, layer_norm, per_episode
 
 
 def linear(x, w, b=None):
@@ -57,7 +39,7 @@ def linear(x, w, b=None):
     else:   # one matrix (a per-episode weight expanded from one is applied as that one)
         y = torch.matmul(x.to(dt), (w[0] if w.dim() == 3 else w).to(dt)).to(x.dtype)
     if b is not None:
-        y = y + (_per_episode(b, y) if b.dim() == 2 else b).to(x.dtype)
+        y = y + (per_episode(b, y) if b.dim() == 2 else b).to(x.dtype)
     return y
 
 
@@ -127,10 +109,11 @@ def _block_in(x, p):
 
 def _block_out(x, o, p):
     """The rest of a block after attention ``o``: output projection, residual,
-    second LayerNorm, QuickGELU MLP, residual."""
-    x = x + linear(o, p["out_w"], p["out_b"])
-    h = layer_norm(x, p["ln2_w"], p["ln2_b"])
-    return x + linear(quick_gelu(linear(h, p["fc_w"], p["fc_b"])), p["proj_w"], p["proj_b"])
+    second LayerNorm, QuickGELU MLP, residual. The biases, residuals,
+    LayerNorm and QuickGELU are ``ops/block_ops.py``'s fused kernels on the
+    card (the plain composition elsewhere); the products stay matmuls."""
+    x, h = add_layer_norm(x, linear(o, p["out_w"]), p["out_b"], p["ln2_w"], p["ln2_b"])
+    return bias_residual(x, linear(bias_quick_gelu(linear(h, p["fc_w"]), p["fc_b"]), p["proj_w"]), p["proj_b"])
 
 
 def residual_block(x, p, n_heads: int, mask=None, attn: str = "dense"):

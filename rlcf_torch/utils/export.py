@@ -3,7 +3,7 @@ counterpart of ``rlcf_tpu/utils/export.py``.
 
 The whole episode (frozen towers, selection, the steps' forward, backward
 and AdamW update, the final prediction) is captured once into a graph of
-aten ops and the port's ``rlcf::`` attention ops, and saved. A serving
+aten ops and the port's ``rlcf::`` attention and block ops, and saved. A serving
 process loads it and runs it without the model code. Weights stay call
 arguments, so the artifact is small and one export serves any checkpoint of
 the same architecture.
@@ -19,13 +19,17 @@ Typical flow::
 
 The loaded program calls ``rlcf::fused_attention`` and
 ``rlcf::fused_attention_bwd``, which importing ``rlcf_torch.ops.attention``
-registers (this module imports it): on a CUDA tensor they launch the
+registers, and, from a capture on the card, the block ops (``rlcf::layer_norm``,
+``rlcf::add_layer_norm``, ``rlcf::bias_quick_gelu``, ``rlcf::bias_residual``
+and their backward ops), which importing ``rlcf_torch.ops.block_ops``
+registers (this module imports both): on a CUDA tensor they launch the
 hand-written kernels, which build at first use, on a CPU tensor they run the
 plain versions.
 
 The capture is two-stage. ``make_fx`` first traces the function through fake
 tensors below autograd, so the steps' backward becomes explicit aten ops and
-``rlcf::fused_attention_bwd`` nodes; ``torch.export.export`` (non-strict)
+``rlcf::fused_attention_bwd`` nodes (and the block ops' backward nodes);
+``torch.export.export`` (non-strict)
 then captures that graph. Exporting the function directly traces at the
 pre-dispatch level, where a batched matmul's backward saves a folded view of
 its input that the graph never records, and the export fails.
@@ -39,6 +43,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..ops import attention as _attention  # noqa: F401  (registers the rlcf:: ops the programs call)
+from ..ops import block_ops as _block_ops  # noqa: F401
 
 MAGIC = b"RLCFT001"
 PLATFORMS = ("cuda", "cpu")

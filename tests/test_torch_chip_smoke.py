@@ -270,3 +270,24 @@ def test_smoke_runs_the_views_phase_and_no_refusal_names_a16():
         assert "A16" not in (pathlib.Path(_PATH).parent / "rlcf_torch" / "cli" / f"{cli}.py").read_text()
         importlib.import_module(f"rlcf_torch.cli.{cli}").refuse_unported(
             importlib.import_module(f"rlcf_torch.cli.{cli}").get_args(["--hard_aug", "1"]))   # raises nothing
+
+
+def test_block_rows_and_path_checks_name_every_launch_counter():
+    """The smoke's block variants are exactly ``ops/block_ops.py``'s launch
+    counters, ``block_launches`` reports each under its own key, and each
+    kernel row of phase 3 times a counted variant: a row's launches are that
+    variant's, and a path check can require each kernel by name."""
+    from rlcf_torch.ops import block_ops as B
+
+    variants = chip_smoke.BLOCK_FWD + chip_smoke.BLOCK_BWD + chip_smoke.BLOCK_WGRAD
+    assert sorted(variants) == sorted(B.LAUNCHES)
+    B.reset_launch_counts()
+    B.LAUNCHES["ln_bwd"] = 3
+    got = chip_smoke.block_launches(B)
+    assert got["block_ops"] == 3 and got["block_ln_bwd"] == 3 and all(got[f"block_{k}"] == 0 for k in variants
+                                                                      if k != "ln_bwd")
+    B.reset_launch_counts()
+    src = _PATH.read_text()
+    rows = src[src.index("\ndef check_block_ops("):src.index("\ndef augmix_ops(")]
+    timed = [v for v in variants if f'("{v}", lambda' in rows]
+    assert timed == [v for v in variants if v not in chip_smoke.BLOCK_WGRAD]

@@ -47,10 +47,12 @@ def test_cli_import_leaves_jax_unloaded():
 
 def test_serving_loader_imports_no_model_code():
     """A serving process needs the ``rlcf::`` ops, not the models: importing
-    the export module loads, of the port, only the attention ops and their build."""
+    the export module loads, of the port, only the attention and block ops,
+    their build and the recorder the block ops count their launches in."""
     code = ("import sys, rlcf_torch.utils.export; "
             "print(sorted(m for m in sys.modules if m.startswith('rlcf_torch')))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert eval(res.stdout.strip()) == ["rlcf_torch", "rlcf_torch.ops", "rlcf_torch.ops.attention",
-                                        "rlcf_torch.ops.cuda_build", "rlcf_torch.utils", "rlcf_torch.utils.export"]
+                                        "rlcf_torch.ops.block_ops", "rlcf_torch.ops.cuda_build", "rlcf_torch.utils",
+                                        "rlcf_torch.utils.export", "rlcf_torch.utils.profiling"]
